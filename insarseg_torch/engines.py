@@ -1,0 +1,227 @@
+"""Inference-engine factory (counterpart of ``insarseg/engines.py``).
+
+- ``module`` — the ``nn.Module`` graph in eval mode;
+- ``serve``  — the BN-folded exact graph with deferred SE gates
+  (``models/unet_serve.py``);
+- ``int8``   — post-training quantization (needs calibration batches),
+  through the hand-written kernels K1-K3 (``models/unet_int8.py``).
+
+This slice serves ``model_name="unet"`` with attention ``none`` or
+``channel``. Its one departure from the JAX package's defaults: the int8
+engine packs the standard layout for UNet-CA, where the JAX package packs
+the H-space-to-depth layout (ROADMAP Queue 1 item 7). Every ``predict``
+takes and returns NHWC tensors and runs on the engine's device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from insarseg_torch.device import DeviceLike, resolve_device
+
+ENGINES = ("module", "serve", "int8")
+KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
+_TODO = {
+    "spatial": "the SA variant (ROADMAP Queue 1 item 2, Queue 2 K4)",
+    "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
+    "deeplabv3": "the ResNet families (ROADMAP Queue 1 item 14)",
+    "fcn": "the ResNet families (ROADMAP Queue 1 item 14)",
+    "pspnet": "the ResNet families (ROADMAP Queue 1 item 14)",
+    "mesh": "multi-GPU serving (ROADMAP Queue 1 item 16)",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"insarseg_torch does not port {_TODO[what]} "
+                               "yet")
+
+
+def _check_cell(model_name: str, attention: str, engine: str,
+                mesh: Any) -> str:
+    model_name = model_name.lower().replace("_", "-")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    if model_name not in KNOWN_MODELS:
+        raise ValueError(f"unknown model {model_name!r}; known models: "
+                         f"{KNOWN_MODELS}")
+    if model_name != "unet":
+        raise _not_ported(model_name)
+    if attention == "spatial":
+        raise _not_ported("spatial")
+    if attention not in ("none", "channel"):
+        raise ValueError(f"unknown attention {attention!r}")
+    if mesh is not None:
+        raise _not_ported("mesh")
+    return model_name
+
+
+def check_hw(shape: Tuple[int, ...], hdiv: int, wdiv: int,
+             engine: str, model: str) -> None:
+    """Guard for the packed engines' shape envelope: NHWC with H and W
+    divisible so every pooling level is even (the CA resize never fires,
+    so its omission from the packed graphs is exact)."""
+    if len(shape) != 4:
+        raise ValueError(
+            f"engine {engine!r} ({model}) expects NHWC images, got shape "
+            f"{tuple(shape)}")
+    _, h, w, _ = shape
+    if h % hdiv or w % wdiv:
+        raise ValueError(
+            f"engine {engine!r} ({model}) requires H divisible by {hdiv} "
+            f"and W divisible by {wdiv}; got H={h}, W={w}. Pad the input "
+            "or use engine='module' (no shape envelope).")
+
+
+def make_engine(
+    model_name: str,
+    attention: str,
+    model: torch.nn.Module,
+    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+    engine: str = "serve",
+    calib_batches: Optional[List[Any]] = None,
+    argmax: bool = False,
+    input_dtype: Optional[torch.dtype] = None,
+    mesh: Optional[Any] = None,
+    calib_stat: str = "absmax",
+    device: DeviceLike = None,
+):
+    """Build ``predict(images) -> logits | int32 class map`` on ``device``
+    (``None`` means ``cuda``).
+
+    ``state_dict`` defaults to ``model.state_dict()``. ``calib_batches``
+    (normalized f32 NHWC batches) is required for ``engine='int8'``;
+    ``calib_stat`` is 'absmax' or 'p<percent>'."""
+    _check_cell(model_name, attention, engine, mesh)
+    dev = resolve_device(device)
+    sd = model.state_dict() if state_dict is None else state_dict
+
+    if engine == "module":
+        from insarseg_torch.parallel.inference import make_predict_fn
+
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        return make_predict_fn(model, argmax=argmax, input_dtype=input_dtype,
+                               device=dev)
+    if engine == "serve":
+        from insarseg_torch.engines_io import to_torch_tree
+        from insarseg_torch.models.unet_serve import (
+            make_serve_predict_fn,
+            pack_unet_serve,
+        )
+
+        return make_serve_predict_fn(to_torch_tree(pack_unet_serve(sd), dev),
+                                     argmax=argmax, input_dtype=input_dtype)
+    if not calib_batches:
+        raise ValueError(
+            "engine='int8' needs at least one calibration batch "
+            "(calib_batches was "
+            f"{'None' if calib_batches is None else 'empty'}); collect "
+            "them with insarseg_torch.engines.collect_calib_batches")
+    from insarseg_torch.models.unet_int8 import (
+        make_int8_predict_fn,
+        pack_unet_int8,
+        prepare_int8,
+    )
+
+    packed = pack_unet_int8(sd, calib_batches, s2d=False,
+                            calib_stat=calib_stat, device=dev)
+    return make_int8_predict_fn(prepare_int8(packed, dev), argmax=argmax)
+
+
+def pack_engine(
+    model_name: str,
+    attention: str,
+    model: torch.nn.Module,
+    state_dict: Optional[Mapping[str, torch.Tensor]],
+    engine: str,
+    calib_batches: Optional[List[Any]] = None,
+    calib_stat: str = "absmax",
+    device: DeviceLike = None,
+) -> Dict[str, Any]:
+    """Pack (and for int8: calibrate on ``device``) a serving engine into
+    a portable artifact dict, the JAX package's format 1."""
+    model_name = _check_cell(model_name, attention, engine, None)
+    if engine == "module":
+        raise ValueError("the module engine is the live nn.Module graph; "
+                         "artifacts exist for 'serve' and 'int8' only")
+    sd = model.state_dict() if state_dict is None else state_dict
+    if engine == "serve":
+        from insarseg_torch.models.unet_serve import pack_unet_serve
+
+        tree = pack_unet_serve(sd)
+    else:
+        if not calib_batches:
+            raise ValueError("engine='int8' needs calibration batches")
+        from insarseg_torch.models.unet_int8 import pack_unet_int8
+
+        tree = pack_unet_int8(sd, calib_batches, s2d=False,
+                              calib_stat=calib_stat,
+                              device=resolve_device(device))
+    nc = getattr(model, "num_classes", None)
+    return {"format": 1, "model": model_name, "attention": attention,
+            "engine": engine,
+            "meta": {"num_classes": int(nc) if nc is not None else None},
+            "tree": tree}
+
+
+def engine_from_artifact(
+    artifact: Dict[str, Any],
+    argmax: bool = False,
+    input_dtype: Optional[torch.dtype] = None,
+    mesh: Optional[Any] = None,
+    device: DeviceLike = None,
+):
+    """Rebuild ``predict(images)`` from an artifact (in memory, or read
+    with ``insarseg_torch.engines_io.load_artifact``), written by either
+    package. An int8 artifact in the H-s2d layout raises."""
+    model_name, engine = artifact.get("model"), artifact.get("engine")
+    if artifact.get("format") != 1:
+        raise ValueError(
+            f"unsupported engine-artifact format {artifact.get('format')!r}"
+            " (this build reads format 1)")
+    if model_name not in KNOWN_MODELS or engine not in ("serve", "int8"):
+        raise ValueError(
+            f"bad engine artifact: model={model_name!r}, engine={engine!r}"
+            f" (known models: {KNOWN_MODELS})")
+    _check_cell(model_name, artifact.get("attention", "none"), engine, mesh)
+    dev = resolve_device(device)
+    if engine == "serve":
+        from insarseg_torch.engines_io import to_torch_tree
+        from insarseg_torch.models.unet_serve import make_serve_predict_fn
+
+        return make_serve_predict_fn(to_torch_tree(artifact["tree"], dev),
+                                     argmax=argmax, input_dtype=input_dtype)
+    from insarseg_torch.models.unet_int8 import (
+        make_int8_predict_fn,
+        prepare_int8,
+    )
+
+    return make_int8_predict_fn(prepare_int8(artifact["tree"], dev),
+                                argmax=argmax)
+
+
+def collect_calib_batches(loader, n: int, normalize_mean: float = 0.5,
+                          normalize_std: float = 0.5) -> List[np.ndarray]:
+    """Peek the first ``n`` batches off a loader as normalized f32 NHWC
+    arrays (uint8 images are renormalized). Raises if the loader yields
+    nothing."""
+    peek = iter(loader)
+    calib: List[np.ndarray] = []
+    for _ in range(max(n, 1)):
+        try:
+            b = next(peek)
+        except StopIteration:
+            break
+        raw = b["image"]
+        img = np.asarray(raw, np.float32)
+        if np.asarray(raw).dtype == np.uint8:
+            img = (img / 255.0 - normalize_mean) / normalize_std
+        calib.append(img)
+    if hasattr(peek, "close"):
+        peek.close()
+    if not calib:
+        raise ValueError("loader yielded no batches to calibrate on")
+    return calib

@@ -1,0 +1,42 @@
+"""Hand-written Hopper kernels of the int8 engine, with their plain
+PyTorch versions and launch counters.
+
+====  ==========================  =========================================
+id    wrapper                      replaces (JAX package)
+====  ==========================  =========================================
+K1    ``conv3x3_i8``               ``models/unet_int8.py::_conv_i8``
+K2    ``se_squeeze_i8`` +          ``models/unet_int8.py::_dc_i8`` SE tail
+      ``se_excite_i8``
+K3    ``maxpool2x2_i8``            ``models/unet_int8.py::_maxpool_i8``
+====  ==========================  =========================================
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel (building the library at first use) or raises.
+"""
+
+from insarseg_torch.kernels._lib import (
+    LAUNCHES,
+    build_info,
+    load_library,
+    reset_launches,
+)
+from insarseg_torch.kernels.conv_i8 import (
+    conv3x3_i8,
+    conv3x3_i8_plain,
+    repack_conv_weight,
+)
+from insarseg_torch.kernels.maxpool_i8 import maxpool2x2_i8, maxpool2x2_i8_plain
+from insarseg_torch.kernels.se_i8 import (
+    se_excite_i8,
+    se_excite_i8_plain,
+    se_squeeze_i8,
+    se_squeeze_i8_plain,
+)
+
+__all__ = [
+    "LAUNCHES", "build_info", "load_library", "reset_launches",
+    "conv3x3_i8", "conv3x3_i8_plain", "repack_conv_weight",
+    "maxpool2x2_i8", "maxpool2x2_i8_plain",
+    "se_excite_i8", "se_excite_i8_plain", "se_squeeze_i8",
+    "se_squeeze_i8_plain",
+]

@@ -1,0 +1,58 @@
+"""U-Net, plain and channel-attention (counterpart of
+``insarseg/models/unet.py::UNet``; the SA variant comes with its int8 gate
+kernel, ROADMAP Queue 2 K4).
+
+NCHW in and out, as the reference; module names follow the reference's
+state_dict (``inc``, ``down{i}`` = ``Sequential(MaxPool2d(2), DoubleConv)``,
+``up{i}``, ``conv{i}``, ``outc``), so the output of
+``insarseg_torch.compat.unet_variables_to_torch`` loads with
+``strict=True``. Topology: ``inc`` C_in->f, 4x (MaxPool2 + DoubleConv) to
+16f channels at H/16, 4x (ConvTranspose k2 s2 + concat[skip, up] +
+DoubleConv), 1x1 head. With ``use_se`` the decoder bilinear-resizes the
+upsampled tensor to the skip's size before the concat when they differ
+(``shape_fix``, default on iff ``use_se``, as the reference CA script).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from insarseg_torch.ops.blocks import DoubleConv
+from insarseg_torch.ops.resize import resize_bilinear
+
+
+class UNet(nn.Module):
+    def __init__(self, num_classes: int = 2, base_features: int = 64,
+                 use_se: bool = False, shape_fix: Optional[bool] = None,
+                 in_channels: int = 1):
+        super().__init__()
+        f = base_features
+        plan = (f, 2 * f, 4 * f, 8 * f, 16 * f)
+        self.num_classes = num_classes
+        self.use_se = use_se
+        self.shape_fix = use_se if shape_fix is None else shape_fix
+        self.inc = DoubleConv(in_channels, plan[0], use_se)
+        for i in range(1, 5):
+            setattr(self, f"down{i}", nn.Sequential(
+                nn.MaxPool2d(2), DoubleConv(plan[i - 1], plan[i], use_se)))
+        for i in range(1, 5):
+            cin, cout = plan[5 - i], plan[4 - i]
+            setattr(self, f"up{i}", nn.ConvTranspose2d(cin, cout, 2, stride=2))
+            setattr(self, f"conv{i}", DoubleConv(2 * cout, cout, use_se))
+        self.outc = nn.Conv2d(plan[0], num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.inc(x)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        y = self.down4(x4)
+        for i, skip in ((1, x4), (2, x3), (3, x2), (4, x1)):
+            y = getattr(self, f"up{i}")(y)
+            if self.shape_fix and y.shape[2:] != skip.shape[2:]:
+                y = resize_bilinear(y, skip.shape[2:])
+            y = getattr(self, f"conv{i}")(torch.cat([skip, y], dim=1))
+        return self.outc(y)

@@ -1,0 +1,79 @@
+"""Shared set-up for the port's parity tests (insarseg_torch vs insarseg),
+plus the weight-bridge tests: one set of weights, made with numpy from a
+seed, crosses from the JAX tree to the port through the port's bridge."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from insarseg.compat.torch_io import unet_variables_to_torch as jax_to_torch
+from insarseg.models.unet import UNet as JaxUNet
+from insarseg_torch.compat import state_dict_to_torch, unet_variables_to_torch
+from insarseg_torch.models.unet import UNet
+
+CPU = torch.device("cpu")
+
+
+def smooth(rng, shape):
+    """Smooth random NHWC images (f32): coarse noise, bilinear upsampled."""
+    b, h, w, c = shape
+    coarse = rng.standard_normal((b, max(h // 4, 1), max(w // 4, 1), c))
+    return np.array(jax.image.resize(
+        jnp.asarray(coarse, jnp.float32), shape, "bilinear"))
+
+
+def random_bn_stats(variables, seed=0):
+    """Replace the init BN statistics/affines with random ones (var > 0),
+    so BN folding is exercised with non-trivial values."""
+    rng = np.random.default_rng(seed)
+
+    def bn(p, s):
+        c = p["scale"].shape[0]
+        p["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        p["bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+        s["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        s["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    params = jax.tree.map(np.array, variables["params"])
+    stats = jax.tree.map(np.array, variables["batch_stats"])
+
+    def walk(p, s):
+        for k in s:
+            if "mean" in s[k]:
+                bn(p[k], s[k])
+            else:
+                walk(p[k], s[k])
+
+    walk(params, stats)
+    return {"params": params, "batch_stats": stats}
+
+
+def make_pair(base=16, use_se=True, hw=32, seed=0, nc=2):
+    """(JAX model, JAX variables as numpy, port UNet with those weights)."""
+    jm = JaxUNet(num_classes=nc, base_features=base, use_se=use_se)
+    v = jm.init(jax.random.key(seed), jnp.zeros((1, hw, hw, 1)))
+    v = random_bn_stats(v, seed)
+    tm = UNet(num_classes=nc, base_features=base, use_se=use_se)
+    tm.load_state_dict(state_dict_to_torch(
+        unet_variables_to_torch(v, use_se=use_se)), strict=True)
+    return jm, v, tm.eval()
+
+
+@pytest.mark.parametrize("use_se", [True, False])
+def test_bridge_matches_jax_package(use_se):
+    _, v, _ = make_pair(use_se=use_se)
+    ours = unet_variables_to_torch(v, use_se=use_se)
+    ref = jax_to_torch(v, use_se=use_se)
+    assert list(ours) == list(ref)
+    for k in ref:
+        assert ours[k].shape == ref[k].shape, k
+        assert ours[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+
+
+def test_bridge_loads_strict_into_port_unet():
+    _, v, tm = make_pair(use_se=True)
+    sd = unet_variables_to_torch(v, use_se=True)
+    assert set(sd) == set(tm.state_dict())

@@ -1,0 +1,110 @@
+"""The int8 kernels K1-K3 on the card against their plain versions, at
+small and ragged shapes (partial channel chunks, tiles cut by the image
+border, output channels that are not a multiple of the kernel's tile).
+Outputs must be exactly equal.
+
+Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
+JAX, so it runs where only the port is installed:
+``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
+
+import numpy as np
+import pytest
+import torch
+
+from insarseg_torch import kernels as K
+from insarseg_torch.ops.quant import quant_weight
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    K.load_library()
+    return torch.device("cuda")
+
+
+def _conv_args(gen, b, h, w, cin, cout, bf16_exit, dev):
+    q = torch.from_numpy(quant_weight(np.random.default_rng(cin + cout)
+                                      .normal(0, 1, (3, 3, cin, cout)))["q"])
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    acc_sd = 127.0 * 127.0 * np.sqrt(9 * cin) / 3
+    mult = (torch.rand(cout, generator=gen) + 0.5) * (60 / acc_sd)
+    off = torch.randn(cout, generator=gen) * 10
+    return (x.to(dev), K.repack_conv_weight(q).to(dev), mult.to(dev),
+            off.to(dev), None if bf16_exit else 0.75)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 32, 32, 1, 64), (1, 20, 36, 40, 64), (2, 16, 48, 64, 40),
+    (1, 17, 9, 96, 128), (1, 8, 8, 256, 16),
+])
+@pytest.mark.parametrize("bf16_exit", [False, True])
+def test_k1_equals_plain(dev, b, h, w, cin, cout, bf16_exit):
+    gen = torch.Generator().manual_seed(h * w + cin)
+    args = _conv_args(gen, b, h, w, cin, cout, bf16_exit, dev)
+    before = K.LAUNCHES["int8_conv3x3_epilogue"]
+    got = K.conv3x3_i8(*args)
+    assert K.LAUNCHES["int8_conv3x3_epilogue"] == before + 1
+    want = K.conv3x3_i8_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 16, 64), (3, 7, 5, 48),
+                                     (1, 4, 4, 1024)])
+@pytest.mark.parametrize("gain_dtype", [torch.float32, torch.bfloat16])
+def test_k2_equals_plain(dev, b, h, w, c, gain_dtype):
+    gen = torch.Generator().manual_seed(b * c)
+    q = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                      dtype=torch.int8).to(dev)
+    assert torch.equal(K.se_squeeze_i8(q), K.se_squeeze_i8_plain(q))
+    gain = (torch.rand((b, c), generator=gen) * 2).to(gain_dtype).to(dev)
+    got = K.se_excite_i8(q, gain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.se_excite_i8_plain(q, gain))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 16, 64), (1, 7, 9, 32)])
+def test_k3_equals_plain(dev, b, h, w, c):
+    gen = torch.Generator().manual_seed(h + c)
+    q = torch.randint(-128, 128, (b, h, w, c), generator=gen,
+                      dtype=torch.int8).to(dev)
+    got = K.maxpool2x2_i8(q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.maxpool2x2_i8_plain(q))
+
+
+def test_wrappers_reject_bad_input(dev):
+    q = torch.zeros((1, 4, 4, 24), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        K.maxpool2x2_i8(q)  # C % 16 != 0
+    with pytest.raises(TypeError):
+        K.se_squeeze_i8(torch.zeros((1, 4, 4, 32), dtype=torch.int32,
+                                    device=dev))
+
+
+def test_int8_engine_card_vs_cpu(dev):
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.models.unet_int8 import (
+        make_int8_predict_fn,
+        pack_unet_int8,
+        prepare_int8,
+    )
+
+    torch.manual_seed(0)
+    model = UNet(num_classes=2, base_features=16, use_se=True).eval()
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
+        .astype(np.float32)
+    tree = pack_unet_int8(model.state_dict(), [x], device=dev)
+    before = dict(K.LAUNCHES)
+    gpu = make_int8_predict_fn(prepare_int8(tree, dev))(x).float().cpu()
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    assert launched == {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
+                        "se_excite_i8": 9, "maxpool2x2_i8": 4}
+    cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
+    rel = float((gpu - cpu).abs().max() / cpu.abs().max())
+    agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
+    assert rel <= 2e-2 and agree >= 0.995, (rel, agree)

@@ -1,0 +1,86 @@
+"""Guards of the port's boundaries: insarseg_torch (and chip_smoke.py)
+import nothing of JAX or of the JAX package, entry points default to CUDA
+and raise without a card, and chip_smoke.py refuses to run without one."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "insarseg_torch"
+FORBIDDEN = ("jax", "flax", "insarseg", "jaxlib", "optax", "orbax")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_jax_or_insarseg_imports_in_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'flax', 'jaxlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import insarseg_torch\n"
+        "for info in pkgutil.walk_packages(insarseg_torch.__path__,\n"
+        "                                  'insarseg_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'insarseg' or m.startswith('insarseg.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    from insarseg_torch.data.stitch import sliding_window_inference
+    from insarseg_torch.engines import make_engine
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.parallel.inference import make_predict_fn
+
+    model = UNet(base_features=16, use_se=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine("unet", "channel", model, None, "serve")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_predict_fn(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sliding_window_inference(lambda t: t, np.zeros((32, 32, 1)), 32, 0)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from insarseg_torch.kernels import maxpool2x2_i8
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        maxpool2x2_i8(torch.zeros((1, 2, 2, 16), dtype=torch.int8,
+                                  device="meta"))
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
