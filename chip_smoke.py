@@ -6,25 +6,33 @@ It needs one CUDA device and exits non-zero, printing no result, without
 one. It imports the port only (no JAX, nothing of ``insarseg``) and:
 
 1. builds the hand-written kernels from ``insarseg_torch/csrc`` (nvcc for
-   sm_90a, into ``insarseg_torch/_build/``) and prints the build time and
-   the card's name and power limit;
+   sm_90a, one process per source, into ``insarseg_torch/_build/``) and
+   prints the build time and the card's name and power limit;
 2. holds every kernel to its plain PyTorch version on the card, exactly,
    at fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 with both exits,
-   K2 at 512^2x64 and 32^2x1024 with both exits, K3 at 512^2x64), then at
-   the shapes and on the tensors of one int8 U-Net-CA forward (512^2, b8),
-   timing each kernel, its plain version, a PyTorch reference call where
-   one exists, and computing each call's bound;
-3. drives the main path at full width — U-Net-CA (base 64, 1 -> 2
-   classes) with seeded random weights through ``make_engine`` 'module'
-   (f32), 'serve' (f32 and bf16 input) and 'int8' (calibrated on two
-   seeded 512^2 batches), each serving batches of eight 512^2 tiles, and a
-   1024^2 scene through ``sliding_window_inference`` on the int8 engine —
-   with the launch counters set to 0 just before and read just after;
+   K2 at 512^2x64 and 32^2x1024 with both exits, K3 at 512^2x64; K5a at
+   k1/k3 x stride 1/2 x dilation 1/2/4/12/36 x every exit x ReLU or not x
+   no / int8 / f32 identity, and at Cin 1280 and 2048; K5b with both
+   identities), then on the tensors of one int8 forward of each main path
+   (512^2, b8), timing each kernel, its plain version, a PyTorch reference
+   call where one exists, and computing each call's bound (a kernel's row
+   sums its calls over the main paths that launch it);
+3. drives three main paths at full width with seeded random weights, each
+   with the launch counters set to 0 just before and read just after:
+   U-Net-CA (base 64), FCN-ResNet50-CA and DeepLabV3-ResNet50, 1 -> 2
+   classes, through ``make_engine`` 'module' (f32), 'serve' (f32 and bf16
+   input) and 'int8' (calibrated on two seeded 512^2 batches), each
+   serving batches of eight 512^2 tiles, plus a 1024^2 scene through
+   ``sliding_window_inference`` on the U-Net and FCN int8 engines; then
+   DeepLab-CA, DeepLab-SA, FCN and FCN-SA once each through 'int8'
+   (512^2, b2);
 4. checks the outputs: serve f32 within 1e-3 x max|logit| of module f32
-   (TF32 off), int8 logits correlated > 0.98 with serve's, 18 / 9 / 9 / 4
-   launches of K1 / K2 squeeze / K2 excite / K3 per int8 forward, the int8
-   engine on the card against the same tree on the CPU (plain versions),
-   a finite (1024, 1024, 2) scene;
+   (TF32 off), int8 logits correlated with serve's > 0.98 (U-Net) and
+   > 0.97 (ResNet cells, the JAX package's bar), the launches per int8
+   forward (U-Net 18 / 9 / 9 / 4 of K1 / K2 squeeze / K2 excite / K3;
+   FCN-CA 53 / 16 / 16 of K5a / K5b / K2 squeeze; DeepLabV3 58 K5a and one
+   K2 squeeze), the int8 engines on the card against the same trees on the
+   CPU (plain versions), finite scenes;
 5. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
    power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -38,8 +46,9 @@ import time
 
 import numpy as np
 
-PEAK_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate, operations/s
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth, bytes/s
+# NVIDIA's published H100 SXM peaks at the full 700 W power limit
+PEAK_OPS = 1979e12    # dense int8 tensor-core rate, operations/s
+PEAK_BYTES = 3.35e12  # HBM3 bandwidth, bytes/s
 BATCH, HW, BASE = 8, 512, 64
 SEED = 0
 
@@ -93,23 +102,6 @@ def same(a, b) -> float:
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def conv_case(gen, b, h, w, cin, cout, bf16_exit, dev):
-    import torch
-    from insarseg_torch.kernels import repack_conv_weight
-    from insarseg_torch.ops.quant import quant_weight
-
-    q = torch.from_numpy(quant_weight(
-        np.random.default_rng(cin * 7 + cout).normal(
-            0, 1, (3, 3, cin, cout)))["q"])
-    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
-                      dtype=torch.int8).to(dev)
-    acc_sd = 127.0 * 127.0 * np.sqrt(9 * cin) / 3
-    mult = (torch.rand(cout, generator=gen) + 0.5) * (60 / acc_sd)
-    off = torch.randn(cout, generator=gen) * 10
-    return (x, repack_conv_weight(q).to(dev), mult.to(dev), off.to(dev),
-            None if bf16_exit else 1.0)
-
-
 def check_fixed_shapes(dev) -> None:
     import torch
     from insarseg_torch import kernels as K
@@ -117,9 +109,11 @@ def check_fixed_shapes(dev) -> None:
     gen = torch.Generator().manual_seed(SEED)
     for cin in (1, 64, 1024):
         for hw in (512, 128, 32):
-            for bf16_exit in (False, True):
+            for exit_ in ("s8", "bf16"):
                 cout = 1024 if hw == 32 else 64
-                args = conv_case(gen, 1, hw, hw, cin, cout, bf16_exit, dev)
+                args, kw = k5a_case(gen, 1, hw, hw, cin, cout, 3, exit_,
+                                    "none", dev)
+                args += (kw["out_s"],)
                 same(K.conv3x3_i8(*args), K.conv3x3_i8_plain(*args))
     log("K1 int8_conv3x3_epilogue == plain at Cin 1/64/1024 x "
         "512^2/128^2/32^2, int8 and bf16 exits")
@@ -139,131 +133,261 @@ def check_fixed_shapes(dev) -> None:
     torch.cuda.synchronize()
 
 
-def record_calls(predict, images):
-    """One int8 forward with the kernel wrappers recording their
-    arguments: the tensors the main path gives each kernel."""
-    from insarseg_torch.models import unet_int8 as M
+K5A_GEOMETRY = ((3, 1, 1), (3, 2, 1), (3, 1, 2), (3, 1, 4), (3, 1, 12),
+                (3, 1, 36), (1, 1, 1), (1, 2, 1))
 
-    calls = {"conv": [], "squeeze": [], "excite": [], "pool": []}
-    orig = {n: getattr(M, n) for n in ("conv3x3_i8", "se_squeeze_i8",
-                                       "se_excite_i8", "maxpool2x2_i8")}
+
+def k5a_case(gen, b, h, w, cin, cout, k, exit_, idn_kind, dev, stride=1):
+    """Arguments of one K5a call whose epilogue spans the int8 range (K1
+    takes the first four and ``out_s``)."""
+    import torch
+    from insarseg_torch.kernels import repack_conv_weight
+    from insarseg_torch.ops.quant import quant_weight
+
+    q = torch.from_numpy(quant_weight(
+        np.random.default_rng(cin * 7 + cout + k).normal(
+            0, 1, (k, k, cin, cout)))["q"])
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    acc_sd = 127.0 * 127.0 * np.sqrt(k * k * cin) / 3
+    mult = (torch.rand(cout, generator=gen) + 0.5) * (60 / acc_sd)
+    off = torch.randn(cout, generator=gen) * 10
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    idn, in_s = None, None
+    if idn_kind == "s8":
+        idn, in_s = torch.randint(-127, 128, (b, ho, wo, cout), generator=gen,
+                                  dtype=torch.int8).to(dev), 0.3
+    elif idn_kind == "f32":
+        idn = (torch.randn((b, ho, wo, cout), generator=gen) * 20).to(dev)
+    return ((x.to(dev), repack_conv_weight(q).to(dev), mult.to(dev),
+             off.to(dev)),
+            {"out_s": 0.5 if exit_ == "s8" else None, "bf16": exit_ == "bf16",
+             "idn": idn, "in_s": in_s})
+
+
+def check_resnet_fixed_shapes(dev) -> None:
+    import torch
+    from insarseg_torch import kernels as K
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    n = 0
+    for k, stride, dil in K5A_GEOMETRY:
+        for exit_ in ("s8", "f32", "bf16"):
+            for idn_kind in ("none", "s8", "f32"):
+                for relu in (True, False):
+                    args, kw = k5a_case(gen, 2, 40, 36, 64, 80, k, exit_,
+                                        idn_kind, dev, stride)
+                    kw.update(stride=stride, dilation=dil, relu=relu)
+                    same(K.conv_i8(*args, **kw), K.conv_i8_plain(*args, **kw))
+                    n += 1
+    # the main path's wide and deep cases: ASPP at rates 12/36 on a 64^2
+    # map (Cin 2048), the projection (Cin 1280), layer4's 1x1s (Cin 2048,
+    # f32 exit and f32 identity), the stride-2 downsample (f32 exit)
+    for b, hw, cin, cout, k, stride, dil, exit_, idn_kind in (
+            (1, 64, 2048, 256, 3, 1, 12, "s8", "none"),
+            (1, 64, 2048, 256, 3, 1, 36, "s8", "none"),
+            (1, 64, 1280, 256, 1, 1, 1, "s8", "none"),
+            (1, 64, 2048, 512, 1, 1, 1, "s8", "none"),
+            (1, 64, 512, 2048, 1, 1, 1, "s8", "f32"),
+            (1, 64, 512, 2048, 1, 1, 1, "s8", "s8"),
+            (1, 128, 256, 512, 1, 2, 1, "f32", "none"),
+            (1, 64, 2048, 512, 3, 1, 4, "bf16", "none")):
+        args, kw = k5a_case(gen, b, hw, hw, cin, cout, k, exit_, idn_kind,
+                            dev, stride)
+        kw.update(stride=stride, dilation=dil, relu=True)
+        same(K.conv_i8(*args, **kw), K.conv_i8_plain(*args, **kw))
+        n += 1
+    log(f"K5a int8_conv_epilogue == plain in {n} cases: k1/k3 x stride 1/2 "
+        "x dilation 1/2/4/12/36 x s8/f32/bf16 exits x no/s8/f32 identity x "
+        "ReLU or not, and Cin 1280/2048 at 64^2")
+    for shape in ((2, 32, 32, 256), (1, 64, 64, 2048), (3, 7, 5, 48)):
+        y3q = torch.randint(-127, 128, shape, generator=gen,
+                            dtype=torch.int8).to(dev)
+        gate = (torch.rand((shape[0], shape[3]), generator=gen) * 0.05) \
+            .to(dev)
+        for idn in (torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev),
+                    (torch.randn(shape, generator=gen) * 3).to(dev)):
+            in_s = 0.02 if idn.dtype == torch.int8 else None
+            same(K.se_residual_i8(y3q, gate, idn, in_s, 0.03),
+                 K.se_residual_i8_plain(y3q, gate, idn, in_s, 0.03))
+    log("K5b se_residual_i8 == plain at 32^2x256, 64^2x2048, 7x5x48, int8 "
+        "and f32 identity")
+    torch.cuda.synchronize()
+
+
+def record_calls(module, names, predict, images):
+    """One int8 forward with the kernel wrappers ``names`` of ``module``
+    recording their arguments (bound to the wrappers' parameter names):
+    the tensors the main path gives each kernel."""
+    import inspect
+
+    calls = {n: [] for n in names}
+    orig = {n: getattr(module, n) for n in names}
 
     def rec(key, fn):
-        def wrapped(*args):
-            calls[key].append(args)
-            return fn(*args)
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kwargs):
+            bound_args = sig.bind(*args, **kwargs)
+            bound_args.apply_defaults()
+            calls[key].append(dict(bound_args.arguments))
+            return fn(*args, **kwargs)
         return wrapped
 
-    M.conv3x3_i8 = rec("conv", orig["conv3x3_i8"])
-    M.se_squeeze_i8 = rec("squeeze", orig["se_squeeze_i8"])
-    M.se_excite_i8 = rec("excite", orig["se_excite_i8"])
-    M.maxpool2x2_i8 = rec("pool", orig["maxpool2x2_i8"])
+    for n, fn in orig.items():
+        setattr(module, n, rec(n, fn))
     try:
         predict(images)
     finally:
         for n, fn in orig.items():
-            setattr(M, n, fn)
+            setattr(module, n, fn)
     return calls
 
 
-def time_main_path_kernels(calls):
+def kernel_row(name, source, replaces, cases):
     """Per call: equal to the plain version, kernel / plain / library ms
-    and the bound. Returns the kernel table (sums over one forward)."""
+    and the bound. Returns the kernel's row (sums over the calls)."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0}
+    err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
+    has_lib = True
+    for c in cases:
+        err = max(err, same(c["kernel"](), c["plain"]()))
+        ms = cuda_ms(c["kernel"], reps=5)
+        pms = cuda_ms(c["plain"], reps=2)
+        bms, by = bound(c["ops"], c["bytes"])
+        lms = None if c["lib"] is None else cuda_ms(c["lib"], reps=5)
+        log(f"  {name} {c['shape']}: {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {'-' if lms is None else f'{lms:.4f}'} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        tot["ms"] += ms
+        tot["plain_ms"] += pms
+        tot["bound_ms"] += bms
+        by_time[by] += bms
+        if lms is None:
+            has_lib = False
+        else:
+            tot["lib"] += lms
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": max(by_time, key=by_time.get),
+            "library_ms": tot["lib"] if has_lib else None,
+            "calls_timed": len(cases)}
+
+
+# kernel name -> (its wrapper in insarseg_torch.kernels, source, the JAX
+# site it replaces)
+KERNELS = {
+    "int8_conv3x3_epilogue": ("conv3x3_i8", "int8_conv3x3.cu",
+                              "insarseg/models/unet_int8.py:287"),
+    "se_squeeze_i8": ("se_squeeze_i8", "se_i8.cu",
+                      "insarseg/models/unet_int8.py:299"),
+    "se_excite_i8": ("se_excite_i8", "se_i8.cu",
+                     "insarseg/models/unet_int8.py:303"),
+    "maxpool2x2_i8": ("maxpool2x2_i8", "maxpool2x2_i8.cu",
+                      "insarseg/models/unet_int8.py:322"),
+    "int8_conv_epilogue": ("conv_i8", "conv_i8.cu",
+                           "insarseg/models/resnet_int8.py:231"),
+    "se_residual_i8": ("se_residual_i8", "block_i8.cu",
+                       "insarseg/models/resnet_int8.py:262"),
+}
+
+
+def kernel_cases(calls):
+    """Timing cases, per wrapper, on the tensors ``record_calls`` took."""
     import torch
     import torch.nn.functional as F
     from insarseg_torch import kernels as K
 
-    def row(name, source, replaces, cases):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0}
-        err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
-        has_lib = True
-        for c in cases:
-            err = max(err, same(c["kernel"](), c["plain"]()))
-            ms = cuda_ms(c["kernel"], reps=5)
-            pms = cuda_ms(c["plain"], reps=2)
-            bms, by = bound(c["ops"], c["bytes"])
-            lms = None if c["lib"] is None else cuda_ms(c["lib"], reps=5)
-            log(f"  {name} {c['shape']}: {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"library {'-' if lms is None else f'{lms:.4f}'} ms, "
-                f"bound {bms:.4f} ms ({by})")
-            tot["ms"] += ms
-            tot["plain_ms"] += pms
-            tot["bound_ms"] += bms
-            by_time[by] += bms
-            if lms is None:
-                has_lib = False
-            else:
-                tot["lib"] += lms
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": None,
-                "max_abs_err": err, "ms": tot["ms"],
-                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                "bound_by": max(by_time, key=by_time.get),
-                "library_ms": tot["lib"] if has_lib else None,
-                "calls_per_forward": len(cases)}
-
-    conv_cases = []
-    for x, w, mult, off, out_s in calls["conv"]:
+    def conv(fn, a):  # K1 (3x3, stride 1, int8 or bf16 exit) and K5a
+        x, w, out_s = a["x"], a["w"], a["out_s"]
         b, h, wd, cin = x.shape
-        cout = w.shape[0]
-        out_bytes = b * h * wd * cout * (2 if out_s is None else 1)
+        cout, k = w.shape[0], w.shape[1]
+        st, dil = a.get("stride", 1), a.get("dilation", 1)
+        pad = dil * (k - 1) // 2
+        ho = (h + 2 * pad - dil * (k - 1) - 1) // st + 1
+        wo = (wd + 2 * pad - dil * (k - 1) - 1) // st + 1
+        exit_ = "s8" if out_s is not None else (
+            "bf16" if a.get("bf16", True) else "f32")
+        idn = a.get("idn")
+        idn_bytes = 0 if idn is None else idn.numel() * idn.element_size()
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last
         wb = w[..., :cin].permute(0, 3, 1, 2).to(torch.bfloat16)
-        conv_cases.append({
-            "shape": f"b{b} {h}x{wd} {cin}->{cout}",
-            "kernel": lambda a=(x, w, mult, off, out_s): K.conv3x3_i8(*a),
-            "plain": lambda a=(x, w, mult, off, out_s):
-                K.conv3x3_i8_plain(*a),
-            "lib": lambda xb=xb, wb=wb: F.conv2d(xb, wb, padding=1),
-            "ops": 2.0 * b * h * wd * cin * cout * 9,
-            "bytes": x.numel() + 9 * cin * cout + 8 * cout + out_bytes})
-    sq_cases = [{
-        "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]}",
-        "kernel": lambda q=q: K.se_squeeze_i8(q),
-        "plain": lambda q=q: K.se_squeeze_i8_plain(q),
-        "lib": lambda q=q: torch.sum(q, dim=(1, 2), dtype=torch.int32),
-        "ops": float(q.numel()),
-        "bytes": q.numel() + 4 * q.shape[0] * q.shape[3]}
-        for (q,) in calls["squeeze"]]
-    ex_cases = [{
-        "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]} "
-                 f"-> {'bf16' if g.dtype == torch.bfloat16 else 'int8'}",
-        "kernel": lambda q=q, g=g: K.se_excite_i8(q, g),
-        "plain": lambda q=q, g=g: K.se_excite_i8_plain(q, g),
-        "lib": None,
-        "ops": 2.0 * q.numel(),
-        "bytes": q.numel() * (3 if g.dtype == torch.bfloat16 else 2)
-        + g.numel() * g.element_size()}
-        for q, g in calls["excite"]]
-    pool_cases = []
-    for (q,) in calls["pool"]:
+        return {
+            "shape": f"b{b} {h}x{wd} {cin}->{cout} k{k} s{st} d{dil} {exit_}"
+                     f"{'' if idn is None else ' +' + str(idn.dtype)[6:]}",
+            "kernel": lambda: fn(**a),
+            "plain": lambda: getattr(K, fn.__name__ + "_plain")(**a),
+            "lib": lambda: F.conv2d(xb, wb, stride=st, padding=pad,
+                                    dilation=dil),
+            "ops": 2.0 * b * ho * wo * cin * cout * k * k,
+            "bytes": x.numel() + k * k * cin * cout + 8 * cout + idn_bytes
+            + b * ho * wo * cout * {"s8": 1, "bf16": 2, "f32": 4}[exit_]}
+
+    def squeeze(a):
+        q = a["q"]
+        return {
+            "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]}",
+            "kernel": lambda: K.se_squeeze_i8(q),
+            "plain": lambda: K.se_squeeze_i8_plain(q),
+            "lib": lambda: torch.sum(q, dim=(1, 2), dtype=torch.int32),
+            "ops": float(q.numel()),
+            "bytes": q.numel() + 4 * q.shape[0] * q.shape[3]}
+
+    def excite(a):
+        q, g = a["q"], a["gain"]
+        return {
+            "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]} "
+                     f"-> {'bf16' if g.dtype == torch.bfloat16 else 'int8'}",
+            "kernel": lambda: K.se_excite_i8(q, g),
+            "plain": lambda: K.se_excite_i8_plain(q, g),
+            "lib": None,
+            "ops": 2.0 * q.numel(),
+            "bytes": q.numel() * (3 if g.dtype == torch.bfloat16 else 2)
+            + g.numel() * g.element_size()}
+
+    def pool(a):
+        q = a["q"]
         b, h, w, c = q.shape
-        pool_cases.append({
+        return {
             "shape": f"b{b} {h}x{w}x{c}",
-            "kernel": lambda q=q: K.maxpool2x2_i8(q),
-            "plain": lambda q=q: K.maxpool2x2_i8_plain(q),
-            "lib": lambda q=q, s=(b, h // 2, 2, w // 2, 2, c):
-                torch.amax(q.view(s), dim=(2, 4)),
+            "kernel": lambda: K.maxpool2x2_i8(q),
+            "plain": lambda: K.maxpool2x2_i8_plain(q),
+            "lib": lambda: torch.amax(q.view(b, h // 2, 2, w // 2, 2, c),
+                                      dim=(2, 4)),
             "ops": 3.0 * q.numel() / 4,
-            "bytes": q.numel() * 1.25})
-    src, rep = "insarseg_torch/csrc/", "insarseg/models/unet_int8.py:"
-    return [
-        row("int8_conv3x3_epilogue", src + "int8_conv3x3.cu", rep + "287",
-            conv_cases),
-        row("se_squeeze_i8", src + "se_i8.cu", rep + "299", sq_cases),
-        row("se_excite_i8", src + "se_i8.cu", rep + "303", ex_cases),
-        row("maxpool2x2_i8", src + "maxpool2x2_i8.cu", rep + "322",
-            pool_cases),
-    ]
+            "bytes": q.numel() * 1.25}
+
+    def residual(a):
+        q, idn = a["y3q"], a["idn"]
+        return {
+            "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]} "
+                     f"+{str(idn.dtype)[6:]}",
+            "kernel": lambda: K.se_residual_i8(**a),
+            "plain": lambda: K.se_residual_i8_plain(**a),
+            "lib": None,
+            "ops": 4.0 * q.numel(),
+            "bytes": q.numel() * (2 + idn.element_size())
+            + a["gate"].numel() * 4}
+
+    make = {"conv3x3_i8": lambda a: conv(K.conv3x3_i8, a),
+            "conv_i8": lambda a: conv(K.conv_i8, a),
+            "se_squeeze_i8": squeeze, "se_excite_i8": excite,
+            "maxpool2x2_i8": pool, "se_residual_i8": residual}
+    return {n: [make[n](a) for a in args] for n, args in calls.items()}
 
 
 # ---------------------------------------------------------------------------
 # 3. the main path
 # ---------------------------------------------------------------------------
 
-def random_state_dict(model, seed: int):
-    """Seeded random weights in the reference state_dict's shapes: He-normal
-    convs, random BN affines and running statistics (var > 0)."""
+def random_state_dict(model, seed: int, conv_gain: float = 2.0):
+    """Seeded random weights in the reference state_dict's shapes: normal
+    convs with variance ``conv_gain / fan_in`` (He for the U-Net, LeCun,
+    the JAX package's init, for the ResNets), random BN affines and running
+    statistics (var > 0)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -284,7 +408,7 @@ def random_state_dict(model, seed: int):
             a = rng.normal(0, np.sqrt(1.0 / shape[0]), shape)
         else:  # Conv2d (O, I, kh, kw) or Linear (O, I)
             fan_in = int(np.prod(shape[1:]))
-            a = rng.normal(0, np.sqrt(2.0 / fan_in), shape)
+            a = rng.normal(0, np.sqrt(conv_gain / fan_in), shape)
         sd[k] = torch.as_tensor(np.asarray(a, dtype=np.float32
                                            if a.dtype != np.int64
                                            else np.int64))
@@ -303,30 +427,43 @@ def smooth_batch(rng, b, h, w):
     return x.permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def build_engines(dev, base=BASE, hw=HW, calib_batch=4):
-    import torch
-    from insarseg_torch.engines import make_engine
+def build_model(name: str, attention: str, seed: int = SEED):
+    from insarseg_torch.models.registry import build
     from insarseg_torch.models.unet import UNet
 
-    model = UNet(num_classes=2, base_features=base, use_se=True)
-    model.load_state_dict(random_state_dict(model, SEED), strict=True)
-    rng = np.random.default_rng(SEED + 1)
-    calib = [smooth_batch(rng, calib_batch, hw, hw) for _ in range(2)]
-    engines = {
-        "module f32": make_engine("unet", "channel", model, None, "module",
-                                  device=dev),
-        "serve f32": make_engine("unet", "channel", model, None, "serve",
-                                 device=dev),
-        "serve bf16-input": make_engine("unet", "channel", model, None,
-                                        "serve", device=dev,
-                                        input_dtype=torch.bfloat16),
-        "int8": make_engine("unet", "channel", model, None, "int8",
-                            calib_batches=calib, device=dev),
-    }
-    return model, calib, engines
+    if name == "unet":
+        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+        sd = random_state_dict(model, seed)
+    else:
+        model = build(name, attention, num_classes=2)
+        sd = random_state_dict(model, seed, conv_gain=1.0)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
 
 
-def serve_and_check(engines, images, dev, timed: bool, power_line: str):
+def build_engines(dev, name, attention, model, calib, full=True):
+    """The cell's engines: int8 and serve f32, and with ``full`` module f32
+    and serve with bf16 input."""
+    import torch
+    from insarseg_torch.engines import make_engine
+
+    engines = {}
+    if full:
+        engines["module f32"] = make_engine(name, attention, model, None,
+                                            "module", device=dev)
+    engines["serve f32"] = make_engine(name, attention, model, None, "serve",
+                                       device=dev)
+    if full:
+        engines["serve bf16-input"] = make_engine(
+            name, attention, model, None, "serve", device=dev,
+            input_dtype=torch.bfloat16)
+    engines["int8"] = make_engine(name, attention, model, None, "int8",
+                                  calib_batches=calib, device=dev)
+    return engines
+
+
+def serve_and_check(engines, images, dev, corr_bar: float,
+                    power_line: str = "", timed: bool = False):
     """Each engine serves the batch; returns its logits. Checks the
     agreement bars; with ``timed`` prints tiles/s per engine."""
     import torch
@@ -349,25 +486,182 @@ def serve_and_check(engines, images, dev, timed: bool, power_line: str):
             log(f"  {name}: {reps * images.shape[0] / dt:.2f} tiles/s "
                 f"({images.shape[1]}^2, b{images.shape[0]}) on "
                 f"{power_line}")
-    ref = out["module f32"]
-    scale = float(np.abs(ref).max())
-    err = float(np.abs(out["serve f32"] - ref).max())
-    log(f"  serve f32 vs module f32: max abs err {err:.3g}, "
-        f"{err / scale:.3g} x max|logit| ({scale:.4g})")
-    if err > 1e-3 * scale:
-        raise AssertionError("serve f32 differs from module f32")
-    agree = float(np.mean(out["serve bf16-input"].argmax(-1)
-                          == out["serve f32"].argmax(-1)))
-    log(f"  serve bf16-input vs serve f32: argmax agreement {agree:.5f}")
+    if "module f32" in out:
+        ref = out["module f32"]
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(out["serve f32"] - ref).max())
+        log(f"  serve f32 vs module f32: max abs err {err:.3g}, "
+            f"{err / scale:.3g} x max|logit| ({scale:.4g})")
+        if err > 1e-3 * scale:
+            raise AssertionError("serve f32 differs from module f32")
+    if "serve bf16-input" in out:
+        agree = float(np.mean(out["serve bf16-input"].argmax(-1)
+                              == out["serve f32"].argmax(-1)))
+        log(f"  serve bf16-input vs serve f32: argmax agreement {agree:.5f}")
     corr = float(np.corrcoef(out["int8"].ravel(),
                              out["serve f32"].ravel())[0, 1])
     agree8 = float(np.mean(out["int8"].argmax(-1)
                            == out["serve f32"].argmax(-1)))
     log(f"  int8 vs serve f32: logit correlation {corr:.5f}, argmax "
         f"agreement {agree8:.5f}")
-    if not corr > 0.98:
-        raise AssertionError(f"int8 logit correlation {corr} <= 0.98")
+    if not corr > corr_bar:
+        raise AssertionError(f"int8 logit correlation {corr} <= {corr_bar}")
     return out
+
+
+# The main paths: (model, attention, name, int8 correlation bar, the
+# kernels launched per int8 forward)
+PATHS = (
+    ("unet", "channel", f"U-Net-CA base {BASE}", 0.98,
+     {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9, "se_excite_i8": 9,
+      "maxpool2x2_i8": 4}),
+    ("fcn", "channel", "FCN-ResNet50-CA", 0.97,
+     {"int8_conv_epilogue": 53, "se_residual_i8": 16, "se_squeeze_i8": 16}),
+    ("deeplabv3", "none", "DeepLabV3-ResNet50", 0.97,
+     {"int8_conv_epilogue": 58, "se_squeeze_i8": 1}),
+)
+
+
+def run_path(engines, images, dev, corr_bar, want, label, power_line,
+             scene=None):
+    """One main path with the launch counters set to 0 just before and
+    read just after: every engine serves the batch (timed), one int8
+    forward's launches are checked, and an optional scene is stitched
+    through the int8 engine. Returns the path's launches."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.data.stitch import sliding_window_inference
+
+    K.reset_launches()
+    log(f"main path: {label}, {HW}^2, b{BATCH}")
+    serve_and_check(engines, images, dev, corr_bar, power_line, timed=True)
+    before = dict(K.LAUNCHES)
+    engines["int8"](images)
+    per_forward = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                   if K.LAUNCHES[k] != before[k]}
+    log(f"  launches in one int8 forward: {per_forward}")
+    if per_forward != want:
+        raise AssertionError(f"launches per forward {per_forward} != {want}")
+    if scene is not None:
+        t0 = time.perf_counter()
+        out = sliding_window_inference(engines["int8"], scene, tile=HW,
+                                       overlap=HW // 8, batch_size=BATCH,
+                                       device=dev)
+        torch.cuda.synchronize()
+        log(f"  {scene.shape[0]}^2 scene (tile {HW}, overlap {HW // 8}) "
+            f"through int8: {time.perf_counter() - t0:.3f} s, shape "
+            f"{tuple(out.shape)}")
+        if tuple(out.shape) != scene.shape[:2] + (2,) or \
+                not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError("scene output is not a finite "
+                                 f"{scene.shape[:2] + (2,)}")
+    launches = dict(K.LAUNCHES)
+    log(f"  launches on the path: {launches}")
+    for name in want:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on {label}")
+    return launches
+
+
+def card_vs_cpu(dev, name, model, calib, images):
+    """The same int8 tree on the card and on the CPU (plain versions), at
+    64^2, b2. The kernels are exact against their plain versions (phase
+    2); what differs is the bf16 float ops (cuDNN vs CPU)."""
+    if name == "unet":
+        from insarseg_torch.models.unet_int8 import (
+            make_int8_predict_fn as make,
+            pack_unet_int8 as pack,
+            prepare_int8 as prepare,
+        )
+    else:
+        from insarseg_torch.models.resnet_int8 import (
+            make_resnet_int8_predict_fn as make,
+            pack_resnet_int8 as pack,
+            prepare_resnet_int8 as prepare,
+        )
+    tree = pack(model.state_dict(), [c[:1, :64, :64] for c in calib],
+                device=dev)
+    x_small = images[:2, :64, :64]
+    g = make(prepare(tree, dev))(x_small).float().cpu().numpy()
+    c = make(prepare(tree, "cpu"))(x_small).float().numpy()
+    rel = float(np.abs(g - c).max() / np.abs(c).max())
+    corr = float(np.corrcoef(g.ravel(), c.ravel())[0, 1])
+    agree = float(np.mean(g.argmax(-1) == c.argmax(-1)))
+    log(f"{name} int8 engine, card vs CPU plain versions (64^2, b2): max "
+        f"rel err {rel:.3g}, logit correlation {corr:.6f}, argmax agreement"
+        f" {agree:.5f}")
+    if corr < 0.999 or agree < 0.995:
+        raise AssertionError(f"{name} int8 engine on the card disagrees with"
+                             " the CPU plain path")
+
+
+def run(dev, power_line: str, phase) -> list:
+    """Phases 2-4 on ``dev``; returns the kernel table."""
+    import torch
+    from insarseg_torch.models import resnet_int8, unet_int8
+
+    # 2a. kernels against their plain versions at fixed shapes
+    check_fixed_shapes(dev)
+    check_resnet_fixed_shapes(dev)
+    phase("fixed-shape checks")
+
+    images = smooth_batch(np.random.default_rng(SEED + 2), BATCH, HW, HW)
+    scene = smooth_batch(np.random.default_rng(SEED + 3), 1, 2 * HW,
+                         2 * HW)[0]
+    cases = {wrapper: [] for wrapper, _, _ in KERNELS.values()}
+    launches = {}
+    for name, attention, label, corr_bar, want in PATHS:
+        # 3a. the engines at full width (packing launches no kernel)
+        model = build_model(name, attention)
+        rng = np.random.default_rng(SEED + 1)
+        calib = [smooth_batch(rng, 4, HW, HW) for _ in range(2)]
+        engines = build_engines(dev, name, attention, model, calib)
+        phase(f"{label}: weights, packing, calibration")
+
+        # 2b. the tensors each kernel gets in one int8 forward (512^2, b8)
+        module = unet_int8 if name == "unet" else resnet_int8
+        wrappers = [KERNELS[k][0] for k in want]
+        for n, c in kernel_cases(record_calls(
+                module, wrappers, engines["int8"], images)).items():
+            cases[n] += c
+        phase(f"{label}: recording the kernels' arguments")
+
+        # 3b. the main path, counters from 0
+        launches[name] = run_path(
+            engines, images, dev, corr_bar, want, label, power_line,
+            scene=None if name == "deeplabv3" else scene)
+        phase(f"{label}: main path")
+        card_vs_cpu(dev, name, model, calib, images)
+        phase(f"{label}: card vs CPU")
+        del engines, model
+        torch.cuda.empty_cache()
+
+    log(f"each kernel on the tensors of one int8 forward of each main path "
+        f"({HW}^2 b{BATCH}):")
+    table = []
+    for kname, (wrapper, source, replaces) in KERNELS.items():
+        row = kernel_row(kname, "insarseg_torch/csrc/" + source, replaces,
+                         cases.pop(wrapper))
+        row["launches"] = sum(n[kname] for n in launches.values())
+        table.append(row)
+    torch.cuda.empty_cache()
+    phase("kernel timing")
+
+    # 4. the other ResNet cells, once each through int8 (512^2, b2)
+    for name, attention in (("deeplabv3", "channel"),
+                            ("deeplabv3", "spatial"), ("fcn", "none"),
+                            ("fcn", "spatial")):
+        model = build_model(name, attention)
+        rng = np.random.default_rng(SEED + 1)
+        calib = [smooth_batch(rng, 2, HW, HW) for _ in range(2)]
+        log(f"{name}-{attention}: int8 vs serve f32 ({HW}^2, b2)")
+        serve_and_check(build_engines(dev, name, attention, model, calib,
+                                      full=False), images[:2], dev, 0.97)
+        del model
+        torch.cuda.empty_cache()
+    phase("the other ResNet cells")
+    return table
+
 
 
 def main() -> int:
@@ -378,19 +672,19 @@ def main() -> int:
               "one NVIDIA GPU", file=sys.stderr)
         return 2
     from insarseg_torch import kernels as K
-    from insarseg_torch.data.stitch import sliding_window_inference
-    from insarseg_torch.models.unet_int8 import (
-        make_int8_predict_fn,
-        pack_unet_int8,
-        prepare_int8,
-    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    def phase(what):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"[{now - t_phase:.1f} s] {what}")
+        t_phase = now
 
     # 1. build
     K.load_library()
@@ -404,71 +698,9 @@ def main() -> int:
                 log("  " + line.rstrip())
     power_line = nvidia_smi_line()
     log(f"card: {power_line}")
+    phase("build")
 
-    # 2a. kernels against their plain versions at fixed shapes
-    check_fixed_shapes(dev)
-
-    # 3a. the engines at full width (packing launches no kernel)
-    model, calib, engines = build_engines(dev)
-    rng = np.random.default_rng(SEED + 2)
-    images = smooth_batch(rng, BATCH, HW, HW)
-
-    # 2b. each kernel on the tensors of one int8 forward (512^2, b8)
-    log("kernels at the main path's shapes (one int8 forward, 512^2 b8):")
-    calls = record_calls(engines["int8"], images)
-    table = time_main_path_kernels(calls)
-    del calls
-    torch.cuda.empty_cache()
-
-    # 3b. the main path, counters from 0
-    K.reset_launches()
-    log(f"main path: U-Net-CA base {BASE}, {HW}^2, b{BATCH}")
-    serve_and_check(engines, images, dev, timed=True, power_line=power_line)
-    before = dict(K.LAUNCHES)
-    engines["int8"](images)
-    per_forward = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-    log(f"  launches in one int8 forward: {per_forward}")
-    want = {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
-            "se_excite_i8": 9, "maxpool2x2_i8": 4}
-    if per_forward != want:
-        raise AssertionError(f"launches per forward {per_forward} != {want}")
-    scene = smooth_batch(np.random.default_rng(SEED + 3), 1, 1024, 1024)[0]
-    t0 = time.perf_counter()
-    out = sliding_window_inference(engines["int8"], scene, tile=512,
-                                   overlap=64, batch_size=BATCH, device=dev)
-    torch.cuda.synchronize()
-    log(f"  1024^2 scene (tile 512, overlap 64) through int8: "
-        f"{time.perf_counter() - t0:.3f} s, shape {tuple(out.shape)}")
-    if tuple(out.shape) != (1024, 1024, 2) or \
-            not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("scene output is not a finite (1024, 1024, 2)")
-    launches = dict(K.LAUNCHES)
-    log(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched")
-    for row in table:
-        row["launches"] = launches[row["name"]]
-
-    # 4. the same int8 tree on the CPU (plain versions) on a small input
-    tree = pack_unet_int8(model.state_dict(), [c[:1, :64, :64] for c in calib],
-                          device=dev)
-    x_small = images[:2, :64, :64]
-    gpu = make_int8_predict_fn(prepare_int8(tree, dev))(x_small)
-    cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x_small)
-    # the kernels are exact against their plain versions (phase 2); what
-    # differs here is the bf16 transposed convs and head (cuDNN vs CPU)
-    g, c = gpu.float().cpu().numpy(), cpu.float().numpy()
-    rel = float(np.abs(g - c).max() / np.abs(c).max())
-    corr = float(np.corrcoef(g.ravel(), c.ravel())[0, 1])
-    agree = float(np.mean(g.argmax(-1) == c.argmax(-1)))
-    log(f"int8 engine, card vs CPU plain versions (64^2, b2): max rel err "
-        f"{rel:.3g}, logit correlation {corr:.6f}, argmax agreement "
-        f"{agree:.5f}")
-    if corr < 0.999 or agree < 0.995:
-        raise AssertionError("int8 engine on the card disagrees with the "
-                             "CPU plain path")
-
+    table = run(dev, power_line, phase)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(power_line, flush=True)

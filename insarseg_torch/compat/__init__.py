@@ -2,9 +2,10 @@
 
 from insarseg_torch.compat.torch_io import (
     load_torch_state_dict,
+    segmentation_variables_to_torch,
     state_dict_to_torch,
     unet_variables_to_torch,
 )
 
-__all__ = ["load_torch_state_dict", "state_dict_to_torch",
-           "unet_variables_to_torch"]
+__all__ = ["load_torch_state_dict", "segmentation_variables_to_torch",
+           "state_dict_to_torch", "unet_variables_to_torch"]

@@ -1,16 +1,19 @@
 """Inference-engine factory (counterpart of ``insarseg/engines.py``).
 
 - ``module`` — the ``nn.Module`` graph in eval mode;
-- ``serve``  — the BN-folded exact graph with deferred SE gates
-  (``models/unet_serve.py``);
-- ``int8``   — post-training quantization (needs calibration batches),
-  through the hand-written kernels K1-K3 (``models/unet_int8.py``).
+- ``serve``  — the BN-folded exact graph: UNet with deferred SE gates
+  (``models/unet_serve.py``), DeepLabV3 / FCN (``models/resnet_serve.py``);
+- ``int8``   — post-training quantization (needs calibration batches):
+  UNet through the hand-written kernels K1-K3 (``models/unet_int8.py``),
+  DeepLabV3 / FCN through K5a, K5b and K2's squeeze
+  (``models/resnet_int8.py``).
 
-This slice serves ``model_name="unet"`` with attention ``none`` or
-``channel``. Its one departure from the JAX package's defaults: the int8
-engine packs the standard layout for UNet-CA, where the JAX package packs
-the H-space-to-depth layout (ROADMAP Queue 1 item 7). Every ``predict``
-takes and returns NHWC tensors and runs on the engine's device.
+The port serves ``unet`` with attention ``none`` or ``channel``, and
+``deeplabv3`` and ``fcn`` with ``none``, ``channel`` or ``spatial``. Its
+one departure from the JAX package's defaults: the int8 engine packs the
+standard layout for UNet-CA, where the JAX package packs the
+H-space-to-depth layout (ROADMAP Queue 1 item 7). Every ``predict`` takes
+and returns NHWC tensors and runs on the engine's device.
 """
 
 from __future__ import annotations
@@ -24,12 +27,12 @@ from insarseg_torch.device import DeviceLike, resolve_device
 
 ENGINES = ("module", "serve", "int8")
 KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
+RESNET_MODELS = ("deeplabv3", "fcn")
+ATTENTIONS = ("none", "channel", "spatial")
 _TODO = {
-    "spatial": "the SA variant (ROADMAP Queue 1 item 2, Queue 2 K4)",
+    "spatial": "the U-Net SA variant (ROADMAP Queue 1 item 2, Queue 2 K4)",
     "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
-    "deeplabv3": "the ResNet families (ROADMAP Queue 1 item 14)",
-    "fcn": "the ResNet families (ROADMAP Queue 1 item 14)",
-    "pspnet": "the ResNet families (ROADMAP Queue 1 item 14)",
+    "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
     "mesh": "multi-GPU serving (ROADMAP Queue 1 item 16)",
 }
 
@@ -47,12 +50,12 @@ def _check_cell(model_name: str, attention: str, engine: str,
     if model_name not in KNOWN_MODELS:
         raise ValueError(f"unknown model {model_name!r}; known models: "
                          f"{KNOWN_MODELS}")
-    if model_name != "unet":
+    if model_name not in ("unet",) + RESNET_MODELS:
         raise _not_ported(model_name)
-    if attention == "spatial":
-        raise _not_ported("spatial")
-    if attention not in ("none", "channel"):
+    if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
+    if model_name == "unet" and attention == "spatial":
+        raise _not_ported("spatial")
     if mesh is not None:
         raise _not_ported("mesh")
     return model_name
@@ -94,7 +97,7 @@ def make_engine(
     ``state_dict`` defaults to ``model.state_dict()``. ``calib_batches``
     (normalized f32 NHWC batches) is required for ``engine='int8'``;
     ``calib_stat`` is 'absmax' or 'p<percent>'."""
-    _check_cell(model_name, attention, engine, mesh)
+    model_name = _check_cell(model_name, attention, engine, mesh)
     dev = resolve_device(device)
     sd = model.state_dict() if state_dict is None else state_dict
 
@@ -106,29 +109,74 @@ def make_engine(
         return make_predict_fn(model, argmax=argmax, input_dtype=input_dtype,
                                device=dev)
     if engine == "serve":
-        from insarseg_torch.engines_io import to_torch_tree
-        from insarseg_torch.models.unet_serve import (
-            make_serve_predict_fn,
-            pack_unet_serve,
-        )
-
-        return make_serve_predict_fn(to_torch_tree(pack_unet_serve(sd), dev),
-                                     argmax=argmax, input_dtype=input_dtype)
+        return _serve_predict(model_name, _pack(model_name, sd, engine),
+                              dev, argmax, input_dtype)
     if not calib_batches:
         raise ValueError(
             "engine='int8' needs at least one calibration batch "
             "(calib_batches was "
             f"{'None' if calib_batches is None else 'empty'}); collect "
             "them with insarseg_torch.engines.collect_calib_batches")
-    from insarseg_torch.models.unet_int8 import (
-        make_int8_predict_fn,
-        pack_unet_int8,
-        prepare_int8,
+    tree = _pack(model_name, sd, engine, calib_batches, calib_stat, dev)
+    return _int8_predict(model_name, tree, dev, argmax)
+
+
+def _pack(model_name: str, sd: Mapping[str, torch.Tensor], engine: str,
+          calib_batches: Optional[List[Any]] = None,
+          calib_stat: str = "absmax",
+          device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """The packed tree of a serve or int8 engine (on the CPU, in the JAX
+    package's format); int8 calibrates on ``device``."""
+    if model_name == "unet":
+        if engine == "serve":
+            from insarseg_torch.models.unet_serve import pack_unet_serve
+
+            return pack_unet_serve(sd)
+        from insarseg_torch.models.unet_int8 import pack_unet_int8
+
+        return pack_unet_int8(sd, calib_batches, s2d=False,
+                              calib_stat=calib_stat, device=device)
+    if engine == "serve":
+        from insarseg_torch.models.resnet_serve import pack_resnet_serve
+
+        return pack_resnet_serve(sd)
+    from insarseg_torch.models.resnet_int8 import pack_resnet_int8
+
+    return pack_resnet_int8(sd, calib_batches, calib_stat=calib_stat,
+                            device=device)
+
+
+def _serve_predict(model_name: str, tree: Mapping[str, Any],
+                   dev: torch.device, argmax: bool,
+                   input_dtype: Optional[torch.dtype]):
+    from insarseg_torch.engines_io import to_torch_tree
+
+    if model_name == "unet":
+        from insarseg_torch.models.unet_serve import make_serve_predict_fn
+    else:
+        from insarseg_torch.models.resnet_serve import (
+            make_resnet_serve_predict_fn as make_serve_predict_fn,
+        )
+    return make_serve_predict_fn(to_torch_tree(tree, dev), argmax=argmax,
+                                 input_dtype=input_dtype)
+
+
+def _int8_predict(model_name: str, tree: Mapping[str, Any],
+                  dev: torch.device, argmax: bool):
+    if model_name == "unet":
+        from insarseg_torch.models.unet_int8 import (
+            make_int8_predict_fn,
+            prepare_int8,
+        )
+
+        return make_int8_predict_fn(prepare_int8(tree, dev), argmax=argmax)
+    from insarseg_torch.models.resnet_int8 import (
+        make_resnet_int8_predict_fn,
+        prepare_resnet_int8,
     )
 
-    packed = pack_unet_int8(sd, calib_batches, s2d=False,
-                            calib_stat=calib_stat, device=dev)
-    return make_int8_predict_fn(prepare_int8(packed, dev), argmax=argmax)
+    return make_resnet_int8_predict_fn(prepare_resnet_int8(tree, dev),
+                                       argmax=argmax)
 
 
 def pack_engine(
@@ -148,18 +196,10 @@ def pack_engine(
         raise ValueError("the module engine is the live nn.Module graph; "
                          "artifacts exist for 'serve' and 'int8' only")
     sd = model.state_dict() if state_dict is None else state_dict
-    if engine == "serve":
-        from insarseg_torch.models.unet_serve import pack_unet_serve
-
-        tree = pack_unet_serve(sd)
-    else:
-        if not calib_batches:
-            raise ValueError("engine='int8' needs calibration batches")
-        from insarseg_torch.models.unet_int8 import pack_unet_int8
-
-        tree = pack_unet_int8(sd, calib_batches, s2d=False,
-                              calib_stat=calib_stat,
-                              device=resolve_device(device))
+    if engine == "int8" and not calib_batches:
+        raise ValueError("engine='int8' needs calibration batches")
+    tree = _pack(model_name, sd, engine, calib_batches, calib_stat,
+                 resolve_device(device) if engine == "int8" else None)
     nc = getattr(model, "num_classes", None)
     return {"format": 1, "model": model_name, "attention": attention,
             "engine": engine,
@@ -189,18 +229,9 @@ def engine_from_artifact(
     _check_cell(model_name, artifact.get("attention", "none"), engine, mesh)
     dev = resolve_device(device)
     if engine == "serve":
-        from insarseg_torch.engines_io import to_torch_tree
-        from insarseg_torch.models.unet_serve import make_serve_predict_fn
-
-        return make_serve_predict_fn(to_torch_tree(artifact["tree"], dev),
-                                     argmax=argmax, input_dtype=input_dtype)
-    from insarseg_torch.models.unet_int8 import (
-        make_int8_predict_fn,
-        prepare_int8,
-    )
-
-    return make_int8_predict_fn(prepare_int8(artifact["tree"], dev),
-                                argmax=argmax)
+        return _serve_predict(model_name, artifact["tree"], dev, argmax,
+                              input_dtype)
+    return _int8_predict(model_name, artifact["tree"], dev, argmax)
 
 
 def collect_calib_batches(loader, n: int, normalize_mean: float = 0.5,

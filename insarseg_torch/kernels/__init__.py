@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the int8 engine, with their plain
+"""Hand-written Hopper kernels of the int8 engines, with their plain
 PyTorch versions and launch counters.
 
 ====  ==========================  =========================================
@@ -8,6 +8,10 @@ K1    ``conv3x3_i8``               ``models/unet_int8.py::_conv_i8``
 K2    ``se_squeeze_i8`` +          ``models/unet_int8.py::_dc_i8`` SE tail
       ``se_excite_i8``
 K3    ``maxpool2x2_i8``            ``models/unet_int8.py::_maxpool_i8``
+K5a   ``conv_i8``                  ``models/resnet_int8.py::_conv_i8`` and
+                                   the residual add of ``_block_i8``
+K5b   ``se_residual_i8``           ``models/resnet_int8.py::_block_i8`` SE
+                                   excite + residual + ReLU + requant
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -20,9 +24,12 @@ from insarseg_torch.kernels._lib import (
     load_library,
     reset_launches,
 )
+from insarseg_torch.kernels.block_i8 import se_residual_i8, se_residual_i8_plain
 from insarseg_torch.kernels.conv_i8 import (
     conv3x3_i8,
     conv3x3_i8_plain,
+    conv_i8,
+    conv_i8_plain,
     repack_conv_weight,
 )
 from insarseg_torch.kernels.maxpool_i8 import maxpool2x2_i8, maxpool2x2_i8_plain
@@ -35,8 +42,8 @@ from insarseg_torch.kernels.se_i8 import (
 
 __all__ = [
     "LAUNCHES", "build_info", "load_library", "reset_launches",
-    "conv3x3_i8", "conv3x3_i8_plain", "repack_conv_weight",
-    "maxpool2x2_i8", "maxpool2x2_i8_plain",
-    "se_excite_i8", "se_excite_i8_plain", "se_squeeze_i8",
-    "se_squeeze_i8_plain",
+    "conv3x3_i8", "conv3x3_i8_plain", "conv_i8", "conv_i8_plain",
+    "repack_conv_weight", "maxpool2x2_i8", "maxpool2x2_i8_plain",
+    "se_excite_i8", "se_excite_i8_plain", "se_residual_i8",
+    "se_residual_i8_plain", "se_squeeze_i8", "se_squeeze_i8_plain",
 ]

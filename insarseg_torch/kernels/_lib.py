@@ -30,7 +30,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu")
+SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
+           "block_i8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -40,6 +41,8 @@ LAUNCHES: Dict[str, int] = {
     "se_squeeze_i8": 0,
     "se_excite_i8": 0,
     "maxpool2x2_i8": 0,
+    "int8_conv_epilogue": 0,
+    "se_residual_i8": 0,
 }
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -50,6 +53,10 @@ _SIGNATURES = {
     "insarseg_se_squeeze_i8": (_vp, _vp, _i, _i, _i, _i, _i, _vp),
     "insarseg_se_excite_i8": (_vp, _vp, _vp, _ll, _ll, _i, _i, _vp),
     "insarseg_maxpool2x2_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
+    "insarseg_conv_i8": (_vp, _vp, _vp, _vp, _vp, _vp) + (_i,) * 12
+    + (_f, _f, _i, _vp),
+    "insarseg_se_residual_i8": (_vp, _vp, _vp, _vp, _ll, _ll, _i, _i, _f, _f,
+                                _vp),
 }
 
 _lib: Optional[ctypes.CDLL] = None

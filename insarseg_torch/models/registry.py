@@ -1,0 +1,40 @@
+"""Model registry (counterpart of ``insarseg/models/registry.py::build``):
+the port's ``nn.Module`` for a (model, attention) cell of the reference."""
+
+from __future__ import annotations
+
+from torch import nn
+
+from insarseg_torch.models.deeplab import DeepLabV3
+from insarseg_torch.models.fcn import FCN
+from insarseg_torch.models.unet import UNet
+
+NOT_PORTED = {
+    "unet-spatial": "the U-Net SA variant (ROADMAP Queue 1 item 2, Queue 2 "
+                    "K4)",
+    "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
+    "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
+}
+
+
+def build(model: str, attention: str = "none", num_classes: int = 2,
+          backbone: str = "resnet50", in_channels: int = 1) -> nn.Module:
+    """The port's module for ``model`` in {unet, deeplabv3, fcn} and
+    ``attention`` in {none, channel, spatial} (U-Net: none / channel)."""
+    model, attention = model.lower().replace("_", "-"), attention.lower()
+    if attention not in ("none", "channel", "spatial"):
+        raise ValueError(f"unknown attention {attention!r}")
+    if model == "unet" and attention == "spatial":
+        model = "unet-spatial"
+    if model in NOT_PORTED:
+        raise NotImplementedError(
+            f"insarseg_torch does not port {NOT_PORTED[model]} yet")
+    if model == "unet":
+        return UNet(num_classes=num_classes, use_se=attention == "channel",
+                    in_channels=in_channels)
+    if model == "deeplabv3":
+        return DeepLabV3(num_classes, attention, backbone, in_channels)
+    if model == "fcn":
+        return FCN(num_classes, attention, backbone, in_channels)
+    raise KeyError(f"unknown model {model!r}; expected "
+                   "unet|unet-fast|deeplabv3|fcn|pspnet")

@@ -1,0 +1,120 @@
+"""Dilated ResNet-50/101 backbone with torchvision's module names
+(counterpart of ``insarseg/models/resnet.py``), NCHW.
+
+- stem: ``conv1`` 7x7 s2 p3 (bias-free, ``in_channels`` -> 64) -> ``bn1``
+  -> ReLU -> max-pool 3x3 s2 p1;
+- ``layer1..layer4`` of :class:`Bottleneck` blocks, widths 64/128/256/512,
+  expansion 4; torchvision's dilation bookkeeping with
+  ``replace_stride_with_dilation=(False, True, True)`` (output stride 8):
+  a dilated layer's stride turns into dilation, and its *first* block keeps
+  the previous dilation, so layer3 runs at d(1,2,2,2,2,2) and layer4 at
+  d(2,4,4) (:func:`layer_schedule`);
+- the stride sits on the 3x3 ``conv2`` and on ``downsample.0``;
+- optional SE (``se_block``, :class:`~insarseg_torch.ops.blocks.SEBlock`)
+  after ``bn3``, before the residual add.
+
+``forward`` returns ``{'out': layer4, 'aux': layer3}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from insarseg_torch.ops.blocks import SEBlock
+from insarseg_torch.ops.layers import max_pool_2d
+
+WIDTHS = (64, 128, 256, 512)
+BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+
+def backbone_layers(name: str) -> Tuple[int, ...]:
+    if name not in BACKBONE_LAYERS:
+        raise ValueError(f"Unsupported backbone: {name}")
+    return BACKBONE_LAYERS[name]
+
+
+def layer_schedule(layers: Sequence[int],
+                   replace_stride_with_dilation=(False, True, True)
+                   ) -> List[List[Tuple[int, int]]]:
+    """torchvision's stride / dilation bookkeeping: per layer, the
+    (stride, dilation) of each block."""
+    dilation = 1
+    sched = []
+    for li, stride in enumerate((1, 2, 2, 2)):
+        dilate = li > 0 and replace_stride_with_dilation[li - 1]
+        previous_dilation = dilation
+        if dilate:
+            dilation *= stride
+            stride = 1
+        sched.append([(stride, previous_dilation)]
+                     + [(1, dilation)] * (layers[li] - 1))
+    return sched
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride, dilation) -> 1x1 (x4), optional SE before the
+    residual add."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, use_se: bool = False):
+        super().__init__()
+        out = planes * 4
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out)
+        self.relu = nn.ReLU(inplace=True)
+        self.se_block = SEBlock(out) if use_se else None
+        self.downsample = None
+        if stride != 1 or in_planes != out:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, out, 1, stride=stride, bias=False),
+                nn.BatchNorm2d(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if self.se_block is not None:
+            y = self.se_block(y)
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.relu(y + identity)
+
+
+class ResNet50(nn.Module):
+    """ResNet-50 (``layers=(3, 4, 6, 3)``) or -101 (``(3, 4, 23, 3)``)
+    feature extractor at output stride 8, no avgpool / fc."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
+                 use_se: bool = False, in_channels: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        in_planes = 64
+        for li, blocks in enumerate(layer_schedule(layers)):
+            mods = []
+            for stride, dilation in blocks:
+                mods.append(Bottleneck(in_planes, WIDTHS[li], stride,
+                                       dilation, use_se))
+                in_planes = WIDTHS[li] * 4
+            setattr(self, f"layer{li + 1}", nn.Sequential(*mods))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = max_pool_2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = self.layer2(self.layer1(x))
+        aux = self.layer3(x)
+        return {"out": self.layer4(aux), "aux": aux}
+
+
+def build_backbone(name: str = "resnet50", use_se: bool = False,
+                   in_channels: int = 1) -> ResNet50:
+    return ResNet50(backbone_layers(name), use_se, in_channels)

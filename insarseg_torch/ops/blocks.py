@@ -1,15 +1,24 @@
-"""DoubleConv and the Linear-MLP squeeze-excite (counterpart of
-``insarseg/ops/blocks.py::DoubleConv`` / ``SELayer``), NCHW.
+"""Blocks of the port (counterparts in ``insarseg/ops/blocks.py``), NCHW.
 
-The Sequential indices reproduce the reference state_dict names:
-``double_conv.{0,1,3,4,6}`` (conv, BN, ReLU, conv, BN, ReLU, SE) and
-``fc.{0,2}`` (Linear, ReLU, Linear; no bias, reduction 16).
+- :class:`DoubleConv` and :class:`SELayer` (U-Net): the Sequential indices
+  reproduce the reference state_dict names ``double_conv.{0,1,3,4,6}``
+  (conv, BN, ReLU, conv, BN, ReLU, SE) and ``fc.{0,2}`` (Linear, ReLU,
+  Linear; no bias, reduction 16);
+- :class:`SEBlock` (FCN-CA bottlenecks): the same squeeze-excite with a
+  bias-free 1x1-conv MLP, ``fc.{0,2}``;
+- :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
+  max-pooled descriptors through one shared 1x1-conv MLP ``mlp.{0,2}``,
+  summed, sigmoid;
+- :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA, CBAM spatial):
+  channel mean and max -> ``conv`` (2 -> 1, k x k, no bias) -> sigmoid.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from insarseg_torch.ops.layers import global_avg_pool, global_max_pool
 
 
 class SELayer(nn.Module):
@@ -50,3 +59,52 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.double_conv(x)
+
+
+class SEBlock(nn.Module):
+    """GAP -> 1x1 conv (C -> C/r) -> ReLU -> 1x1 conv (C/r -> C) ->
+    sigmoid -> channelwise rescale."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc = nn.Sequential(
+            nn.Conv2d(channels, channels // reduction, 1, bias=False),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(channels // reduction, channels, 1, bias=False),
+            nn.Sigmoid(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(global_avg_pool(x))
+
+
+class ChannelAttentionModule(nn.Module):
+    """sigmoid(MLP(avgpool(x)) + MLP(maxpool(x))) * x, one shared MLP."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.mlp = nn.Sequential(
+            nn.Conv2d(channels, channels // reduction, 1, bias=False),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(channels // reduction, channels, 1, bias=False),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        att = self.mlp(global_avg_pool(x)) + self.mlp(global_max_pool(x))
+        return x * torch.sigmoid(att)
+
+
+class SpatialAttentionConv(nn.Module):
+    """x * sigmoid(conv([mean_c(x), max_c(x)])), kernel 3 or 7."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        if kernel_size not in (3, 7):
+            raise ValueError("kernel size must be 3 or 7")
+        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                              bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = torch.cat([x.mean(dim=1, keepdim=True),
+                       x.amax(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.conv(m))

@@ -21,6 +21,18 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """``nn.MaxPool2d(window)`` (floor mode) over NCHW float tensors."""
-    return F.max_pool2d(x, window)
+def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,
+                padding: int = 0) -> torch.Tensor:
+    """``nn.MaxPool2d(window, stride, padding)`` (floor mode; the padding
+    acts as -inf) over NCHW float tensors."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """``AdaptiveAvgPool2d(1)`` over NCHW: (B, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def global_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """``AdaptiveMaxPool2d(1)`` over NCHW: (B, C, 1, 1)."""
+    return x.amax(dim=(2, 3), keepdim=True)

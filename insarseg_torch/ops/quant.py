@@ -80,6 +80,13 @@ def calib_stat_fn(stat: str) -> Callable[[torch.Tensor], torch.Tensor]:
         "'p<percent>' (e.g. 'p99.9' for the 99.9th percentile)")
 
 
+def dequant(q: torch.Tensor, s: float) -> torch.Tensor:
+    """int8 codes at scale ``s`` -> f32 ``q * s``, one f32 multiply by a
+    scale on ``q``'s device."""
+    return q.to(torch.float32) * torch.tensor(s, dtype=torch.float32,
+                                              device=q.device)
+
+
 def requant(y: torch.Tensor, s: float) -> torch.Tensor:
     """f32 values -> int8 codes at scale ``s``. The divisor is a tensor on
     ``y``'s device: a CUDA division by a host scalar is computed as a

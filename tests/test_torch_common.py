@@ -8,9 +8,18 @@ import numpy as np
 import pytest
 import torch
 
+from insarseg.compat.torch_io import (
+    segmentation_variables_from_torch as jax_segmentation_from_torch,
+)
 from insarseg.compat.torch_io import unet_variables_to_torch as jax_to_torch
+from insarseg.models.registry import build as jax_build
 from insarseg.models.unet import UNet as JaxUNet
-from insarseg_torch.compat import state_dict_to_torch, unet_variables_to_torch
+from insarseg_torch.compat import (
+    segmentation_variables_to_torch,
+    state_dict_to_torch,
+    unet_variables_to_torch,
+)
+from insarseg_torch.models.registry import build
 from insarseg_torch.models.unet import UNet
 
 CPU = torch.device("cpu")
@@ -59,6 +68,48 @@ def make_pair(base=16, use_se=True, hw=32, seed=0, nc=2):
     tm.load_state_dict(state_dict_to_torch(
         unet_variables_to_torch(v, use_se=use_se)), strict=True)
     return jm, v, tm.eval()
+
+
+RESNET_CELLS = [(m, a) for m in ("deeplabv3", "fcn")
+                for a in ("none", "channel", "spatial")]
+
+
+def resnet_numpy_state_dict(shapes, seed=0):
+    """Weights made with numpy from a seed, in torchvision state_dict
+    shapes: LeCun-normal convs (the JAX package's init), random BN affines
+    and statistics (var > 0) as :func:`random_bn_stats` draws them."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = np.zeros(shape, np.int64)
+            continue
+        if k.endswith("running_mean"):
+            a = rng.normal(0, 0.1, shape)
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) == 1 and k.endswith(".weight"):  # BN gamma
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith(".bias"):
+            a = rng.normal(0, 0.1, shape)
+        else:  # Conv2d (O, I, kh, kw)
+            a = rng.normal(0, np.sqrt(1.0 / np.prod(shape[1:])), shape)
+        sd[k] = a.astype(np.float32)
+    return sd
+
+
+def make_resnet_pair(model, attention, seed=0):
+    """(JAX module, JAX variables as numpy, port module with the same
+    weights) for one DeepLabV3 / FCN cell at full ResNet-50 widths. The
+    numpy weights enter the JAX tree through the JAX package's importer
+    and reach the port through the port's bridge."""
+    tm = build(model, attention).eval()
+    shapes = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
+    v = jax_segmentation_from_torch(
+        resnet_numpy_state_dict(shapes, seed), model, attention)
+    tm.load_state_dict(state_dict_to_torch(
+        segmentation_variables_to_torch(v, model, attention)), strict=True)
+    return jax_build(model, attention), v, tm
 
 
 @pytest.mark.parametrize("use_se", [True, False])

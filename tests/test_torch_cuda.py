@@ -1,7 +1,7 @@
-"""The int8 kernels K1-K3 on the card against their plain versions, at
-small and ragged shapes (partial channel chunks, tiles cut by the image
-border, output channels that are not a multiple of the kernel's tile).
-Outputs must be exactly equal.
+"""The int8 kernels K1-K3, K5a and K5b on the card against their plain
+versions, at small and ragged shapes (partial channel chunks, tiles cut by
+the image border, output channels that are not a multiple of the kernel's
+tile, dilations larger than the map). Outputs must be exactly equal.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -101,10 +101,105 @@ def test_int8_engine_card_vs_cpu(dev):
     tree = pack_unet_int8(model.state_dict(), [x], device=dev)
     before = dict(K.LAUNCHES)
     gpu = make_int8_predict_fn(prepare_int8(tree, dev))(x).float().cpu()
-    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                if K.LAUNCHES[k] != before[k]}
     assert launched == {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
                         "se_excite_i8": 9, "maxpool2x2_i8": 4}
     cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
     rel = float((gpu - cpu).abs().max() / cpu.abs().max())
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
     assert rel <= 2e-2 and agree >= 0.995, (rel, agree)
+
+
+K5A_CASES = [  # (b, h, w, cin, cout, k, stride, dilation)
+    (2, 20, 36, 64, 80, 3, 1, 1), (1, 17, 9, 96, 64, 3, 2, 1),
+    (1, 16, 16, 64, 128, 3, 1, 2), (2, 8, 8, 256, 64, 3, 1, 12),
+    (1, 4, 4, 128, 64, 3, 1, 36), (2, 9, 13, 256, 64, 1, 1, 1),
+    (1, 15, 15, 64, 256, 1, 2, 1), (1, 8, 8, 40, 48, 3, 1, 4),
+]
+
+
+def _k5a_args(gen, b, h, w, cin, cout, k, stride, exit_, idn_kind, dev):
+    q = torch.from_numpy(quant_weight(np.random.default_rng(cin + cout + k)
+                                      .normal(0, 1, (k, k, cin, cout)))["q"])
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    acc_sd = 127.0 * 127.0 * np.sqrt(k * k * cin) / 3
+    mult = (torch.rand(cout, generator=gen) + 0.5) * (60 / acc_sd)
+    off = torch.randn(cout, generator=gen) * 10
+    shape = (b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    kw = {"out_s": 0.5 if exit_ == "s8" else None, "bf16": exit_ == "bf16"}
+    if idn_kind == "s8":
+        kw["idn"] = torch.randint(-127, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev)
+        kw["in_s"] = 0.3
+    elif idn_kind == "f32":
+        kw["idn"] = (torch.randn(shape, generator=gen) * 20).to(dev)
+    return (x.to(dev), K.repack_conv_weight(q).to(dev), mult.to(dev),
+            off.to(dev)), kw
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,stride,dilation", K5A_CASES)
+@pytest.mark.parametrize("exit_", ["s8", "f32", "bf16"])
+@pytest.mark.parametrize("idn_kind", ["none", "s8", "f32"])
+def test_k5a_equals_plain(dev, b, h, w, cin, cout, k, stride, dilation,
+                          exit_, idn_kind):
+    gen = torch.Generator().manual_seed(h * w + cin + k)
+    args, kw = _k5a_args(gen, b, h, w, cin, cout, k, stride, exit_,
+                         idn_kind, dev)
+    for relu in (True, False):
+        kw.update(stride=stride, dilation=dilation, relu=relu)
+        before = K.LAUNCHES["int8_conv_epilogue"]
+        got = K.conv_i8(*args, **kw)
+        assert K.LAUNCHES["int8_conv_epilogue"] == before + 1
+        want = K.conv_i8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 16, 256), (3, 7, 5, 48),
+                                     (1, 4, 4, 2048)])
+@pytest.mark.parametrize("idn_kind", ["s8", "f32"])
+def test_k5b_equals_plain(dev, b, h, w, c, idn_kind):
+    gen = torch.Generator().manual_seed(b * c)
+    y3q = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                        dtype=torch.int8).to(dev)
+    gate = (torch.rand((b, c), generator=gen) * 0.05).to(dev)
+    if idn_kind == "s8":
+        idn, in_s = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                                  dtype=torch.int8).to(dev), 0.02
+    else:
+        idn, in_s = (torch.randn((b, h, w, c), generator=gen) * 3).to(dev), \
+            None
+    before = K.LAUNCHES["se_residual_i8"]
+    got = K.se_residual_i8(y3q, gate, idn, in_s, 0.03)
+    assert K.LAUNCHES["se_residual_i8"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.se_residual_i8_plain(y3q, gate, idn, in_s,
+                                                   0.03))
+
+
+def test_resnet_int8_engine_card_vs_cpu(dev):
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.models.resnet_int8 import (
+        make_resnet_int8_predict_fn,
+        pack_resnet_int8,
+        prepare_resnet_int8,
+    )
+
+    torch.manual_seed(0)
+    model = build("fcn", "channel").eval()
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
+        .astype(np.float32)
+    tree = pack_resnet_int8(model.state_dict(), [x], device=dev)
+    before = dict(K.LAUNCHES)
+    gpu = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, dev))(x)
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                if K.LAUNCHES[k] != before[k]}
+    assert launched == {"int8_conv_epilogue": 53, "se_residual_i8": 16,
+                        "se_squeeze_i8": 16}
+    cpu = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, "cpu"))(x)
+    gpu, cpu = gpu.float().cpu(), cpu.float()
+    corr = float(np.corrcoef(gpu.numpy().ravel(), cpu.numpy().ravel())[0, 1])
+    agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
+    assert corr >= 0.999 and agree >= 0.995, (corr, agree)

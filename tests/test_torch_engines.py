@@ -115,10 +115,11 @@ def test_bf16_artifact_leaves_round_trip(tmp_path):
 @pytest.mark.parametrize("model,attention,kw,err", [
     ("unet-fast", "channel", {}, NotImplementedError),
     ("unet", "spatial", {}, NotImplementedError),
-    ("deeplabv3", "none", {}, NotImplementedError),
+    ("deeplabv3", "none", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"engine": "int8"}, ValueError),
     ("unet", "channel", {"engine": "fp4"}, ValueError),
+    ("pspnet", "none", {}, NotImplementedError),
 ])
 def test_make_engine_refuses(pair, model, attention, kw, err):
     _, _, tm, _ = pair

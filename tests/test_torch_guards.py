@@ -57,12 +57,18 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present; the default is usable")
     from insarseg_torch.data.stitch import sliding_window_inference
     from insarseg_torch.engines import make_engine
+    from insarseg_torch.models.resnet_int8 import pack_resnet_int8
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.parallel.inference import make_predict_fn
 
     model = UNet(base_features=16, use_se=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_engine("unet", "channel", model, None, "serve")
+    for name in ("deeplabv3", "fcn"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_engine(name, "channel", torch.nn.Identity(), None, "serve")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_resnet_int8({}, [np.zeros((1, 32, 32, 1), np.float32)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_predict_fn(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -70,11 +76,15 @@ def test_entry_points_default_to_cuda():
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from insarseg_torch.kernels import maxpool2x2_i8
+    from insarseg_torch.kernels import conv_i8, maxpool2x2_i8, se_residual_i8
 
+    q = torch.zeros((1, 2, 2, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        maxpool2x2_i8(torch.zeros((1, 2, 2, 16), dtype=torch.int8,
-                                  device="meta"))
+        maxpool2x2_i8(q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv_i8(q, torch.zeros((16, 1, 1, 16), dtype=torch.int8), None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        se_residual_i8(q, None, q, 1.0, 1.0)
 
 
 def test_chip_smoke_fails_without_a_card():
