@@ -9,30 +9,38 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    sm_90a, one process per source, into ``insarseg_torch/_build/``) and
    prints the build time and the card's name and power limit;
 2. holds every kernel to its plain PyTorch version on the card, exactly,
-   at fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 with both exits,
-   K2 at 512^2x64 and 32^2x1024 with both exits, K3 at 512^2x64; K5a at
-   k1/k3 x stride 1/2 x dilation 1/2/4/12/36 x every exit x ReLU or not x
-   no / int8 / f32 identity, and at Cin 1280 and 2048; K5b with both
-   identities), then on the tensors of one int8 forward of each main path
-   (512^2, b8), timing each kernel, its plain version, a PyTorch reference
-   call where one exists, and computing each call's bound (a kernel's row
-   sums its calls over the main paths that launch it);
-3. drives three main paths at full width with seeded random weights, each
+   at fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 and at the four
+   H-s2d level-1 shapes (256x512, Cin 2/128/256 -> 128), both exits; K2 at
+   512^2x64 and 32^2x1024 with both exits; K3 at 512^2x64; K3s at
+   256x512x128 and an odd width; K4a / K4b at C 128/256/512/1024 at their
+   path sizes and a ragged 7x5x48; K5a at k1/k3 x stride 1/2 x dilation
+   1/2/4/12/36 x every exit x ReLU or not x no / int8 / f32 identity, and
+   at Cin 1280 and 2048; K5b with both identities), then on the tensors of
+   one int8 forward of each main path (512^2, b8), timing each kernel, its
+   plain version, a PyTorch reference call where one exists, and computing
+   each call's bound (a kernel's row sums its calls over the main paths
+   that launch it);
+3. drives four main paths at full width with seeded random weights, each
    with the launch counters set to 0 just before and read just after:
-   U-Net-CA (base 64), FCN-ResNet50-CA and DeepLabV3-ResNet50, 1 -> 2
-   classes, through ``make_engine`` 'module' (f32), 'serve' (f32 and bf16
-   input) and 'int8' (calibrated on two seeded 512^2 batches), each
-   serving batches of eight 512^2 tiles, plus a 1024^2 scene through
-   ``sliding_window_inference`` on the U-Net and FCN int8 engines; then
-   DeepLab-CA, DeepLab-SA, FCN and FCN-SA once each through 'int8'
+   U-Net-CA and U-Net-SA (base 64), FCN-ResNet50-CA and
+   DeepLabV3-ResNet50, 1 -> 2 classes, through ``make_engine`` 'module'
+   (f32), 'serve' (f32 and bf16 input) and 'int8' (calibrated on two seeded
+   512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
+   the standard layout), each serving batches of eight 512^2 tiles, plus a
+   1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
+   FCN int8 engines; then U-Net-CA's int8 engine in the standard layout
+   (``pack_unet_int8(s2d=False)``), timed in turns against the H-s2d one;
+   then DeepLab-CA, DeepLab-SA, FCN and FCN-SA once each through 'int8'
    (512^2, b2);
 4. checks the outputs: serve f32 within 1e-3 x max|logit| of module f32
    (TF32 off), int8 logits correlated with serve's > 0.98 (U-Net) and
    > 0.97 (ResNet cells, the JAX package's bar), the launches per int8
-   forward (U-Net 18 / 9 / 9 / 4 of K1 / K2 squeeze / K2 excite / K3;
-   FCN-CA 53 / 16 / 16 of K5a / K5b / K2 squeeze; DeepLabV3 58 K5a and one
-   K2 squeeze), the int8 engines on the card against the same trees on the
-   CPU (plain versions), finite scenes;
+   forward (U-Net-CA H-s2d 18 / 9 / 9 / 3 / 1 of K1 / K2 squeeze / K2
+   excite / K3 / K3s, in the standard layout 18 / 9 / 9 / 4; U-Net-SA
+   18 / 4 / 4 / 4 of K1 / K3 / K4a / K4b; FCN-CA 53 / 16 / 16 of K5a /
+   K5b / K2 squeeze; DeepLabV3 58 K5a and one K2 squeeze), the int8
+   engines on the card against the same trees on the CPU (plain
+   versions), finite scenes;
 5. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
    power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -115,8 +123,15 @@ def check_fixed_shapes(dev) -> None:
                                     "none", dev)
                 args += (kw["out_s"],)
                 same(K.conv3x3_i8(*args), K.conv3x3_i8_plain(*args))
+    for cin in (2, 128, 256):  # the H-s2d level-1 convs (inc, conv4)
+        for exit_ in ("s8", "bf16"):
+            args, kw = k5a_case(gen, 2, 256, 512, cin, 128, 3, exit_, "none",
+                                dev)
+            args += (kw["out_s"],)
+            same(K.conv3x3_i8(*args), K.conv3x3_i8_plain(*args))
     log("K1 int8_conv3x3_epilogue == plain at Cin 1/64/1024 x "
-        "512^2/128^2/32^2, int8 and bf16 exits")
+        "512^2/128^2/32^2 and at 256x512 Cin 2/128/256 -> 128, int8 and "
+        "bf16 exits")
     for hw, c in ((512, 64), (32, 1024)):
         q = torch.randint(-127, 128, (2, hw, hw, c), generator=gen,
                           dtype=torch.int8).to(dev)
@@ -130,6 +145,23 @@ def check_fixed_shapes(dev) -> None:
                       dtype=torch.int8).to(dev)
     same(K.maxpool2x2_i8(q), K.maxpool2x2_i8_plain(q))
     log("K3 maxpool2x2_i8 == plain at 512^2x64")
+    for shape in ((BATCH, 256, 512, 128), (3, 5, 9, 32)):
+        q = torch.randint(-128, 128, shape, generator=gen,
+                          dtype=torch.int8).to(dev)
+        same(K.maxpool_exit_s2d_i8(q), K.maxpool_exit_s2d_i8_plain(q))
+    log(f"K3s maxpool_exit_s2d_i8 == plain at b{BATCH} 256x512x128 and "
+        "5x9x32")
+    for shape in ((BATCH, 512, 512, 128), (BATCH, 256, 256, 256),
+                  (BATCH, 128, 128, 512), (BATCH, 64, 64, 1024),
+                  (3, 7, 5, 48)):
+        q = torch.randint(-128, 128, shape, generator=gen,
+                          dtype=torch.int8).to(dev)
+        same(K.sa_stats_i8(q, 0.0173), K.sa_stats_i8_plain(q, 0.0173))
+        g = torch.rand(shape[:3], generator=gen).to(dev)
+        same(K.sa_gate_i8(q, g), K.sa_gate_i8_plain(q, g))
+        del q, g
+    log(f"K4a sa_stats_i8 / K4b sa_gate_i8 == plain at b{BATCH} "
+        "512^2x128, 256^2x256, 128^2x512, 64^2x1024 and 3x7x5x48")
     torch.cuda.synchronize()
 
 
@@ -250,6 +282,7 @@ def kernel_row(name, source, replaces, cases):
     and the bound. Returns the kernel's row (sums over the calls)."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0}
     err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
+    by_path = {}
     has_lib = True
     for c in cases:
         err = max(err, same(c["kernel"](), c["plain"]()))
@@ -257,7 +290,9 @@ def kernel_row(name, source, replaces, cases):
         pms = cuda_ms(c["plain"], reps=2)
         bms, by = bound(c["ops"], c["bytes"])
         lms = None if c["lib"] is None else cuda_ms(c["lib"], reps=5)
-        log(f"  {name} {c['shape']}: {ms:.4f} ms, plain {pms:.4f} ms, "
+        by_path[c["path"]] = by_path.get(c["path"], 0.0) + ms
+        log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, "
             f"library {'-' if lms is None else f'{lms:.4f}'} ms, "
             f"bound {bms:.4f} ms ({by})")
         tot["ms"] += ms
@@ -274,7 +309,7 @@ def kernel_row(name, source, replaces, cases):
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(by_time, key=by_time.get),
             "library_ms": tot["lib"] if has_lib else None,
-            "calls_timed": len(cases)}
+            "calls_timed": len(cases), "ms_by_path": by_path}
 
 
 # kernel name -> (its wrapper in insarseg_torch.kernels, source, the JAX
@@ -288,6 +323,12 @@ KERNELS = {
                      "insarseg/models/unet_int8.py:303"),
     "maxpool2x2_i8": ("maxpool2x2_i8", "maxpool2x2_i8.cu",
                       "insarseg/models/unet_int8.py:322"),
+    "maxpool_exit_s2d_i8": ("maxpool_exit_s2d_i8", "maxpool2x2_i8.cu",
+                            "insarseg/models/unet_s2d.py:292"),
+    "sa_stats_i8": ("sa_stats_i8", "sa_i8.cu",
+                    "insarseg/models/unet_int8.py:312"),
+    "sa_gate_i8": ("sa_gate_i8", "sa_i8.cu",
+                   "insarseg/models/unet_int8.py:312"),
     "int8_conv_epilogue": ("conv_i8", "conv_i8.cu",
                            "insarseg/models/resnet_int8.py:231"),
     "se_residual_i8": ("se_residual_i8", "block_i8.cu",
@@ -295,8 +336,9 @@ KERNELS = {
 }
 
 
-def kernel_cases(calls):
-    """Timing cases, per wrapper, on the tensors ``record_calls`` took."""
+def kernel_cases(calls, path):
+    """Timing cases, per wrapper, on the tensors ``record_calls`` took in
+    one forward of ``path``."""
     import torch
     import torch.nn.functional as F
     from insarseg_torch import kernels as K
@@ -360,6 +402,38 @@ def kernel_cases(calls):
             "ops": 3.0 * q.numel() / 4,
             "bytes": q.numel() * 1.25}
 
+    def pool_exit(a):
+        q = a["q"]
+        b, r, w, c2 = q.shape
+        return {
+            "shape": f"b{b} {r}x{w}x{c2}",
+            "kernel": lambda: K.maxpool_exit_s2d_i8(q),
+            "plain": lambda: K.maxpool_exit_s2d_i8_plain(q),
+            "lib": lambda: torch.amax(
+                q.view(b, r, w // 2, 2, 2, c2 // 2), dim=(3, 4)),
+            "ops": 3.0 * q.numel() / 4,
+            "bytes": q.numel() * 1.25}
+
+    def sa_stats(a):
+        q, s = a["q"], a["s"]
+        return {
+            "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]}",
+            "kernel": lambda: K.sa_stats_i8(q, s),
+            "plain": lambda: K.sa_stats_i8_plain(q, s),
+            "lib": None,
+            "ops": 2.0 * q.numel(),
+            "bytes": q.numel() + 8 * q.numel() // q.shape[3]}
+
+    def sa_gate(a):
+        q, g = a["q"], a["g"]
+        return {
+            "shape": f"b{q.shape[0]} {q.shape[1]}x{q.shape[2]}x{q.shape[3]}",
+            "kernel": lambda: K.sa_gate_i8(q, g),
+            "plain": lambda: K.sa_gate_i8_plain(q, g),
+            "lib": None,
+            "ops": 2.0 * q.numel(),
+            "bytes": 2 * q.numel() + 4 * g.numel()}
+
     def residual(a):
         q, idn = a["y3q"], a["idn"]
         return {
@@ -375,8 +449,11 @@ def kernel_cases(calls):
     make = {"conv3x3_i8": lambda a: conv(K.conv3x3_i8, a),
             "conv_i8": lambda a: conv(K.conv_i8, a),
             "se_squeeze_i8": squeeze, "se_excite_i8": excite,
-            "maxpool2x2_i8": pool, "se_residual_i8": residual}
-    return {n: [make[n](a) for a in args] for n, args in calls.items()}
+            "maxpool2x2_i8": pool, "maxpool_exit_s2d_i8": pool_exit,
+            "sa_stats_i8": sa_stats, "sa_gate_i8": sa_gate,
+            "se_residual_i8": residual}
+    return {n: [dict(make[n](a), path=path) for a in args]
+            for n, args in calls.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +509,9 @@ def build_model(name: str, attention: str, seed: int = SEED):
     from insarseg_torch.models.unet import UNet
 
     if name == "unet":
-        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+        model = UNet(num_classes=2, base_features=BASE,
+                     use_se=attention == "channel",
+                     use_sa=attention == "spatial")
         sd = random_state_dict(model, seed)
     else:
         model = build(name, attention, num_classes=2)
@@ -511,10 +590,15 @@ def serve_and_check(engines, images, dev, corr_bar: float,
 
 # The main paths: (model, attention, name, int8 correlation bar, the
 # kernels launched per int8 forward)
+UNET_CA_STANDARD = {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
+                    "se_excite_i8": 9, "maxpool2x2_i8": 4}
 PATHS = (
     ("unet", "channel", f"U-Net-CA base {BASE}", 0.98,
      {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9, "se_excite_i8": 9,
-      "maxpool2x2_i8": 4}),
+      "maxpool2x2_i8": 3, "maxpool_exit_s2d_i8": 1}),
+    ("unet", "spatial", f"U-Net-SA base {BASE}", 0.98,
+     {"int8_conv3x3_epilogue": 18, "maxpool2x2_i8": 4, "sa_stats_i8": 4,
+      "sa_gate_i8": 4}),
     ("fcn", "channel", "FCN-ResNet50-CA", 0.97,
      {"int8_conv_epilogue": 53, "se_residual_i8": 16, "se_squeeze_i8": 16}),
     ("deeplabv3", "none", "DeepLabV3-ResNet50", 0.97,
@@ -563,16 +647,20 @@ def run_path(engines, images, dev, corr_bar, want, label, power_line,
     return launches
 
 
-def card_vs_cpu(dev, name, model, calib, images):
+def card_vs_cpu(dev, name, attention, model, calib, images):
     """The same int8 tree on the card and on the CPU (plain versions), at
-    64^2, b2. The kernels are exact against their plain versions (phase
-    2); what differs is the bf16 float ops (cuDNN vs CPU)."""
+    64^2, b2 (U-Net: H-s2d, standard for SA, as ``make_engine`` packs it).
+    The kernels are exact against their plain versions (phase 2); what
+    differs is the bf16 float ops (cuDNN vs CPU)."""
+    import functools
+
     if name == "unet":
         from insarseg_torch.models.unet_int8 import (
             make_int8_predict_fn as make,
-            pack_unet_int8 as pack,
+            pack_unet_int8,
             prepare_int8 as prepare,
         )
+        pack = functools.partial(pack_unet_int8, s2d=attention != "spatial")
     else:
         from insarseg_torch.models.resnet_int8 import (
             make_resnet_int8_predict_fn as make,
@@ -587,12 +675,61 @@ def card_vs_cpu(dev, name, model, calib, images):
     rel = float(np.abs(g - c).max() / np.abs(c).max())
     corr = float(np.corrcoef(g.ravel(), c.ravel())[0, 1])
     agree = float(np.mean(g.argmax(-1) == c.argmax(-1)))
-    log(f"{name} int8 engine, card vs CPU plain versions (64^2, b2): max "
+    log(f"{name}-{attention} int8 engine, card vs CPU plain versions "
+        f"(64^2, b2): max "
         f"rel err {rel:.3g}, logit correlation {corr:.6f}, argmax agreement"
         f" {agree:.5f}")
     if corr < 0.999 or agree < 0.995:
         raise AssertionError(f"{name} int8 engine on the card disagrees with"
                              " the CPU plain path")
+
+
+def unet_standard_layout(dev, model, calib, images, s2d_predict,
+                         power_line):
+    """U-Net-CA's int8 engine in the standard layout beside the H-s2d one
+    (the JAX package's default, a TPU lane-filling device): its launches
+    per forward with the counters from 0, its logit correlation with the
+    H-s2d engine, both engines' tiles/s in turns (H-s2d, standard,
+    standard, H-s2d; host clock over 5 forwards each) and the K1 time of
+    one forward of each (CUDA events, per call)."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.models import unet_int8
+
+    tree = unet_int8.pack_unet_int8(model.state_dict(), calib, s2d=False,
+                                    device=dev)
+    std = unet_int8.make_int8_predict_fn(unet_int8.prepare_int8(tree, dev))
+    K.reset_launches()
+    log(f"U-Net-CA int8, standard layout, {HW}^2, b{BATCH}")
+    y_std = std(images).float().cpu().numpy()
+    per_forward = {k: n for k, n in K.LAUNCHES.items() if n}
+    log(f"  launches in one int8 forward: {per_forward}")
+    if per_forward != UNET_CA_STANDARD:
+        raise AssertionError(f"standard layout: launches {per_forward} != "
+                             f"{UNET_CA_STANDARD}")
+    y_s2d = s2d_predict(images).float().cpu().numpy()
+    corr = float(np.corrcoef(y_std.ravel(), y_s2d.ravel())[0, 1])
+    log(f"  standard vs H-s2d int8 logits: correlation {corr:.5f}")
+    if not corr > 0.98:
+        raise AssertionError(f"standard vs H-s2d correlation {corr}")
+    rates = {"H-s2d": [], "standard": []}
+    for label, fn in (("H-s2d", s2d_predict), ("standard", std),
+                      ("standard", std), ("H-s2d", s2d_predict)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(images)
+        torch.cuda.synchronize()
+        rates[label].append(5 * BATCH / (time.perf_counter() - t0))
+    k1 = {}
+    for label, fn in (("H-s2d", s2d_predict), ("standard", std)):
+        calls = record_calls(unet_int8, ["conv3x3_i8"], fn, images)
+        k1[label] = sum(cuda_ms(c["kernel"], reps=5) for c in
+                        kernel_cases(calls, label)["conv3x3_i8"])
+    for label in rates:
+        log(f"  {label}: {' / '.join(f'{r:.2f}' for r in rates[label])} "
+            f"tiles/s (turns 1 and 4, or 2 and 3), K1 {k1[label]:.3f} ms per "
+            f"forward, on {power_line}")
 
 
 def run(dev, power_line: str, phase) -> list:
@@ -622,17 +759,22 @@ def run(dev, power_line: str, phase) -> list:
         module = unet_int8 if name == "unet" else resnet_int8
         wrappers = [KERNELS[k][0] for k in want]
         for n, c in kernel_cases(record_calls(
-                module, wrappers, engines["int8"], images)).items():
+                module, wrappers, engines["int8"], images), label).items():
             cases[n] += c
         phase(f"{label}: recording the kernels' arguments")
 
         # 3b. the main path, counters from 0
-        launches[name] = run_path(
+        with_scene = attention == "channel"  # U-Net-CA and FCN-CA
+        launches[label] = run_path(
             engines, images, dev, corr_bar, want, label, power_line,
-            scene=None if name == "deeplabv3" else scene)
+            scene=scene if with_scene else None)
         phase(f"{label}: main path")
-        card_vs_cpu(dev, name, model, calib, images)
+        card_vs_cpu(dev, name, attention, model, calib, images)
         phase(f"{label}: card vs CPU")
+        if (name, attention) == ("unet", "channel"):
+            unet_standard_layout(dev, model, calib, images, engines["int8"],
+                                 power_line)
+            phase(f"{label}: int8 in the standard layout")
         del engines, model
         torch.cuda.empty_cache()
 
@@ -643,6 +785,9 @@ def run(dev, power_line: str, phase) -> list:
         row = kernel_row(kname, "insarseg_torch/csrc/" + source, replaces,
                          cases.pop(wrapper))
         row["launches"] = sum(n[kname] for n in launches.values())
+        if row["launches"] == 0:
+            raise AssertionError(f"kernel {kname} never launched on the main "
+                                 "paths")
         table.append(row)
     torch.cuda.empty_cache()
     phase("kernel timing")

@@ -4,16 +4,15 @@
 - ``serve``  — the BN-folded exact graph: UNet with deferred SE gates
   (``models/unet_serve.py``), DeepLabV3 / FCN (``models/resnet_serve.py``);
 - ``int8``   — post-training quantization (needs calibration batches):
-  UNet through the hand-written kernels K1-K3 (``models/unet_int8.py``),
+  UNet through the hand-written kernels K1-K4 (``models/unet_int8.py``;
+  the H-space-to-depth layout for attention ``none`` and ``channel``, the
+  standard layout for ``spatial``, as the JAX package packs them),
   DeepLabV3 / FCN through K5a, K5b and K2's squeeze
   (``models/resnet_int8.py``).
 
-The port serves ``unet`` with attention ``none`` or ``channel``, and
-``deeplabv3`` and ``fcn`` with ``none``, ``channel`` or ``spatial``. Its
-one departure from the JAX package's defaults: the int8 engine packs the
-standard layout for UNet-CA, where the JAX package packs the
-H-space-to-depth layout (ROADMAP Queue 1 item 7). Every ``predict`` takes
-and returns NHWC tensors and runs on the engine's device.
+The port serves ``unet``, ``deeplabv3`` and ``fcn`` with attention
+``none``, ``channel`` or ``spatial``. Every ``predict`` takes and returns
+NHWC tensors and runs on the engine's device.
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
 RESNET_MODELS = ("deeplabv3", "fcn")
 ATTENTIONS = ("none", "channel", "spatial")
 _TODO = {
-    "spatial": "the U-Net SA variant (ROADMAP Queue 1 item 2, Queue 2 K4)",
     "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
     "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
     "mesh": "multi-GPU serving (ROADMAP Queue 1 item 16)",
@@ -54,8 +52,6 @@ def _check_cell(model_name: str, attention: str, engine: str,
         raise _not_ported(model_name)
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
-    if model_name == "unet" and attention == "spatial":
-        raise _not_ported("spatial")
     if mesh is not None:
         raise _not_ported("mesh")
     return model_name
@@ -109,7 +105,8 @@ def make_engine(
         return make_predict_fn(model, argmax=argmax, input_dtype=input_dtype,
                                device=dev)
     if engine == "serve":
-        return _serve_predict(model_name, _pack(model_name, sd, engine),
+        return _serve_predict(model_name,
+                              _pack(model_name, attention, sd, engine),
                               dev, argmax, input_dtype)
     if not calib_batches:
         raise ValueError(
@@ -117,16 +114,18 @@ def make_engine(
             "(calib_batches was "
             f"{'None' if calib_batches is None else 'empty'}); collect "
             "them with insarseg_torch.engines.collect_calib_batches")
-    tree = _pack(model_name, sd, engine, calib_batches, calib_stat, dev)
+    tree = _pack(model_name, attention, sd, engine, calib_batches,
+                 calib_stat, dev)
     return _int8_predict(model_name, tree, dev, argmax)
 
 
-def _pack(model_name: str, sd: Mapping[str, torch.Tensor], engine: str,
-          calib_batches: Optional[List[Any]] = None,
+def _pack(model_name: str, attention: str, sd: Mapping[str, torch.Tensor],
+          engine: str, calib_batches: Optional[List[Any]] = None,
           calib_stat: str = "absmax",
           device: Optional[torch.device] = None) -> Dict[str, Any]:
     """The packed tree of a serve or int8 engine (on the CPU, in the JAX
-    package's format); int8 calibrates on ``device``."""
+    package's format); int8 calibrates on ``device``. The U-Net int8 tree
+    is H-s2d except for the SA variant, as the JAX package packs it."""
     if model_name == "unet":
         if engine == "serve":
             from insarseg_torch.models.unet_serve import pack_unet_serve
@@ -134,7 +133,7 @@ def _pack(model_name: str, sd: Mapping[str, torch.Tensor], engine: str,
             return pack_unet_serve(sd)
         from insarseg_torch.models.unet_int8 import pack_unet_int8
 
-        return pack_unet_int8(sd, calib_batches, s2d=False,
+        return pack_unet_int8(sd, calib_batches, s2d=attention != "spatial",
                               calib_stat=calib_stat, device=device)
     if engine == "serve":
         from insarseg_torch.models.resnet_serve import pack_resnet_serve
@@ -198,7 +197,8 @@ def pack_engine(
     sd = model.state_dict() if state_dict is None else state_dict
     if engine == "int8" and not calib_batches:
         raise ValueError("engine='int8' needs calibration batches")
-    tree = _pack(model_name, sd, engine, calib_batches, calib_stat,
+    tree = _pack(model_name, attention, sd, engine, calib_batches,
+                 calib_stat,
                  resolve_device(device) if engine == "int8" else None)
     nc = getattr(model, "num_classes", None)
     return {"format": 1, "model": model_name, "attention": attention,
@@ -216,7 +216,7 @@ def engine_from_artifact(
 ):
     """Rebuild ``predict(images)`` from an artifact (in memory, or read
     with ``insarseg_torch.engines_io.load_artifact``), written by either
-    package. An int8 artifact in the H-s2d layout raises."""
+    package; a U-Net int8 tree serves in the layout it was packed in."""
     model_name, engine = artifact.get("model"), artifact.get("engine")
     if artifact.get("format") != 1:
         raise ValueError(

@@ -8,6 +8,12 @@ K1    ``conv3x3_i8``               ``models/unet_int8.py::_conv_i8``
 K2    ``se_squeeze_i8`` +          ``models/unet_int8.py::_dc_i8`` SE tail
       ``se_excite_i8``
 K3    ``maxpool2x2_i8``            ``models/unet_int8.py::_maxpool_i8``
+K3s   ``maxpool_exit_s2d_i8``      ``models/unet_s2d.py::_maxpool_exit_s2d``
+                                   on the level-1 codes (H-s2d layout)
+K4a   ``sa_stats_i8``              ``models/unet_int8.py::_sa_gate_i8``:
+                                   channel mean / max of the codes
+K4b   ``sa_gate_i8``               ``models/unet_int8.py::_sa_gate_i8``:
+                                   the gate times the codes, requantized
 K5a   ``conv_i8``                  ``models/resnet_int8.py::_conv_i8`` and
                                    the residual add of ``_block_i8``
 K5b   ``se_residual_i8``           ``models/resnet_int8.py::_block_i8`` SE
@@ -32,7 +38,18 @@ from insarseg_torch.kernels.conv_i8 import (
     conv_i8_plain,
     repack_conv_weight,
 )
-from insarseg_torch.kernels.maxpool_i8 import maxpool2x2_i8, maxpool2x2_i8_plain
+from insarseg_torch.kernels.maxpool_i8 import (
+    maxpool2x2_i8,
+    maxpool2x2_i8_plain,
+    maxpool_exit_s2d_i8,
+    maxpool_exit_s2d_i8_plain,
+)
+from insarseg_torch.kernels.sa_i8 import (
+    sa_gate_i8,
+    sa_gate_i8_plain,
+    sa_stats_i8,
+    sa_stats_i8_plain,
+)
 from insarseg_torch.kernels.se_i8 import (
     se_excite_i8,
     se_excite_i8_plain,
@@ -44,6 +61,8 @@ __all__ = [
     "LAUNCHES", "build_info", "load_library", "reset_launches",
     "conv3x3_i8", "conv3x3_i8_plain", "conv_i8", "conv_i8_plain",
     "repack_conv_weight", "maxpool2x2_i8", "maxpool2x2_i8_plain",
+    "maxpool_exit_s2d_i8", "maxpool_exit_s2d_i8_plain", "sa_gate_i8",
+    "sa_gate_i8_plain", "sa_stats_i8", "sa_stats_i8_plain",
     "se_excite_i8", "se_excite_i8_plain", "se_residual_i8",
     "se_residual_i8_plain", "se_squeeze_i8", "se_squeeze_i8_plain",
 ]

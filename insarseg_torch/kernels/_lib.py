@@ -31,7 +31,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
-           "block_i8.cu")
+           "block_i8.cu", "sa_i8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -41,6 +41,9 @@ LAUNCHES: Dict[str, int] = {
     "se_squeeze_i8": 0,
     "se_excite_i8": 0,
     "maxpool2x2_i8": 0,
+    "maxpool_exit_s2d_i8": 0,
+    "sa_stats_i8": 0,
+    "sa_gate_i8": 0,
     "int8_conv_epilogue": 0,
     "se_residual_i8": 0,
 }
@@ -53,6 +56,9 @@ _SIGNATURES = {
     "insarseg_se_squeeze_i8": (_vp, _vp, _i, _i, _i, _i, _i, _vp),
     "insarseg_se_excite_i8": (_vp, _vp, _vp, _ll, _ll, _i, _i, _vp),
     "insarseg_maxpool2x2_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
+    "insarseg_maxpool_exit_s2d_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
+    "insarseg_sa_stats_i8": (_vp, _vp, _ll, _i, _f, _vp),
+    "insarseg_sa_gate_i8": (_vp, _vp, _vp, _ll, _i, _vp),
     "insarseg_conv_i8": (_vp, _vp, _vp, _vp, _vp, _vp) + (_i,) * 12
     + (_f, _f, _i, _vp),
     "insarseg_se_residual_i8": (_vp, _vp, _vp, _vp, _ll, _ll, _i, _i, _f, _f,

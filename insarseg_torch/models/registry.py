@@ -10,8 +10,6 @@ from insarseg_torch.models.fcn import FCN
 from insarseg_torch.models.unet import UNet
 
 NOT_PORTED = {
-    "unet-spatial": "the U-Net SA variant (ROADMAP Queue 1 item 2, Queue 2 "
-                    "K4)",
     "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
     "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
 }
@@ -20,18 +18,16 @@ NOT_PORTED = {
 def build(model: str, attention: str = "none", num_classes: int = 2,
           backbone: str = "resnet50", in_channels: int = 1) -> nn.Module:
     """The port's module for ``model`` in {unet, deeplabv3, fcn} and
-    ``attention`` in {none, channel, spatial} (U-Net: none / channel)."""
+    ``attention`` in {none, channel, spatial}."""
     model, attention = model.lower().replace("_", "-"), attention.lower()
     if attention not in ("none", "channel", "spatial"):
         raise ValueError(f"unknown attention {attention!r}")
-    if model == "unet" and attention == "spatial":
-        model = "unet-spatial"
     if model in NOT_PORTED:
         raise NotImplementedError(
             f"insarseg_torch does not port {NOT_PORTED[model]} yet")
     if model == "unet":
         return UNet(num_classes=num_classes, use_se=attention == "channel",
-                    in_channels=in_channels)
+                    use_sa=attention == "spatial", in_channels=in_channels)
     if model == "deeplabv3":
         return DeepLabV3(num_classes, attention, backbone, in_channels)
     if model == "fcn":

@@ -1,6 +1,5 @@
-"""U-Net, plain and channel-attention (counterpart of
-``insarseg/models/unet.py::UNet``; the SA variant comes with its int8 gate
-kernel, ROADMAP Queue 2 K4).
+"""U-Net, plain, channel-attention (``use_se``) and spatial-attention
+(``use_sa``) (counterpart of ``insarseg/models/unet.py::UNet``).
 
 NCHW in and out, as the reference; module names follow the reference's
 state_dict (``inc``, ``down{i}`` = ``Sequential(MaxPool2d(2), DoubleConv)``,
@@ -11,6 +10,8 @@ state_dict (``inc``, ``down{i}`` = ``Sequential(MaxPool2d(2), DoubleConv)``,
 DoubleConv), 1x1 head. With ``use_se`` the decoder bilinear-resizes the
 upsampled tensor to the skip's size before the concat when they differ
 (``shape_fix``, default on iff ``use_se``, as the reference CA script).
+With ``use_sa`` a ``SpatialAttentionDC`` named ``sa{i}`` gates each
+decoder concat before ``conv{i}``.
 """
 
 from __future__ import annotations
@@ -20,19 +21,19 @@ from typing import Optional
 import torch
 from torch import nn
 
-from insarseg_torch.ops.blocks import DoubleConv
+from insarseg_torch.ops.blocks import DoubleConv, SpatialAttentionDC
 from insarseg_torch.ops.resize import resize_bilinear
 
 
 class UNet(nn.Module):
     def __init__(self, num_classes: int = 2, base_features: int = 64,
                  use_se: bool = False, shape_fix: Optional[bool] = None,
-                 in_channels: int = 1):
+                 in_channels: int = 1, use_sa: bool = False):
         super().__init__()
         f = base_features
         plan = (f, 2 * f, 4 * f, 8 * f, 16 * f)
         self.num_classes = num_classes
-        self.use_se = use_se
+        self.use_se, self.use_sa = use_se, use_sa
         self.shape_fix = use_se if shape_fix is None else shape_fix
         self.inc = DoubleConv(in_channels, plan[0], use_se)
         for i in range(1, 5):
@@ -42,6 +43,8 @@ class UNet(nn.Module):
             cin, cout = plan[5 - i], plan[4 - i]
             setattr(self, f"up{i}", nn.ConvTranspose2d(cin, cout, 2, stride=2))
             setattr(self, f"conv{i}", DoubleConv(2 * cout, cout, use_se))
+            if use_sa:
+                setattr(self, f"sa{i}", SpatialAttentionDC())
         self.outc = nn.Conv2d(plan[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -54,5 +57,8 @@ class UNet(nn.Module):
             y = getattr(self, f"up{i}")(y)
             if self.shape_fix and y.shape[2:] != skip.shape[2:]:
                 y = resize_bilinear(y, skip.shape[2:])
-            y = getattr(self, f"conv{i}")(torch.cat([skip, y], dim=1))
+            y = torch.cat([skip, y], dim=1)
+            if self.use_sa:
+                y = getattr(self, f"sa{i}")(y)
+            y = getattr(self, f"conv{i}")(y)
         return self.outc(y)

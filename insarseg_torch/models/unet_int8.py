@@ -1,5 +1,14 @@
-"""int8 post-training-quantized UNet inference, standard layout
-(counterpart of ``insarseg/models/unet_int8.py`` with ``s2d=False``).
+"""int8 post-training-quantized UNet inference (counterpart of
+``insarseg/models/unet_int8.py``), in both of its layouts:
+
+- ``s2d=True`` (the default, as in the JAX package): the H-space-to-depth
+  graph of ``models/unet_s2d.py`` for the plain and channel-attention
+  U-Nets — level 1 runs over (H/2, W) with 2C channels, the SE squeeze
+  averages the two parity halves, the max-pool exit leaves the s2d layout
+  (kernel K3s), up4 is a W-only transposed conv and the head is
+  block-diagonal over parity;
+- ``s2d=False``: the standard layout, the only one the SA variant has
+  (its per-pixel gates run on the concat codes, kernels K4a / K4b).
 
 The graph is the JAX package's:
 
@@ -9,16 +18,18 @@ The graph is the JAX package's:
 - SE blocks quantize conv2's output at a calibrated pre-SE scale, squeeze
   from the int8 codes and excite + requantize (or excite + exit to bf16)
   in one pass (kernel K2);
-- max-pooling runs on the codes (kernel K3);
+- max-pooling runs on the codes (kernels K3, K3s);
+- the SA gate takes the channel mean / max of the dequantized concat codes
+  (K4a), runs its DoubleConv(2 -> 1) and sigmoid in torch f32 and rescales
+  the codes in place (K4b): the gate is in (0, 1), so the concat's scale
+  still bounds the gated tensor;
 - activation scales come from an f32 replay of the folded graph on
   calibration batches; each tensor gets one scale where it is consumed;
 - the SE MLPs, the transposed convs and the 1x1 head stay bf16 torch ops.
 
 Packed trees have the JAX package's keys, so a tree packed by either
 package serves in the port (``prepare_int8`` places it on a device and
-repacks the codes into K1's layout). The H-space-to-depth layout (the JAX
-package's UNet-CA default) is ROADMAP Queue 1 item 7; a tree with
-``"s2d": True`` raises. The SA variant's gate (K4) is not ported.
+repacks the codes into K1's layout).
 """
 
 from __future__ import annotations
@@ -34,14 +45,26 @@ from insarseg_torch.engines_io import to_torch_tree
 from insarseg_torch.kernels import (
     conv3x3_i8,
     maxpool2x2_i8,
+    maxpool_exit_s2d_i8,
     repack_conv_weight,
+    sa_gate_i8,
+    sa_stats_i8,
     se_excite_i8,
     se_squeeze_i8,
 )
 from insarseg_torch.models.unet_s2d import (
-    _conv_affine,
     _conv_transpose_k2s2,
+    _dc_f32,
+    _h_d2s,
+    _h_s2d,
+    _maxpool_exit_s2d,
+    _s2d_argmax,
+    _sa_gate,
+    _sa_sigmoid,
+    _se_scales,
+    _up4_s2d,
     pack_unet_folded,
+    pack_unet_s2d,
 )
 from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
 from insarseg_torch.ops.quant import (
@@ -50,9 +73,6 @@ from insarseg_torch.ops.quant import (
     quant_weight,
     requant,
 )
-
-S2D_TODO = ("the H-space-to-depth int8 layout is not ported yet (ROADMAP "
-            "Queue 1 item 7); pack with s2d=False")
 
 # (input scale, t1 scale, output scale-or-None) per DoubleConv; None means
 # the block exits to bf16 (decoder blocks feed bf16 transposed convs; the
@@ -74,29 +94,12 @@ _DC_IO = {
 # calibration: statistic replay of the f32 folded graph (NCHW inside)
 # ---------------------------------------------------------------------------
 
-def _se_scales(pk: Mapping, pooled: torch.Tensor) -> torch.Tensor:
-    y = torch.relu(pooled @ pk["fc1"].to(pooled.dtype))
-    return torch.sigmoid(y @ pk["fc2"].to(y.dtype))
-
-
-def _dc_f32(pk: Mapping, x: torch.Tensor):
-    """f32 replay of one DoubleConv; returns (t1, t2_pre_se, out)."""
-    t1 = _conv_affine(x, pk["k1"], pk["s1"], pk["b1"])
-    t2 = _conv_affine(t1, pk["k2"], pk["s2"], pk["b2"])
-    y = t2
-    if "fc1" in pk:
-        sc = _se_scales(pk, t2.mean(dim=(2, 3)))
-        y = t2 * sc[:, :, None, None]
-    return t1, t2, y
-
-
 @torch.inference_mode()
-def _replay_absmax(pf: Mapping, x: torch.Tensor, s2d: bool = False,
+def _replay_absmax(pf: Mapping, x: torch.Tensor, s2d: bool = True,
                    calib_stat: str = "absmax") -> Dict[str, torch.Tensor]:
-    """One f32 forward of the folded graph recording the calibration
-    statistic of every tensor that will be int8. ``x``: (B, H, W, C_in)."""
-    if s2d:
-        raise NotImplementedError(S2D_TODO)
+    """One f32 forward of the folded graph (H-s2d, or standard with
+    ``s2d=False``) recording the calibration statistic of every tensor that
+    will be int8. ``x``: (B, H, W, C_in)."""
     stat = calib_stat_fn(calib_stat)
     am: Dict[str, torch.Tensor] = {}
 
@@ -104,27 +107,37 @@ def _replay_absmax(pf: Mapping, x: torch.Tensor, s2d: bool = False,
         vals = [stat(t) for t in ts]
         am[name] = vals[0] if len(vals) == 1 else torch.maximum(*vals)
 
-    def dc(name, x):
-        t1, t2, y = _dc_f32(pf[name], x)
+    def dc(name, x, flag=False):
+        t1, t2, y = _dc_f32(pf[name], x, flag)
         rec(f"{name}.t1", t1)
         if "fc1" in pf[name]:
             rec(f"{name}.pre", t2)
         return y
 
-    x = nhwc_to_nchw(x.to(torch.float32))
+    def gate(i, cat):
+        # SA variant: the replay sees the gated decoder inputs, so the
+        # downstream scales match the int8 forward
+        return _sa_gate(pf[f"sa{i}"], cat) if f"sa{i}" in pf else cat
+
+    x = x.to(torch.float32)
+    x = nhwc_to_nchw(_h_s2d(x) if s2d else x)
     rec("in", x)
-    x1 = dc("inc", x)
+    x1 = dc("inc", x, s2d)
     feats = {"l1": x1}
-    y = max_pool_2d(x1)
+    y = _maxpool_exit_s2d(x1) if s2d else max_pool_2d(x1)
     for i in range(1, 5):
         y = dc(f"down{i}", y)
         feats[f"l{i + 1}"] = y
         if i < 4:
             y = max_pool_2d(y)
-    for i, skip in ((1, "l4"), (2, "l3"), (3, "l2"), (4, "l1")):
+    for i, skip in ((1, "l4"), (2, "l3"), (3, "l2")):
         z = _conv_transpose_k2s2(y, pf[f"up{i}"]["k"], pf[f"up{i}"]["bias"])
         rec(f"cat{i}", feats[skip], z)
-        y = dc(f"conv{i}", torch.cat([feats[skip], z], dim=1))
+        y = dc(f"conv{i}", gate(i, torch.cat([feats[skip], z], dim=1)))
+    up4 = _up4_s2d if s2d else _conv_transpose_k2s2
+    z = up4(y, pf["up4"]["k"], pf["up4"]["bias"])
+    rec("cat4", feats["l1"], z)
+    dc("conv4", gate(4, torch.cat([feats["l1"], z], dim=1)), s2d)
     return am
 
 
@@ -135,30 +148,31 @@ def _replay_absmax(pf: Mapping, x: torch.Tensor, s2d: bool = False,
 def pack_unet_int8(
     state_dict: Mapping[str, torch.Tensor],
     calib_batches: List[Any],
-    s2d: bool = False,
+    s2d: bool = True,
     calib_stat: str = "absmax",
     device: DeviceLike = None,
 ) -> Dict[str, Any]:
     """UNet state_dict + calibration images -> int8 serving tree (on the
-    CPU, in the JAX package's format).
+    CPU, in the JAX package's format). ``s2d=True`` packs the H-s2d graph
+    (plain and SE variants); ``s2d=False`` the standard layout (every
+    variant; the SA variant has only this one).
 
     ``calib_batches``: a few (B, H, W, C_in) f32 batches as fed to the
     model; the replay runs on ``device`` (``None`` means ``cuda``). The
     packing arithmetic is numpy f32 in the JAX package's order, so equal
     calibration statistics give equal codes and scales bit for bit."""
-    if s2d:
-        raise NotImplementedError(S2D_TODO)
     dev = resolve_device(device)
-    pf = pack_unet_folded(state_dict)
+    pf = pack_unet_s2d(state_dict) if s2d else pack_unet_folded(state_dict)
     pf_dev = to_torch_tree(pf, dev)
     am: Dict[str, float] = {}
     for batch in calib_batches:
         xb = torch.as_tensor(np.asarray(batch, np.float32), device=dev)
-        for k, v in _replay_absmax(pf_dev, xb, calib_stat=calib_stat).items():
+        for k, v in _replay_absmax(pf_dev, xb, s2d=s2d,
+                                   calib_stat=calib_stat).items():
             am[k] = max(am.get(k, 0.0), float(v))
     scales = {k: absmax_to_scale(v) for k, v in am.items()}
 
-    packed: Dict[str, Any] = {"scales": scales, "s2d": False}
+    packed: Dict[str, Any] = {"scales": scales, "s2d": s2d}
     for name, (s_in, s_t1, s_out) in _DC_IO.items():
         src = pf[name]
         has_se = "fc1" in src
@@ -187,16 +201,18 @@ def pack_unet_int8(
         packed[f"up{i}"] = dict(pf[f"up{i}"], cat_s=scales[f"cat{i}"])
     packed["outc"] = pf["outc"]
     packed["in_s"] = scales["in"]
+    for i in range(1, 5):  # SA variant (standard layout): f32 gate convs
+        if f"sa{i}" in pf:
+            packed[f"sa{i}"] = pf[f"sa{i}"]
     return packed
 
 
 def prepare_int8(packed: Mapping[str, Any],
                  device: DeviceLike) -> Dict[str, Any]:
-    """Place an int8 tree (packed here, or by the JAX package and read with
-    ``insarseg_torch.engines_io``) on ``device`` as torch tensors, and add
-    each conv's codes in K1's layout under ``"w"`` (done once, here)."""
-    if packed.get("s2d", True):
-        raise NotImplementedError(S2D_TODO)
+    """Place an int8 tree of either layout (packed here, or by the JAX
+    package and read with ``insarseg_torch.engines_io``) on ``device`` as
+    torch tensors, and add each conv's codes in K1's layout under ``"w"``
+    (done once, here)."""
     tree = to_torch_tree(packed, torch.device(device))
     for name in _DC_IO:
         for tag in ("c1", "c2"):
@@ -213,15 +229,26 @@ def _conv_i8(xq: torch.Tensor, blk: Mapping) -> torch.Tensor:
     return conv3x3_i8(xq, blk["w"], blk["mult"], blk["off"], blk["out_s"])
 
 
-def _dc_i8(blk: Mapping, xq: torch.Tensor) -> torch.Tensor:
+def _dc_i8(blk: Mapping, xq: torch.Tensor, s2d: bool = False) -> torch.Tensor:
     """One DoubleConv on int8 codes: s8 codes at the block's output scale,
-    or bf16 when the block exits the int8 domain."""
+    or bf16 when the block exits the int8 domain.
+
+    The SE squeeze follows the JAX order: the exact integer sum (K2) over
+    the pixel count, then (s2d) the mean of the two parity halves, then the
+    pre-SE scale. The integer sum is exact in the f32 it is divided in while
+    127 * H * W < 2^24 (at 512^2 tiles in s2d: 127 * 256 * 512 =
+    16,646,144 < 16,777,216; larger tiles break it)."""
     yq = _conv_i8(_conv_i8(xq, blk["c1"]), blk["c2"])
     if "fc1" not in blk:
         return yq
     hw = torch.tensor(float(yq.shape[1] * yq.shape[2]), device=yq.device)
-    pooled = se_squeeze_i8(yq).to(torch.float32) / hw * blk["se_pre_s"]
-    sc = _se_scales(blk, pooled)
+    pooled = se_squeeze_i8(yq).to(torch.float32) / hw
+    if s2d:
+        c = yq.shape[-1] // 2
+        pooled = 0.5 * (pooled[:, :c] + pooled[:, c:])
+    sc = _se_scales(blk, pooled * blk["se_pre_s"])
+    if s2d:
+        sc = torch.cat([sc, sc], dim=-1)
     if blk["se_out_s"] is None:  # excite + bf16 exit, one pass
         gain = (sc * blk["se_pre_s"]).to(torch.bfloat16)
     else:  # excite + requant, one pass
@@ -229,22 +256,34 @@ def _dc_i8(blk: Mapping, xq: torch.Tensor) -> torch.Tensor:
     return se_excite_i8(yq, gain.contiguous())
 
 
-def _up_requant(y: torch.Tensor, up: Mapping) -> torch.Tensor:
-    """bf16 ConvT(k2, s2) on NHWC, then int8 codes at the concat's scale."""
-    z = _conv_transpose_k2s2(nhwc_to_nchw(y), up["k"], up["bias"])
+def _sa_gate_i8(pk: Mapping, catq: torch.Tensor, cat_s: float) -> torch.Tensor:
+    """SA gate on the concat codes (standard layout): K4a's [mean, max] of
+    the dequantized codes, the f32 gate convs and sigmoid, then K4b."""
+    m = nhwc_to_nchw(sa_stats_i8(catq, cat_s))
+    g = _sa_sigmoid(pk, m)[:, 0].contiguous()  # (B, H, W)
+    return sa_gate_i8(catq, g)
+
+
+def _up_requant(y: torch.Tensor, up: Mapping, s2d: bool = False
+                ) -> torch.Tensor:
+    """bf16 ConvT on NHWC (k2 s2, or the s2d up4), then int8 codes at the
+    concat's scale."""
+    up_fn = _up4_s2d if s2d else _conv_transpose_k2s2
+    z = up_fn(nhwc_to_nchw(y), up["k"], up["bias"])
     return requant(nchw_to_nhwc(z).to(torch.float32), up["cat_s"])
 
 
 def unet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
                     argmax: bool = False) -> torch.Tensor:
     """int8 eval-mode forward over a :func:`prepare_int8` tree. ``x``:
-    (B, H, W, C_in) float, H and W divisible by 16. Returns bf16 logits
-    (B, H, W, nc), or the int32 argmax map (B, H, W)."""
-    if packed.get("s2d", True):
-        raise NotImplementedError(S2D_TODO)
-    xq = requant(x.to(torch.float32), packed["in_s"])
-    x1 = _dc_i8(packed["inc"], xq)  # s8 at the cat4 scale
-    y = maxpool2x2_i8(x1)
+    (B, H, W, C_in) float, H divisible by 32 (H-s2d) or 16 (standard) and
+    W by 16. Returns bf16 logits (B, H, W, nc), or the int32 argmax map
+    (B, H, W)."""
+    s2d = packed.get("s2d", True)
+    x = x.to(torch.float32)
+    xq = requant(_h_s2d(x) if s2d else x, packed["in_s"])
+    x1 = _dc_i8(packed["inc"], xq, s2d)  # s8 at the cat4 scale
+    y = maxpool_exit_s2d_i8(x1) if s2d else maxpool2x2_i8(x1)
     skips = {"l1": x1}
     for i in range(1, 5):
         y = _dc_i8(packed[f"down{i}"], y)
@@ -253,25 +292,32 @@ def unet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
             y = maxpool2x2_i8(y)
     # the bottom is bf16 (down4 exits the int8 domain for the decoder)
     for i, skip in ((1, "l4"), (2, "l3"), (3, "l2"), (4, "l1")):
-        zq = _up_requant(y, packed[f"up{i}"])
-        y = _dc_i8(packed[f"conv{i}"], torch.cat([skips[skip], zq], dim=-1))
+        up = packed[f"up{i}"]
+        zq = _up_requant(y, up, s2d and i == 4)
+        catq = torch.cat([skips[skip], zq], dim=-1)
+        if f"sa{i}" in packed:
+            catq = _sa_gate_i8(packed[f"sa{i}"], catq, up["cat_s"])
+        y = _dc_i8(packed[f"conv{i}"], catq, s2d and i == 4)
 
     out = packed["outc"]
     logits = y @ out["k"].to(y.dtype)
     if out["bias"] is not None:
         logits = logits + out["bias"].to(logits.dtype)
-    if argmax:
-        return logits.argmax(dim=-1).to(torch.int32)
-    return logits
+    if not s2d:
+        return logits.argmax(dim=-1).to(torch.int32) if argmax else logits
+    nc = out["nc"]
+    return _s2d_argmax(logits, nc) if argmax else _h_d2s(logits, nc)
 
 
 def make_int8_predict_fn(packed: Mapping[str, Any], argmax: bool = False):
     """``predict(images)`` over a :func:`prepare_int8` tree."""
     device = packed["outc"]["k"].device
+    # the H-s2d graph halves H before the 5-level pyramid
+    hdiv = 32 if packed.get("s2d", True) else 16
 
     @torch.inference_mode()
     def predict(images):
-        check_hw(tuple(images.shape), 16, 16, "int8", "unet")
+        check_hw(tuple(images.shape), hdiv, 16, "int8", "unet")
         images = torch.as_tensor(images, device=device)
         return unet_int8_apply(packed, images, argmax=argmax)
 

@@ -5,7 +5,9 @@ Same math as the module in eval mode: BN folded into the conv epilogues
 and each SE excite multiply moved to where its result is consumed —
 ``maxpool2(x * g) == maxpool2(x) * g`` for the positive per-channel gate,
 skip tensors gated at the decoder concat, the last block at the head's
-input. Public functions are NHWC; the graph runs NCHW inside.
+input. The SA variant's per-pixel gates stay in place after each decoder
+concat (they do not commute with pooling); their DoubleConv BNs fold like
+everything else. Public functions are NHWC; the graph runs NCHW inside.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from insarseg_torch.engines import check_hw
 from insarseg_torch.models.unet_s2d import (
     _conv_affine,
     _conv_transpose_k2s2,
+    _sa_gate,
     pack_unet_folded,
 )
 from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
@@ -70,6 +73,8 @@ def unet_serve_apply(packed: Dict[str, Any], x: torch.Tensor,
         cat = torch.cat([sk, z], dim=1)
         if gsk is not None:
             cat = cat * torch.cat([gsk, torch.ones_like(gsk)], dim=1)
+        if f"sa{i}" in packed:
+            cat = _sa_gate(packed[f"sa{i}"], cat)
         y, g = _dc_gate(packed[f"conv{i}"], cat)
 
     y = _gated(y, g)

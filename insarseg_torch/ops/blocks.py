@@ -9,6 +9,8 @@
 - :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
   max-pooled descriptors through one shared 1x1-conv MLP ``mlp.{0,2}``,
   summed, sigmoid;
+- :class:`SpatialAttentionDC` (U-Net-SA): channel mean and max ->
+  ``compress_and_map`` = DoubleConv(2 -> 1) -> sigmoid -> per-pixel rescale;
 - :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA, CBAM spatial):
   channel mean and max -> ``conv`` (2 -> 1, k x k, no bias) -> sigmoid.
 """
@@ -94,6 +96,23 @@ class ChannelAttentionModule(nn.Module):
         return x * torch.sigmoid(att)
 
 
+def _mean_max(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 2, H, W): the channel mean and max."""
+    return torch.cat([x.mean(dim=1, keepdim=True),
+                      x.amax(dim=1, keepdim=True)], dim=1)
+
+
+class SpatialAttentionDC(nn.Module):
+    """x * sigmoid(DoubleConv(2 -> 1)([mean_c(x), max_c(x)]))."""
+
+    def __init__(self):
+        super().__init__()
+        self.compress_and_map = DoubleConv(2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.compress_and_map(_mean_max(x)))
+
+
 class SpatialAttentionConv(nn.Module):
     """x * sigmoid(conv([mean_c(x), max_c(x)])), kernel 3 or 7."""
 
@@ -105,6 +124,4 @@ class SpatialAttentionConv(nn.Module):
                               bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        m = torch.cat([x.mean(dim=1, keepdim=True),
-                       x.amax(dim=1, keepdim=True)], dim=1)
-        return x * torch.sigmoid(self.conv(m))
+        return x * torch.sigmoid(self.conv(_mean_max(x)))

@@ -59,15 +59,53 @@ def random_bn_stats(variables, seed=0):
     return {"params": params, "batch_stats": stats}
 
 
-def make_pair(base=16, use_se=True, hw=32, seed=0, nc=2):
+def make_pair(base=16, use_se=True, hw=32, seed=0, nc=2, use_sa=False):
     """(JAX model, JAX variables as numpy, port UNet with those weights)."""
-    jm = JaxUNet(num_classes=nc, base_features=base, use_se=use_se)
+    jm = JaxUNet(num_classes=nc, base_features=base, use_se=use_se,
+                 use_sa=use_sa)
     v = jm.init(jax.random.key(seed), jnp.zeros((1, hw, hw, 1)))
     v = random_bn_stats(v, seed)
-    tm = UNet(num_classes=nc, base_features=base, use_se=use_se)
+    tm = UNet(num_classes=nc, base_features=base, use_se=use_se,
+              use_sa=use_sa)
     tm.load_state_dict(state_dict_to_torch(
-        unet_variables_to_torch(v, use_se=use_se)), strict=True)
+        unet_variables_to_torch(v, use_se=use_se, use_sa=use_sa)),
+        strict=True)
     return jm, v, tm.eval()
+
+
+def flat(tree, prefix=""):
+    """(dotted key, leaf) pairs of a nested dict."""
+    for k, val in tree.items():
+        if isinstance(val, dict):
+            yield from flat(val, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", val
+
+
+def numpy_tree(tree):
+    """A JAX-packed tree with its arrays as numpy (other leaves kept)."""
+    return jax.tree.map(
+        lambda a: np.asarray(a) if isinstance(a, jax.Array) else a, tree)
+
+
+def assert_packed_equal(ours, ref):
+    """A port-packed tree against the JAX package's, key for key: int8
+    codes and non-float leaves equal, float scalars and arrays within rtol
+    1e-5 (calibration replays are two f32 graphs; weight-only leaves are
+    equal, which rtol 1e-5 also admits)."""
+    ours, ref = dict(flat(ours)), dict(flat(ref))
+    assert sorted(ours) == sorted(ref)
+    for k, r in ref.items():
+        o = ours[k]
+        if r is None or isinstance(r, (bool, int, str, tuple, list)):
+            assert o == r, k
+        elif isinstance(r, float):
+            assert o == pytest.approx(r, rel=1e-5), k
+        elif k.endswith(".q"):
+            np.testing.assert_array_equal(o.numpy(), np.asarray(r), err_msg=k)
+        else:
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-5,
+                                       atol=0, err_msg=k)
 
 
 RESNET_CELLS = [(m, a) for m in ("deeplabv3", "fcn")
@@ -112,11 +150,12 @@ def make_resnet_pair(model, attention, seed=0):
     return jax_build(model, attention), v, tm
 
 
-@pytest.mark.parametrize("use_se", [True, False])
-def test_bridge_matches_jax_package(use_se):
-    _, v, _ = make_pair(use_se=use_se)
-    ours = unet_variables_to_torch(v, use_se=use_se)
-    ref = jax_to_torch(v, use_se=use_se)
+@pytest.mark.parametrize("use_se,use_sa", [(True, False), (False, False),
+                                            (False, True)])
+def test_bridge_matches_jax_package(use_se, use_sa):
+    _, v, _ = make_pair(use_se=use_se, use_sa=use_sa)
+    ours = unet_variables_to_torch(v, use_se=use_se, use_sa=use_sa)
+    ref = jax_to_torch(v, use_se=use_se, use_sa=use_sa)
     assert list(ours) == list(ref)
     for k in ref:
         assert ours[k].shape == ref[k].shape, k
@@ -124,7 +163,8 @@ def test_bridge_matches_jax_package(use_se):
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
-def test_bridge_loads_strict_into_port_unet():
-    _, v, tm = make_pair(use_se=True)
-    sd = unet_variables_to_torch(v, use_se=True)
+@pytest.mark.parametrize("use_se,use_sa", [(True, False), (False, True)])
+def test_bridge_loads_strict_into_port_unet(use_se, use_sa):
+    _, v, tm = make_pair(use_se=use_se, use_sa=use_sa)
+    sd = unet_variables_to_torch(v, use_se=use_se, use_sa=use_sa)
     assert set(sd) == set(tm.state_dict())

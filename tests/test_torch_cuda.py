@@ -1,7 +1,8 @@
-"""The int8 kernels K1-K3, K5a and K5b on the card against their plain
+"""The int8 kernels K1-K4, K5a and K5b on the card against their plain
 versions, at small and ragged shapes (partial channel chunks, tiles cut by
 the image border, output channels that are not a multiple of the kernel's
-tile, dilations larger than the map). Outputs must be exactly equal.
+tile, dilations larger than the map, odd widths, pixel counts that are not
+a multiple of a block). Outputs must be exactly equal.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -77,6 +78,37 @@ def test_k3_equals_plain(dev, b, h, w, c):
     assert torch.equal(got, K.maxpool2x2_i8_plain(q))
 
 
+@pytest.mark.parametrize("b,r,w,c", [(2, 8, 16, 64), (1, 3, 9, 16),
+                                     (2, 5, 7, 32)])
+def test_k3s_equals_plain(dev, b, r, w, c):
+    gen = torch.Generator().manual_seed(r * w + c)
+    q = torch.randint(-128, 128, (b, r, w, 2 * c), generator=gen,
+                      dtype=torch.int8).to(dev)
+    before = K.LAUNCHES["maxpool_exit_s2d_i8"]
+    got = K.maxpool_exit_s2d_i8(q)
+    assert K.LAUNCHES["maxpool_exit_s2d_i8"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (b, r, w // 2, c)
+    assert torch.equal(got, K.maxpool_exit_s2d_i8_plain(q))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 16, 128), (3, 7, 5, 48),
+                                     (1, 4, 4, 1024), (1, 3, 11, 16)])
+def test_k4_equals_plain(dev, b, h, w, c):
+    gen = torch.Generator().manual_seed(b * h * c)
+    q = torch.randint(-128, 128, (b, h, w, c), generator=gen,
+                      dtype=torch.int8).to(dev)
+    before = dict(K.LAUNCHES)
+    stats = K.sa_stats_i8(q, 0.0173)
+    g = torch.rand((b, h, w), generator=gen).to(dev)
+    got = K.sa_gate_i8(q, g)
+    assert K.LAUNCHES["sa_stats_i8"] == before["sa_stats_i8"] + 1
+    assert K.LAUNCHES["sa_gate_i8"] == before["sa_gate_i8"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(stats, K.sa_stats_i8_plain(q, 0.0173))
+    assert torch.equal(got, K.sa_gate_i8_plain(q, g))
+
+
 def test_wrappers_reject_bad_input(dev):
     q = torch.zeros((1, 4, 4, 24), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
@@ -84,6 +116,13 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(TypeError):
         K.se_squeeze_i8(torch.zeros((1, 4, 4, 32), dtype=torch.int32,
                                     device=dev))
+    with pytest.raises(ValueError):
+        K.maxpool_exit_s2d_i8(torch.zeros((1, 4, 4, 48), dtype=torch.int8,
+                                          device=dev))  # C = 24
+    with pytest.raises(ValueError):
+        K.sa_gate_i8(torch.zeros((1, 4, 4, 32), dtype=torch.int8,
+                                 device=dev),
+                     torch.zeros((1, 4, 5), device=dev))  # gate shape
 
 
 def test_int8_engine_card_vs_cpu(dev):
@@ -98,13 +137,46 @@ def test_int8_engine_card_vs_cpu(dev):
     model = UNet(num_classes=2, base_features=16, use_se=True).eval()
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
         .astype(np.float32)
-    tree = pack_unet_int8(model.state_dict(), [x], device=dev)
+    tree = pack_unet_int8(model.state_dict(), [x], s2d=False, device=dev)
     before = dict(K.LAUNCHES)
     gpu = make_int8_predict_fn(prepare_int8(tree, dev))(x).float().cpu()
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                 if K.LAUNCHES[k] != before[k]}
     assert launched == {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
                         "se_excite_i8": 9, "maxpool2x2_i8": 4}
+    cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
+    rel = float((gpu - cpu).abs().max() / cpu.abs().max())
+    agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
+    assert rel <= 2e-2 and agree >= 0.995, (rel, agree)
+
+
+@pytest.mark.parametrize("variant", ["s2d", "sa"])
+def test_unet_int8_variants_card_vs_cpu(dev, variant):
+    """U-Net-CA in the H-s2d layout (K3s at the level-1 exit) and U-Net-SA
+    in the standard layout (K4a / K4b at every decoder concat)."""
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.models.unet_int8 import (
+        make_int8_predict_fn,
+        pack_unet_int8,
+        prepare_int8,
+    )
+
+    torch.manual_seed(0)
+    sa = variant == "sa"
+    model = UNet(num_classes=2, base_features=16, use_se=not sa,
+                 use_sa=sa).eval()
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
+        .astype(np.float32)
+    tree = pack_unet_int8(model.state_dict(), [x], s2d=not sa, device=dev)
+    before = dict(K.LAUNCHES)
+    gpu = make_int8_predict_fn(prepare_int8(tree, dev))(x).float().cpu()
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                if K.LAUNCHES[k] != before[k]}
+    assert launched == ({"int8_conv3x3_epilogue": 18, "maxpool2x2_i8": 4,
+                         "sa_stats_i8": 4, "sa_gate_i8": 4} if sa else
+                        {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
+                         "se_excite_i8": 9, "maxpool2x2_i8": 3,
+                         "maxpool_exit_s2d_i8": 1})
     cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
     rel = float((gpu - cpu).abs().max() / cpu.abs().max())
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())

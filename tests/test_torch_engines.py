@@ -1,7 +1,8 @@
 """Port engine factory and artifacts (insarseg_torch/engines.py,
 engines_io.py) against the JAX package: the port serves artifacts the JAX
-package saved (serve, and int8 with a standard-layout tree), refuses an
-H-s2d int8 artifact, and writes artifacts the JAX package serves."""
+package saved (serve, and int8 in the H-s2d default and the standard
+layout) and writes artifacts the JAX package serves (U-Net-SA:
+tests/test_torch_unet_sa.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,14 +56,32 @@ def test_serves_jax_int8_standard_layout_artifact(tmp_path, pair):
     assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.995
 
 
-def test_refuses_s2d_int8_artifact(tmp_path, pair):
+@pytest.mark.parametrize("argmax", [False, True])
+def test_serves_jax_default_s2d_int8_artifact(tmp_path, pair, argmax):
     jm, v, _, x = pair
     art = jax_pack_engine("unet", "channel", jm, v, "int8",
                           calib_batches=[x])
     assert art["tree"]["s2d"] is True
     path = jax_save(str(tmp_path / "s2d"), art)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        engine_from_artifact(load_artifact(path), device=CPU)
+    want = np.asarray(jax_from_artifact(jax_load(path), argmax=argmax)(
+        jnp.asarray(x)))
+    got = engine_from_artifact(load_artifact(path), argmax=argmax,
+                               device=CPU)(x)
+    if argmax:
+        assert got.dtype == torch.int32
+        assert np.mean(got.numpy() == want) >= 0.995
+        return
+    got, want = got.float().numpy(), want.astype(np.float32)
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+    assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.995
+
+
+def test_port_int8_engine_packs_s2d_like_jax(pair):
+    _, _, tm, x = pair
+    art = pack_engine("unet", "channel", tm, None, "int8",
+                      calib_batches=[x], device=CPU)
+    assert art["tree"]["s2d"] is True
+    assert tuple(art["tree"]["up4"]["k"].shape) == (1, 2, 32, 32)
 
 
 @pytest.mark.parametrize("engine", ["serve", "int8"])
@@ -114,7 +133,6 @@ def test_bf16_artifact_leaves_round_trip(tmp_path):
 
 @pytest.mark.parametrize("model,attention,kw,err", [
     ("unet-fast", "channel", {}, NotImplementedError),
-    ("unet", "spatial", {}, NotImplementedError),
     ("deeplabv3", "none", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"engine": "int8"}, ValueError),

@@ -59,11 +59,21 @@ def test_entry_points_default_to_cuda():
     from insarseg_torch.engines import make_engine
     from insarseg_torch.models.resnet_int8 import pack_resnet_int8
     from insarseg_torch.models.unet import UNet
+    from insarseg_torch.models.unet_int8 import pack_unet_int8
+    from insarseg_torch.models.unet_s2d import make_s2d_predict_fn
     from insarseg_torch.parallel.inference import make_predict_fn
 
     model = UNet(base_features=16, use_se=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_engine("unet", "channel", model, None, "serve")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine("unet", "spatial", UNet(base_features=16, use_sa=True),
+                    None, "serve")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_s2d_predict_fn(model.state_dict())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_unet_int8(model.state_dict(),
+                       [np.zeros((1, 32, 32, 1), np.float32)])
     for name in ("deeplabv3", "fcn"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_engine(name, "channel", torch.nn.Identity(), None, "serve")
@@ -76,11 +86,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from insarseg_torch.kernels import conv_i8, maxpool2x2_i8, se_residual_i8
+    from insarseg_torch.kernels import (
+        conv_i8,
+        maxpool2x2_i8,
+        maxpool_exit_s2d_i8,
+        sa_gate_i8,
+        sa_stats_i8,
+        se_residual_i8,
+    )
 
     q = torch.zeros((1, 2, 2, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         maxpool2x2_i8(q)
+    for fn, args in ((maxpool_exit_s2d_i8, ()), (sa_stats_i8, (1.0,)),
+                     (sa_gate_i8, (None,))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, *args)
     with pytest.raises(ValueError, match="unsupported device"):
         conv_i8(q, torch.zeros((16, 1, 1, 16), dtype=torch.int8), None, None)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -1,8 +1,10 @@
-"""Plain versions of the int8 kernels K1-K3 (insarseg_torch/kernels)
+"""Plain versions of the int8 kernels K1-K4 (insarseg_torch/kernels)
 against the JAX functions they replace, on identical int8 codes:
-K1 vs ``_conv_i8``, K1+K2 vs ``_dc_i8`` (the SE tail, both exits), K3 vs
-``_maxpool_i8``. Codes must be equal; at most a counted handful of
-rounding ties (<= 1e-5 of the elements, |delta| = 1) may differ.
+K1 vs ``_conv_i8``, K1+K2 vs ``_dc_i8`` (the SE tail, both exits, both
+layouts), K3 vs ``_maxpool_i8``, K4a vs the channel mean / max inside
+``_sa_gate_i8``. Codes must be equal; at most a counted handful of
+rounding ties (<= 1e-5 of the elements, |delta| = 1) may differ. (K3s:
+tests/test_torch_s2d.py; the whole K4 gate: tests/test_torch_unet_sa.py.)
 
 The CUDA kernels themselves are held to these plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -18,6 +20,8 @@ from insarseg_torch.kernels import (
     conv3x3_i8,
     maxpool2x2_i8,
     repack_conv_weight,
+    sa_gate_i8,
+    sa_stats_i8,
     se_excite_i8,
     se_squeeze_i8,
 )
@@ -95,16 +99,22 @@ def _dc_blk(rng, cin, c, se_out_s):
 
 @pytest.mark.parametrize("cin", [1, 16])
 @pytest.mark.parametrize("se_out_s", [0.2, None])
-def test_k2_se_tail_matches_dc_i8(cin, se_out_s):
+@pytest.mark.parametrize("s2d", [False, True])
+def test_k2_se_tail_matches_dc_i8(cin, se_out_s, s2d):
     """K1 twice, then the SE tail: squeeze (K2), torch MLP, excite (K2)
-    with the requant exit (se_out_s set) or the bf16 exit."""
+    with the requant exit (se_out_s set) or the bf16 exit; in s2d the
+    squeeze averages the two parity halves of 2C = 32 channels and the
+    gain tiles over them."""
     rng = np.random.default_rng(10 + cin)
     blk = _dc_blk(rng, cin, 32, se_out_s)
+    if s2d:  # the MLP takes C = 16 channels
+        blk["fc1"] = blk["fc1"][:16]
+        blk["fc2"] = blk["fc2"][:, :16]
     x = _codes(rng, (3, 32, 32, cin))
-    want = np.asarray(J._dc_i8(blk, jnp.asarray(x), s2d=False))
+    want = np.asarray(J._dc_i8(blk, jnp.asarray(x), s2d=s2d))
     pb = {k: _port_blk(v) if k in ("c1", "c2") else v
           for k, v in to_torch_tree(blk, CPU).items()}
-    got = T._dc_i8(pb, torch.from_numpy(x))
+    got = T._dc_i8(pb, torch.from_numpy(x), s2d=s2d)
     if se_out_s is None:
         assert got.dtype == torch.bfloat16
         assert_codes_equal(_bf16_np(got), want, f"K2 cin={cin} bf16")
@@ -133,4 +143,34 @@ def test_k3_plain_matches_maxpool_i8():
     want = np.asarray(J._maxpool_i8(jnp.asarray(x)))
     got = maxpool2x2_i8(torch.from_numpy(x))
     assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k4a_plain_matches_jax_channel_stats():
+    """K4a's [mean, max] against the f32 ``mean`` / ``max`` of the
+    dequantized codes that ``_sa_sigmoid`` takes: the max bit for bit (a
+    positive scale commutes with max), the mean up to the order of the sum
+    (the plain version rounds once, after the exact integer sum)."""
+    rng = np.random.default_rng(7)
+    q = _codes(rng, (2, 8, 12, 96), lo=-128)
+    s = 0.0231
+    deq = jnp.asarray(q).astype(jnp.float32) * s
+    got = sa_stats_i8(torch.from_numpy(q), s).numpy()
+    assert got.shape == (2, 8, 12, 2) and got.dtype == np.float32
+    np.testing.assert_array_equal(got[..., 1],
+                                  np.asarray(jnp.max(deq, axis=-1)))
+    np.testing.assert_allclose(got[..., 0], np.asarray(jnp.mean(deq, -1)),
+                               rtol=1e-6, atol=1e-7)
+    want_mean = (q.astype(np.int64).sum(-1).astype(np.float32)
+                 * np.float32(s)) / np.float32(96)
+    np.testing.assert_array_equal(got[..., 0], want_mean)
+
+
+def test_k4b_plain_is_rint_of_gated_codes():
+    rng = np.random.default_rng(8)
+    q = _codes(rng, (2, 8, 12, 32))
+    g = rng.uniform(0, 1, (2, 8, 12)).astype(np.float32)
+    got = sa_gate_i8(torch.from_numpy(q), torch.from_numpy(g))
+    assert got.dtype == torch.int8
+    want = np.clip(np.rint(q.astype(np.float32) * g[..., None]), -127, 127)
     np.testing.assert_array_equal(got.numpy(), want)

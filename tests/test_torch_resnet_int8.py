@@ -17,7 +17,6 @@ attention cell at full ResNet-50 widths and 32^2:
   places in the two frameworks).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +35,14 @@ from insarseg_torch.kernels import (
 from insarseg_torch.models import resnet_int8 as T
 from insarseg_torch.models.resnet_serve import block_chain
 from insarseg_torch.ops.quant import quant_weight
-from tests.test_torch_common import CPU, RESNET_CELLS, make_resnet_pair, smooth
+from tests.test_torch_common import (
+    CPU,
+    RESNET_CELLS,
+    assert_packed_equal,
+    make_resnet_pair,
+    numpy_tree,
+    smooth,
+)
 
 
 def _codes(rng, shape):
@@ -146,38 +152,15 @@ def cell(request):
     rng = np.random.default_rng(40)
     calib = [smooth(rng, (2, 32, 32, 1)) for _ in range(2)]
     jtree = J.pack_resnet_int8(v, [jnp.asarray(c) for c in calib])
-    np_tree = jax.tree.map(
-        lambda a: np.asarray(a) if isinstance(a, jax.Array) else a, jtree)
+    np_tree = numpy_tree(jtree)
     x = smooth(rng, (2, 32, 32, 1))
     return model, attention, tm, calib, jtree, np_tree, x
 
 
-def _flat(tree, prefix=""):
-    for k, val in tree.items():
-        if isinstance(val, dict):
-            yield from _flat(val, f"{prefix}{k}.")
-        else:
-            yield f"{prefix}{k}", val
-
-
 def test_pack_int8_equals_jax(cell):
     _, _, tm, calib, jtree, _, _ = cell
-    ours = dict(_flat(T.pack_resnet_int8(tm.state_dict(), calib,
-                                         device=CPU)))
-    ref = dict(_flat(jtree))
-    assert sorted(ours) == sorted(ref)
-    for k, r in ref.items():
-        o = ours[k]
-        if r is None or isinstance(r, (bool, int, str, tuple, list)):
-            assert o == r, k
-        elif isinstance(r, float):
-            assert o == pytest.approx(r, rel=1e-5), k
-        elif k.endswith(".q"):
-            np.testing.assert_array_equal(o.numpy(), np.asarray(r),
-                                          err_msg=k)
-        else:
-            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-5,
-                                       atol=0, err_msg=k)
+    assert_packed_equal(T.pack_resnet_int8(tm.state_dict(), calib,
+                                           device=CPU), jtree)
 
 
 def test_backbone_codes_match_jax(cell):

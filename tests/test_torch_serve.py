@@ -16,22 +16,14 @@ from insarseg_torch.models.unet_serve import (
     pack_unet_serve,
     unet_serve_apply,
 )
-from tests.test_torch_common import CPU, make_pair, smooth
-
-
-def _flat(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, f"{prefix}{k}.")
-        else:
-            yield f"{prefix}{k}", v
+from tests.test_torch_common import CPU, flat, make_pair, smooth
 
 
 @pytest.mark.parametrize("use_se", [True, False])
 def test_pack_serve_equals_jax(use_se):
     _, v, tm = make_pair(use_se=use_se)
-    ours = dict(_flat(pack_unet_serve(tm.state_dict())))
-    ref = dict(_flat(jax_pack(v)))
+    ours = dict(flat(pack_unet_serve(tm.state_dict())))
+    ref = dict(flat(jax_pack(v)))
     assert sorted(ours) == sorted(ref)
     for k, r in ref.items():
         if r is None:
