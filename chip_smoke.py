@@ -6,8 +6,11 @@ It needs one CUDA device and exits non-zero, printing no result, without
 one. It imports the port only (no JAX, nothing of ``insarseg``) and:
 
 1. builds the hand-written kernels from ``insarseg_torch/csrc`` (nvcc for
-   sm_90a, one process per source, into ``insarseg_torch/_build/``) and
-   prints the build time and the card's name and power limit;
+   sm_90a, one process per source, into ``insarseg_torch/_build/``),
+   prints the build time, the compiler's register / spill report and the
+   card's name and power limit, and checks in the SASS (``cuobjdump``)
+   that every kernel of K1 and K5a runs on the tensor cores (IGMMA, the
+   int8 ``wgmma``) and none on ``__dp4a`` (IDP);
 2. holds every kernel to its plain PyTorch version on the card, exactly,
    at fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 and at the four
    H-s2d level-1 shapes (256x512, Cin 2/128/256 -> 128), both exits; K2 at
@@ -15,7 +18,11 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    256x512x128 and an odd width; K4a / K4b at C 128/256/512/1024 at their
    path sizes and a ragged 7x5x48; K5a at k1/k3 x stride 1/2 x dilation
    1/2/4/12/36 x every exit x ReLU or not x no / int8 / f32 identity, and
-   at Cin 1280 and 2048; K5b with both identities), then on the tensors of
+   at Cin 1280 and 2048; K1 and K5a at the edges of their GEMM tiling
+   (pixel rows that straddle images and leave a partial 128-row tile,
+   Cout 2/16/40/192, Cin 1/2/40/96, odd sizes at stride 2, dilation 36 on
+   64^2, the largest accumulator: Cin 2048, 3x3, codes +-127); K5b with
+   both identities), then on the tensors of
    one int8 forward of each main path (512^2, b8), timing each kernel, its
    plain version, a PyTorch reference call where one exists, and computing
    each call's bound (a kernel's row sums its calls over the main paths
@@ -110,6 +117,63 @@ def same(a, b) -> float:
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def check_sass() -> None:
+    """K1 and K5a must run on the tensor cores: every conv kernel of the
+    library has int8 tensor-core MMA instructions in its SASS (IGMMA, the
+    ``wgmma`` form, or IMMA, the ``mma.sync`` one) and no IDP
+    (``__dp4a``)."""
+    import re
+    from pathlib import Path
+
+    from insarseg_torch import kernels as K
+    from insarseg_torch.kernels import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "--dump-sass", str(Path(K.build_info["dir"])
+                                       / _lib.LIB_NAME)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name, ops = {}, None, set()
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"MMA": 0, "IDP": 0}
+        elif name is not None:
+            mma = re.search(r"\b(IGMMA|IMMA)\S*", line)
+            if mma:
+                counts[name]["MMA"] += 1
+                ops.add(mma.group(0))
+            counts[name]["IDP"] += bool(re.search(r"\bIDP\b", line))
+    conv = {n: c for n, c in counts.items() if "conv_kernel" in n}
+    log(f"SASS: {len(conv)} conv kernels (K1 + K5a instantiations), "
+        f"tensor-core MMA instructions per kernel "
+        f"{min((c['MMA'] for c in conv.values()), default=0)}-"
+        f"{max((c['MMA'] for c in conv.values()), default=0)} "
+        f"({', '.join(sorted(ops))}), IDP "
+        f"{sum(c['IDP'] for c in conv.values())}")
+    if not conv or any(c["MMA"] == 0 or c["IDP"] for c in conv.values()):
+        raise AssertionError(f"conv kernels off the tensor cores: {conv}")
+
+
+# K1 / K5a at the edges of the GEMM tiling (128-pixel x 64/128-channel
+# tiles, 64-byte K chunks): (b, h, w, cin, cout, k, stride, dilation)
+IGEMM_EDGES = (
+    (3, 7, 9, 64, 64, 3, 1, 1),      # M = 189: tiles straddle 3 images
+    (2, 9, 11, 32, 16, 3, 1, 1),     # Cout 16
+    (2, 9, 11, 32, 40, 1, 1, 1),     # Cout 40
+    (2, 9, 11, 32, 2, 3, 1, 1),      # Cout 2
+    (1, 20, 20, 128, 192, 3, 1, 1),  # Cout 192: three 64-wide N tiles
+    (2, 13, 11, 40, 64, 3, 1, 1),    # Cin 40 -> 48: a partial K chunk
+    (1, 13, 11, 96, 128, 3, 1, 1),   # Cin 96: chunks of 64 and 32 bytes
+    (2, 16, 16, 1, 64, 3, 1, 1),     # Cin 1 (U-Net inc.c1)
+    (2, 16, 16, 2, 128, 3, 1, 1),    # Cin 2 (U-Net inc.c1, H-s2d)
+    (2, 15, 13, 64, 128, 1, 2, 1),   # 1x1 stride 2 at odd sizes
+    (1, 17, 9, 256, 64, 3, 2, 1),    # 3x3 stride 2 at odd sizes
+    (1, 64, 64, 64, 64, 3, 1, 36),   # dilation 36 on a 64^2 map
+)
+
+
 def check_fixed_shapes(dev) -> None:
     import torch
     from insarseg_torch import kernels as K
@@ -129,9 +193,21 @@ def check_fixed_shapes(dev) -> None:
                                 dev)
             args += (kw["out_s"],)
             same(K.conv3x3_i8(*args), K.conv3x3_i8_plain(*args))
+    for b, h, w, cin, cout, k, stride, dil in IGEMM_EDGES:
+        if (k, stride, dil) == (3, 1, 1):
+            for exit_ in ("s8", "bf16"):
+                args, kw = k5a_case(gen, b, h, w, cin, cout, 3, exit_,
+                                    "none", dev)
+                args += (kw["out_s"],)
+                same(K.conv3x3_i8(*args), K.conv3x3_i8_plain(*args))
+    x, wt, mult, off = largest_accumulator(dev, 1)
+    for out_s in (2.0, None):
+        same(K.conv3x3_i8(x, wt, mult, off, out_s),
+             K.conv3x3_i8_plain(x, wt, mult, off, out_s))
     log("K1 int8_conv3x3_epilogue == plain at Cin 1/64/1024 x "
-        "512^2/128^2/32^2 and at 256x512 Cin 2/128/256 -> 128, int8 and "
-        "bf16 exits")
+        "512^2/128^2/32^2, at 256x512 Cin 2/128/256 -> 128, at the GEMM "
+        "tiling's edges and at the largest accumulator, int8 and bf16 "
+        "exits")
     for hw, c in ((512, 64), (32, 1024)):
         q = torch.randint(-127, 128, (2, hw, hw, c), generator=gen,
                           dtype=torch.int8).to(dev)
@@ -197,6 +273,22 @@ def k5a_case(gen, b, h, w, cin, cout, k, exit_, idn_kind, dev, stride=1):
              "idn": idn, "in_s": in_s})
 
 
+def largest_accumulator(dev, sign):
+    """Cin 2048, 3x3, x = 127 and w = 127 * sign everywhere: interior sums
+    of 9 * 2048 * 127^2 = 297,289,728 (the largest |acc| of the engines),
+    with mult / off that bring the epilogue into the int8 range."""
+    import torch
+    from insarseg_torch.kernels import repack_conv_weight
+
+    cin, cout = 2048, 72
+    x = torch.full((1, 6, 5, cin), 127, dtype=torch.int8, device=dev)
+    wt = repack_conv_weight(torch.full((3, 3, cin, cout), 127 * sign,
+                                       dtype=torch.int8)).to(dev)
+    mult = torch.full((cout,), 100.0 / 3e8, device=dev)
+    off = torch.linspace(-20, 20, cout, device=dev)
+    return x, wt, mult, off
+
+
 def check_resnet_fixed_shapes(dev) -> None:
     import torch
     from insarseg_torch import kernels as K
@@ -229,9 +321,30 @@ def check_resnet_fixed_shapes(dev) -> None:
         kw.update(stride=stride, dilation=dil, relu=True)
         same(K.conv_i8(*args, **kw), K.conv_i8_plain(*args, **kw))
         n += 1
+    for b, h, w, cin, cout, k, stride, dil in IGEMM_EDGES:
+        for exit_ in ("s8", "f32", "bf16"):
+            for idn_kind in ("none", "s8", "f32"):
+                args, kw = k5a_case(gen, b, h, w, cin, cout, k, exit_,
+                                    idn_kind, dev, stride)
+                kw.update(stride=stride, dilation=dil, relu=True)
+                same(K.conv_i8(*args, **kw), K.conv_i8_plain(*args, **kw))
+                n += 1
+    for sign in (1, -1):
+        x, wt, mult, off = largest_accumulator(dev, sign)
+        one, zero = torch.ones_like(mult), torch.zeros_like(off)
+        acc = K.conv_i8(x, wt, one, zero, relu=False)  # f32: the sums
+        same(acc, K.conv_i8_plain(x, wt, one, zero, relu=False))
+        if float(acc[0, 2, 2].abs().min()) != 9 * 2048 * 127.0 ** 2:
+            raise AssertionError("largest accumulator: wrong interior sum")
+        for kw in ({"out_s": 2.0}, {"bf16": True}):
+            kw["relu"] = False
+            same(K.conv_i8(x, wt, mult, off, **kw),
+                 K.conv_i8_plain(x, wt, mult, off, **kw))
+        n += 3
     log(f"K5a int8_conv_epilogue == plain in {n} cases: k1/k3 x stride 1/2 "
         "x dilation 1/2/4/12/36 x s8/f32/bf16 exits x no/s8/f32 identity x "
-        "ReLU or not, and Cin 1280/2048 at 64^2")
+        "ReLU or not, Cin 1280/2048 at 64^2, the GEMM tiling's edges x "
+        "every exit x identity, and the largest accumulator (+-)")
     for shape in ((2, 32, 32, 256), (1, 64, 64, 2048), (3, 7, 5, 48)):
         y3q = torch.randint(-127, 128, shape, generator=gen,
                             dtype=torch.int8).to(dev)
@@ -841,6 +954,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line or "==" in line:
                 log("  " + line.rstrip())
+    check_sass()
     power_line = nvidia_smi_line()
     log(f"card: {power_line}")
     phase("build")

@@ -37,6 +37,7 @@ from insarseg_torch.kernels.conv_i8 import (
     conv_i8,
     conv_i8_plain,
     repack_conv_weight,
+    tile_n,
 )
 from insarseg_torch.kernels.maxpool_i8 import (
     maxpool2x2_i8,
@@ -65,4 +66,5 @@ __all__ = [
     "sa_gate_i8_plain", "sa_stats_i8", "sa_stats_i8_plain",
     "se_excite_i8", "se_excite_i8_plain", "se_residual_i8",
     "se_residual_i8_plain", "se_squeeze_i8", "se_squeeze_i8_plain",
+    "tile_n",
 ]

@@ -52,7 +52,7 @@ _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     "insarseg_conv3x3_i8": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f,
-                            _i, _vp),
+                            _i, _i, _vp),
     "insarseg_se_squeeze_i8": (_vp, _vp, _i, _i, _i, _i, _i, _vp),
     "insarseg_se_excite_i8": (_vp, _vp, _vp, _ll, _ll, _i, _i, _vp),
     "insarseg_maxpool2x2_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "insarseg_sa_stats_i8": (_vp, _vp, _ll, _i, _f, _vp),
     "insarseg_sa_gate_i8": (_vp, _vp, _vp, _ll, _i, _vp),
     "insarseg_conv_i8": (_vp, _vp, _vp, _vp, _vp, _vp) + (_i,) * 12
-    + (_f, _f, _i, _vp),
+    + (_f, _f, _i, _i, _vp),
     "insarseg_se_residual_i8": (_vp, _vp, _vp, _vp, _ll, _ll, _i, _i, _f, _f,
                                 _vp),
 }

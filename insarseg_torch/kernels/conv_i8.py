@@ -13,6 +13,9 @@ K5a ``int8_conv_epilogue`` (:func:`conv_i8`) replaces
 ``y = acc * mult[c] + off[c]`` (+ the identity) (+ReLU), then int8 codes,
 f32 or bf16.
 
+Both kernels are one tensor-core implicit GEMM (``csrc/igemm_i8.cuh``,
+``wgmma`` on sm_90a); the host picks its N tile with :func:`tile_n`.
+
 The plain versions compute the accumulator exactly with ``F.conv2d`` on
 float64 codes (|acc| < 2^53) and the epilogue in eager f32 ops, one
 rounding per op as the kernels and the JAX graph.
@@ -29,18 +32,30 @@ from insarseg_torch.kernels._lib import check_cuda, launch, stream_of
 from insarseg_torch.ops.quant import dequant, requant
 
 
+CIN_ALIGN = 16  # the kernels copy 16-byte chunks of each pixel's channels
+
+
 def repack_conv_weight(q_hwio: torch.Tensor) -> torch.Tensor:
     """HWIO int8 codes (k, k, Cin, Cout), k in {1, 3} -> the kernels'
-    layout (Cout, k, k, Cin4), Cin zero-padded to a multiple of 4 (exact)."""
+    layout (Cout, k, k, Cin16), Cin zero-padded to a multiple of 16
+    (exact: zero codes add nothing to the sums)."""
     kh, kw, cin, cout = q_hwio.shape
     if kh != kw or kh not in (1, 3):
         raise ValueError(f"expected a 1x1 or 3x3 kernel, got "
                          f"{tuple(q_hwio.shape)}")
-    cin4 = -(-cin // 4) * 4
-    w = torch.zeros((cout, kh, kw, cin4), dtype=torch.int8,
+    cin16 = -(-cin // CIN_ALIGN) * CIN_ALIGN
+    w = torch.zeros((cout, kh, kw, cin16), dtype=torch.int8,
                     device=q_hwio.device)
     w[..., :cin] = q_hwio.permute(3, 0, 1, 2)
     return w
+
+
+def tile_n(cout: int) -> int:
+    """Output channels a kernel block computes (its GEMM N tile): 64 where
+    Cout <= 64 or where 128-wide tiles would leave the last one half
+    empty (an odd number of 64-channel groups), else 128."""
+    groups = -(-cout // 64)
+    return 64 if groups == 1 or groups % 2 else 128
 
 
 def _pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -54,11 +69,11 @@ def _pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
 def _check_cuda_args(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                      off: torch.Tensor) -> torch.Tensor:
     """Checks a conv kernel's arguments; returns ``x`` with its channels
-    zero-padded to the kernel's Cin4."""
-    cout, cin4, cin = w.shape[0], w.shape[3], x.shape[-1]
-    if not cin4 - 4 < cin <= cin4:
-        raise ValueError(f"x has {cin} channels; w takes {cin4} (padded)")
-    x = _pad_channels(x, cin4)
+    zero-padded to the kernel's Cin16."""
+    cout, cin16, cin = w.shape[0], w.shape[3], x.shape[-1]
+    if cin16 % CIN_ALIGN or not cin16 - CIN_ALIGN < cin <= cin16:
+        raise ValueError(f"x has {cin} channels; w takes {cin16} (padded)")
+    x = _pad_channels(x, cin16)
     for name, t, dt in (("x", x, torch.int8), ("w", w, torch.int8),
                         ("mult", mult, torch.float32),
                         ("off", off, torch.float32)):
@@ -77,7 +92,7 @@ def conv3x3_i8_plain(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
 
 def conv3x3_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                off: torch.Tensor, out_s: Optional[float]) -> torch.Tensor:
-    """x (B, H, W, Cin) int8 codes; w (Cout, 3, 3, Cin4) from
+    """x (B, H, W, Cin) int8 codes; w (Cout, 3, 3, Cin16) from
     :func:`repack_conv_weight`; mult, off (Cout,) f32. Returns
     (B, H, W, Cout) int8 codes at scale ``out_s``, or bf16 if it is None.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
@@ -88,7 +103,7 @@ def conv3x3_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     if w.shape[1] != 3:
         raise ValueError("conv3x3_i8 takes a 3x3 kernel")
     b, h, wd, _ = x.shape
-    cout, cin4 = w.shape[0], w.shape[3]
+    cout, cin16 = w.shape[0], w.shape[3]
     x = _check_cuda_args(x, w, mult, off)
     dev = x.device
     out = torch.empty((b, h, wd, cout), device=dev,
@@ -98,9 +113,9 @@ def conv3x3_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     with torch.cuda.device(dev):
         launch("int8_conv3x3_epilogue", "insarseg_conv3x3_i8",
                x.data_ptr(), w.data_ptr(), mult.data_ptr(), off.data_ptr(),
-               out.data_ptr(), b, h, wd, cin4, cout,
+               out.data_ptr(), b, h, wd, cin16, cout,
                1.0 if out_s is None else float(out_s),
-               int(out_s is None), stream_of(x))
+               int(out_s is None), tile_n(cout), stream_of(x))
     return out
 
 
@@ -140,7 +155,7 @@ def conv_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
             relu: bool = True, out_s: Optional[float] = None,
             idn: Optional[torch.Tensor] = None, in_s: Optional[float] = None,
             bf16: bool = False) -> torch.Tensor:
-    """K5a. x (B, H, W, Cin) int8 codes; w (Cout, k, k, Cin4) from
+    """K5a. x (B, H, W, Cin) int8 codes; w (Cout, k, k, Cin16) from
     :func:`repack_conv_weight`, k in {1, 3}; mult, off (Cout,) f32; padding
     ``dilation * (k - 1) // 2``. Optional identity ``idn`` (B, Ho, Wo,
     Cout): int8 codes at scale ``in_s``, or f32. Returns (B, Ho, Wo, Cout)
@@ -152,7 +167,7 @@ def conv_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv_i8: unsupported device {x.device}")
     b, h, wd, _ = x.shape
-    cout, k, _, cin4 = w.shape
+    cout, k, _, cin16 = w.shape
     ho, wo = _out_hw(h, wd, k, stride, dilation)
     x = _check_cuda_args(x, w, mult, off)
     dev = x.device
@@ -180,8 +195,8 @@ def conv_i8(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
         launch("int8_conv_epilogue", "insarseg_conv_i8",
                x.data_ptr(), w.data_ptr(), mult.data_ptr(), off.data_ptr(),
                0 if idn is None else idn.data_ptr(), out.data_ptr(),
-               b, h, wd, cin4, ho, wo, cout, k, stride, dilation, int(relu),
-               idn_kind, 1.0 if in_s is None else float(in_s),
+               b, h, wd, cin16, ho, wo, cout, k, stride, dilation,
+               int(relu), idn_kind, 1.0 if in_s is None else float(in_s),
                1.0 if out_s is None else float(out_s), exit_kind,
-               stream_of(x))
+               tile_n(cout), stream_of(x))
     return out

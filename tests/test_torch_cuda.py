@@ -2,7 +2,12 @@
 versions, at small and ragged shapes (partial channel chunks, tiles cut by
 the image border, output channels that are not a multiple of the kernel's
 tile, dilations larger than the map, odd widths, pixel counts that are not
-a multiple of a block). Outputs must be exactly equal.
+a multiple of a block). K1 and K5a are tensor-core implicit GEMMs; their
+cases also cover the GEMM's own edges: pixel rows that do not fill the
+last 128-row tile and tiles that straddle two images, Cout under or
+between the 64 / 128 N tiles, Cin whose 16-padded width leaves a partial
+64-byte K chunk, the Cin 1 / 2 input conv, and the largest accumulator
+(Cin 2048, 3x3, every code +-127). Outputs must be exactly equal.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -275,3 +280,89 @@ def test_resnet_int8_engine_card_vs_cpu(dev):
     corr = float(np.corrcoef(gpu.numpy().ravel(), cpu.numpy().ravel())[0, 1])
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
     assert corr >= 0.999 and agree >= 0.995, (corr, agree)
+
+
+IGEMM_CASES = [  # (b, h, w, cin, cout, k, stride, dilation)
+    (3, 7, 9, 64, 64, 3, 1, 1),      # M = 189: tiles straddle 3 images
+    (2, 9, 11, 32, 16, 3, 1, 1),     # Cout 16
+    (2, 9, 11, 32, 40, 1, 1, 1),     # Cout 40
+    (2, 9, 11, 32, 2, 3, 1, 1),      # Cout 2
+    (1, 20, 20, 128, 192, 3, 1, 1),  # Cout 192: three 64-wide N tiles
+    (2, 13, 11, 40, 64, 3, 1, 1),    # Cin 40 -> 48: a partial K chunk
+    (1, 13, 11, 96, 128, 3, 1, 1),   # Cin 96: chunks of 64 and 32 bytes
+    (2, 16, 16, 1, 64, 3, 1, 1),     # Cin 1 (U-Net inc.c1)
+    (2, 16, 16, 2, 128, 3, 1, 1),    # Cin 2 (U-Net inc.c1, H-s2d)
+    (2, 15, 13, 64, 128, 1, 2, 1),   # 1x1 stride 2 at odd sizes
+    (1, 17, 9, 256, 64, 3, 2, 1),    # 3x3 stride 2 at odd sizes
+    (1, 64, 64, 64, 64, 3, 1, 36),   # dilation 36 on a 64^2 map
+]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,stride,dilation", IGEMM_CASES)
+def test_igemm_edges_equal_plain(dev, b, h, w, cin, cout, k, stride,
+                                 dilation):
+    """K5a with every identity kind x exit x ReLU, and K1 with both exits
+    where the case is a 3x3 stride-1 conv, at the GEMM tiling's edges."""
+    gen = torch.Generator().manual_seed(b * h * w + cin * cout + k)
+    n = 0
+    for exit_ in ("s8", "f32", "bf16"):
+        for idn_kind in ("none", "s8", "f32"):
+            args, kw = _k5a_args(gen, b, h, w, cin, cout, k, stride, exit_,
+                                 idn_kind, dev)
+            for relu in (True, False):
+                kw.update(stride=stride, dilation=dilation, relu=relu)
+                got = K.conv_i8(*args, **kw)
+                want = K.conv_i8_plain(*args, **kw)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (exit_, idn_kind, relu)
+                n += 1
+    if (k, stride, dilation) == (3, 1, 1):
+        for bf16_exit in (False, True):
+            args = _conv_args(gen, b, h, w, cin, cout, bf16_exit, dev)
+            got = K.conv3x3_i8(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, K.conv3x3_i8_plain(*args)), bf16_exit
+            n += 1
+    assert n >= 18
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_igemm_largest_accumulator(dev, sign):
+    """Cin 2048, 3x3, x = 127 everywhere and w = +-127: the interior sums
+    reach +-9 * 2048 * 127^2 = +-297,289,728, the largest |acc| the int8
+    engines allow. The f32 exit with mult 1, off 0 returns the sums as
+    floats, so a wrapped int32 would show; the s8 and bf16 exits (K5a and
+    K1) go through the scaled epilogue."""
+    b, h, w, cin, cout = 1, 6, 5, 2048, 72
+    x = torch.full((b, h, w, cin), 127, dtype=torch.int8, device=dev)
+    q = torch.full((3, 3, cin, cout), 127 * sign, dtype=torch.int8)
+    wt = K.repack_conv_weight(q).to(dev)
+    one = torch.ones(cout, device=dev)
+    zero = torch.zeros(cout, device=dev)
+    got = K.conv_i8(x, wt, one, zero, relu=False)
+    want = K.conv_i8_plain(x, wt, one, zero, relu=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got[0, 2, 2].abs().min()) == 9 * 2048 * 127.0 ** 2
+    mult = torch.full((cout,), 100.0 / 3e8, device=dev)
+    off = torch.linspace(-20, 20, cout, device=dev)
+    for out_s in (2.0, None):
+        kw = {"relu": False, "out_s": out_s, "bf16": out_s is None}
+        assert torch.equal(K.conv_i8(x, wt, mult, off, **kw),
+                           K.conv_i8_plain(x, wt, mult, off, **kw))
+        assert torch.equal(K.conv3x3_i8(x, wt, mult, off, out_s),
+                           K.conv3x3_i8_plain(x, wt, mult, off, out_s))
+    torch.cuda.synchronize()
+
+
+def test_conv_wrappers_reject_bad_input(dev):
+    q = torch.zeros((3, 3, 40, 64), dtype=torch.int8)
+    wt = K.repack_conv_weight(q).to(dev)  # Cin 48
+    mult = torch.ones(64, device=dev)
+    x = torch.zeros((1, 4, 4, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        K.conv_i8(x, wt, mult, mult)  # 32 channels, w takes 33-48
+    with pytest.raises(ValueError):
+        K.conv3x3_i8(torch.zeros((1, 4, 4, 40), dtype=torch.int8,
+                                 device=dev), wt, mult[:32], mult[:32], 0.5)

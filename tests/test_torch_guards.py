@@ -1,4 +1,5 @@
-"""Guards of the port's boundaries: insarseg_torch (and chip_smoke.py)
+"""Guards of the port's boundaries: insarseg_torch (and chip_smoke.py and
+tools/)
 import nothing of JAX or of the JAX package, entry points default to CUDA
 and raise without a card, and chip_smoke.py refuses to run without one."""
 
@@ -27,7 +28,8 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_insarseg_imports_in_port():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "tools").glob("*.py"))
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

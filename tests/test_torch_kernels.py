@@ -69,7 +69,7 @@ def _bf16_np(t):
     return np.asarray(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16))
 
 
-@pytest.mark.parametrize("cin", [1, 16])
+@pytest.mark.parametrize("cin", [1, 2, 16, 40])
 @pytest.mark.parametrize("exit_", ["int8", "bf16"])
 def test_k1_plain_matches_conv_i8(cin, exit_):
     rng = np.random.default_rng(cin)
