@@ -11,22 +11,24 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    card's name and power limit, and checks in the SASS (``cuobjdump``)
    that every kernel of K1 and K5a runs on the tensor cores (IGMMA, the
    int8 ``wgmma``) and none on ``__dp4a`` (IDP);
-2. holds every kernel to its plain PyTorch version on the card, exactly,
-   at fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 and at the four
-   H-s2d level-1 shapes (256x512, Cin 2/128/256 -> 128), both exits; K2 at
-   512^2x64 and 32^2x1024 with both exits; K3 at 512^2x64; K3s at
-   256x512x128 and an odd width; K4a / K4b at C 128/256/512/1024 at their
-   path sizes and a ragged 7x5x48; K5a at k1/k3 x stride 1/2 x dilation
-   1/2/4/12/36 x every exit x ReLU or not x no / int8 / f32 identity, and
-   at Cin 1280 and 2048; K1 and K5a at the edges of their GEMM tiling
-   (pixel rows that straddle images and leave a partial 128-row tile,
-   Cout 2/16/40/192, Cin 1/2/40/96, odd sizes at stride 2, dilation 36 on
-   64^2, the largest accumulator: Cin 2048, 3x3, codes +-127); K5b with
-   both identities), then on the tensors of
-   one int8 forward of each main path (512^2, b8), timing each kernel, its
-   plain version, a PyTorch reference call where one exists, and computing
-   each call's bound (a kernel's row sums its calls over the main paths
-   that launch it);
+2. holds every kernel to its plain PyTorch version on the card, exactly, at
+   fixed shapes (K1 at Cin 1/64/1024 x 512^2/128^2/32^2 and at the four H-s2d
+   level-1 shapes (256x512, Cin 2/128/256 -> 128), both exits; K2 at 512^2x64
+   and 32^2x1024 with both exits, its squeeze also at C 16 / 2048 / 4096, b1 /
+   b8 / b9 and 512^2 codes all +127 or -128; K3 at 512^2x64; K3s at 256x512x128
+   and an odd width; K4a / K4b at C 128/256/512/1024 at their path sizes and a
+   ragged 7x5x48; K5a at k1/k3 x stride 1/2 x dilation 1/2/4/12/36 x every exit
+   x ReLU or not x no / int8 / f32 identity, and at Cin 1280 and 2048; K1 and
+   K5a at the edges of their GEMM tiling (pixel rows that straddle images and
+   leave a partial 128-row tile, Cout 2/16/40/192, Cin 1/2/40/96, odd sizes at
+   stride 2, dilation 36 on 64^2, the largest accumulator: Cin 2048, 3x3, codes
+   +-127); K5b with both identities and on quotients at the ties), then on the
+   tensors of one int8 forward of each main path (512^2, b8), timing each
+   kernel on the device alone and its wrapper's host us a call (``device_ms``),
+   the kernel back to back (``back_to_back_ms``), its plain version and a
+   PyTorch reference call where one exists (device alone), and computing each
+   call's bound (a kernel's row sums its calls over the main paths that launch
+   it);
 3. drives four main paths at full width with seeded random weights, each
    with the launch counters set to 0 just before and read just after:
    U-Net-CA and U-Net-SA (base 64), FCN-ResNet50-CA and
@@ -35,10 +37,15 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
    the standard layout), each serving batches of eight 512^2 tiles, plus a
    1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
-   FCN int8 engines; then U-Net-CA's int8 engine in the standard layout
-   (``pack_unet_int8(s2d=False)``), timed in turns against the H-s2d one;
-   then DeepLab-CA, DeepLab-SA, FCN and FCN-SA once each through 'int8'
-   (512^2, b2);
+   FCN int8 engines; after each path, one warm int8 forward on a CUDA input
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no call may
+   synchronise the stream), the int8 forward timed in turns with its device
+   scalars filled on the device and copied from host memory,
+   and the device's idle share and top operations in a short
+   ``torch.profiler`` window; then U-Net-CA's int8 engine in the standard
+   layout (``pack_unet_int8(s2d=False)``), checked for syncs and timed in
+   turns against the H-s2d one; then DeepLab-CA, DeepLab-SA, FCN and FCN-SA
+   once each through 'int8' (512^2, b2);
 4. checks the outputs: serve f32 within 1e-3 x max|logit| of module f32
    (TF32 off), int8 logits correlated with serve's > 0.98 (U-Net) and
    > 0.97 (ResNet cells, the JAX package's bar), the launches per int8
@@ -54,6 +61,7 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,8 +88,11 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events."""
+def back_to_back_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean time of ``fn()`` in ms by CUDA events around ``reps`` calls made
+    back to back: the stream's time per call when the host queues the
+    calls as fast as it can. Where a call's host work outlasts its device
+    work, this times the host."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +104,46 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep at the H100's clocks
+
+
+def device_ms(fn, reps: int, warmup: int = 1):
+    """(device ms per call, host us per call) of ``fn()``.
+
+    The ``reps`` calls are queued behind a spin kernel
+    (``torch.cuda._sleep``) that lasts longer than their queueing, so the
+    CUDA events just before and after them time the device alone, the calls
+    back to back, whatever the host's pace. The host time is that of
+    queueing them (the wrapper's checks, allocations and launches). The
+    spin grows until it outlasts the queueing; a call that synchronises
+    never lets it, and is reported."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin = SPIN_CYCLES
+    for _ in range(4):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(spin)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = time.perf_counter() - t0
+        e2.record()
+        torch.cuda.synchronize()
+        if e0.elapsed_time(e1) > 1.5e3 * host:
+            break
+        spin *= 4
+    else:
+        log(f"  warning: the spin never outlasted the queueing "
+            f"({host * 1e3:.3f} ms): the call synchronises, and its device "
+            "time holds host gaps")
+    return e1.elapsed_time(e2) / reps, host / reps * 1e6
 
 
 def bound(ops: float, nbytes: float):
@@ -215,8 +266,17 @@ def check_fixed_shapes(dev) -> None:
         for dt in (torch.float32, torch.bfloat16):
             gain = (torch.rand((2, c), generator=gen) * 2).to(dt).to(dev)
             same(K.se_excite_i8(q, gain), K.se_excite_i8_plain(q, gain))
+    for shape, fill in (((1, 1, 1, 16), None), ((9, 13, 11, 4096), None),
+                        ((8, 64, 64, 2048), None), ((1, 256, 512, 128), None),
+                        ((8, 512, 512, 16), 127), ((9, 512, 512, 16), -128)):
+        q = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8) \
+            if fill is None else torch.full(shape, fill, dtype=torch.int8)
+        q = q.to(dev)
+        same(K.se_squeeze_i8(q), K.se_squeeze_i8_plain(q))
     log("K2 se_squeeze_i8 / se_excite_i8 == plain at 512^2x64 and "
-        "32^2x1024, int8 and bf16 exits")
+        "32^2x1024, int8 and bf16 exits; the squeeze also at b1 1x1x16, b9 "
+        "13x11x4096, b8 64^2x2048, b1 256x512x128 and 512^2x16 codes all "
+        "+127 (b8) or -128 (b9)")
     q = torch.randint(-128, 128, (2, 512, 512, 64), generator=gen,
                       dtype=torch.int8).to(dev)
     same(K.maxpool2x2_i8(q), K.maxpool2x2_i8_plain(q))
@@ -356,8 +416,20 @@ def check_resnet_fixed_shapes(dev) -> None:
             in_s = 0.02 if idn.dtype == torch.int8 else None
             same(K.se_residual_i8(y3q, gate, idn, in_s, 0.03),
                  K.se_residual_i8_plain(y3q, gate, idn, in_s, 0.03))
+    # quotients on the ties: y / 0.5 = q / 4 + qi (int8 identity at 0.5),
+    # or q / 4 + k + 1/2 and its neighbours (f32 identity)
+    y3q = torch.randint(-127, 128, (3, 5, 7, 2048), generator=gen,
+                        dtype=torch.int8).to(dev)
+    gate = torch.full((3, 2048), 0.125, device=dev)
+    k = torch.randint(-20, 280, y3q.shape, generator=gen)
+    half = (k.float() + 0.5) / 2
+    for idn, in_s in ((k.clamp(-127, 127).to(torch.int8).to(dev), 0.5),
+                      (torch.where(k % 3 == 0, torch.nextafter(half, half + 1),
+                                   half).to(dev), None)):
+        same(K.se_residual_i8(y3q, gate, idn, in_s, 0.5),
+             K.se_residual_i8_plain(y3q, gate, idn, in_s, 0.5))
     log("K5b se_residual_i8 == plain at 32^2x256, 64^2x2048, 7x5x48, int8 "
-        "and f32 identity")
+        "and f32 identity, and on quotients at and beside the ties")
     torch.cuda.synchronize()
 
 
@@ -391,24 +463,31 @@ def record_calls(module, names, predict, images):
 
 
 def kernel_row(name, source, replaces, cases):
-    """Per call: equal to the plain version, kernel / plain / library ms
-    and the bound. Returns the kernel's row (sums over the calls)."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0}
+    """Per call: equal to the plain version; the kernel's device ms and
+    host us per call (``device_ms``) and its back-to-back ms; the plain
+    version's and the library call's device ms; the bound. Returns the
+    kernel's row: sums of the ms over the calls, the mean host us."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0,
+           "b2b": 0.0, "host_us": 0.0}
     err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
     by_path = {}
     has_lib = True
     for c in cases:
         err = max(err, same(c["kernel"](), c["plain"]()))
-        ms = cuda_ms(c["kernel"], reps=5)
-        pms = cuda_ms(c["plain"], reps=2)
+        ms, hus = device_ms(c["kernel"], reps=5)
+        b2b = back_to_back_ms(c["kernel"], reps=5)
+        pms, _ = device_ms(c["plain"], reps=2)
         bms, by = bound(c["ops"], c["bytes"])
-        lms = None if c["lib"] is None else cuda_ms(c["lib"], reps=5)
+        lms = None if c["lib"] is None else device_ms(c["lib"], reps=5)[0]
         by_path[c["path"]] = by_path.get(c["path"], 0.0) + ms
-        log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms, plain "
+        log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms device, "
+            f"{hus:.1f} us host, {b2b:.4f} ms back to back, plain "
             f"{pms:.4f} ms, "
             f"library {'-' if lms is None else f'{lms:.4f}'} ms, "
             f"bound {bms:.4f} ms ({by})")
         tot["ms"] += ms
+        tot["host_us"] += hus
+        tot["b2b"] += b2b
         tot["plain_ms"] += pms
         tot["bound_ms"] += bms
         by_time[by] += bms
@@ -422,6 +501,8 @@ def kernel_row(name, source, replaces, cases):
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(by_time, key=by_time.get),
             "library_ms": tot["lib"] if has_lib else None,
+            "host_us": tot["host_us"] / len(cases),
+            "back_to_back_ms": tot["b2b"],
             "calls_timed": len(cases), "ms_by_path": by_path}
 
 
@@ -760,6 +841,124 @@ def run_path(engines, images, dev, corr_bar, want, label, power_line,
     return launches
 
 
+@contextlib.contextmanager
+def host_copied_scalars():
+    """The int8 forwards with each device scalar (the requant and dequant
+    scales, the squeeze's pixel count) copied from host memory
+    (``torch.tensor(v, device=cuda)``), which synchronises the stream: the
+    other side of ``forward_turns``."""
+    import torch
+    from insarseg_torch.models import resnet_int8, unet_int8
+    from insarseg_torch.ops import quant
+
+    def copied(v, device):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    mods = (quant, resnet_int8, unet_int8)
+    saved = [m.f32_scalar for m in mods]
+    for m in mods:
+        m.f32_scalar = copied
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.f32_scalar = f
+
+
+def check_no_sync(predict, x, label) -> None:
+    """One warm int8 forward on a CUDA input under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that synchronises
+    the stream raises."""
+    import torch
+
+    predict(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        predict(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"  {label}: a warm int8 forward on a CUDA input synchronises "
+        "nothing (set_sync_debug_mode 'error')")
+
+
+def profile_window(predict, x, reps: int = 3):
+    """A short torch.profiler window of ``reps`` int8 forwards: the share of
+    the window (first device activity to last) in which the device runs
+    nothing, and the device ms per forward of the top operations. None
+    where the trace holds no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    predict(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            predict(x)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if not spans:
+        return None, []
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:10]
+    return 1.0 - busy / window, [(e.key, dev_us(e) / reps / 1e3)
+                                 for e in top if dev_us(e) > 0]
+
+
+def forward_turns(predict, x, label, power_line, reps: int = 5):
+    """The int8 forward with its device scalars filled on the device and
+    copied from host memory (``host_copied_scalars``), in turns: filled,
+    copied, copied, filled; host clock over ``reps`` synchronised forwards
+    each, on a CUDA input. Then each one's idle share from
+    ``profile_window``."""
+    import torch
+
+    ms = {"filled": [], "copied": []}
+    for mode in ("filled", "copied", "copied", "filled"):
+        with (host_copied_scalars() if mode == "copied"
+              else contextlib.nullcontext()):
+            predict(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                predict(x)
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) / reps * 1e3)
+    idle = {}
+    for mode in ("filled", "copied"):
+        with (host_copied_scalars() if mode == "copied"
+              else contextlib.nullcontext()):
+            idle[mode], top = profile_window(predict, x)
+        if mode == "filled":
+            for key, dms in top:
+                log(f"    profiler, device ms per forward: {dms:.4f} {key}")
+    share = {m: "not measured" if v is None else f"{100 * v:.1f}%"
+             for m, v in idle.items()}
+    turns = {m: " / ".join(f"{v:.3f}" for v in ms[m]) for m in ms}
+    log(f"  {label} int8 forward ms (host clock, b{x.shape[0]}, CUDA "
+        f"input): scalars filled on the device {turns['filled']}, copied "
+        f"from the host {turns['copied']} (turns 1 and 4, or 2 and 3); "
+        f"device idle share under the profiler {share['filled']} filled, "
+        f"{share['copied']} copied; on {power_line}")
+
+
 def card_vs_cpu(dev, name, attention, model, calib, images):
     """The same int8 tree on the card and on the CPU (plain versions), at
     64^2, b2 (U-Net: H-s2d, standard for SA, as ``make_engine`` packs it).
@@ -820,6 +1019,8 @@ def unet_standard_layout(dev, model, calib, images, s2d_predict,
     if per_forward != UNET_CA_STANDARD:
         raise AssertionError(f"standard layout: launches {per_forward} != "
                              f"{UNET_CA_STANDARD}")
+    check_no_sync(std, torch.from_numpy(images).to(dev),
+                  "U-Net-CA, standard layout")
     y_s2d = s2d_predict(images).float().cpu().numpy()
     corr = float(np.corrcoef(y_std.ravel(), y_s2d.ravel())[0, 1])
     log(f"  standard vs H-s2d int8 logits: correlation {corr:.5f}")
@@ -837,7 +1038,7 @@ def unet_standard_layout(dev, model, calib, images, s2d_predict,
     k1 = {}
     for label, fn in (("H-s2d", s2d_predict), ("standard", std)):
         calls = record_calls(unet_int8, ["conv3x3_i8"], fn, images)
-        k1[label] = sum(cuda_ms(c["kernel"], reps=5) for c in
+        k1[label] = sum(device_ms(c["kernel"], reps=5)[0] for c in
                         kernel_cases(calls, label)["conv3x3_i8"])
     for label in rates:
         log(f"  {label}: {' / '.join(f'{r:.2f}' for r in rates[label])} "
@@ -882,6 +1083,11 @@ def run(dev, power_line: str, phase) -> list:
             engines, images, dev, corr_bar, want, label, power_line,
             scene=scene if with_scene else None)
         phase(f"{label}: main path")
+        x_dev = torch.from_numpy(images).to(dev)
+        check_no_sync(engines["int8"], x_dev, label)
+        forward_turns(engines["int8"], x_dev, label, power_line)
+        del x_dev
+        phase(f"{label}: int8 forward without syncs, in turns with them")
         card_vs_cpu(dev, name, attention, model, calib, images)
         phase(f"{label}: card vs CPU")
         if (name, attention) == ("unet", "channel"):

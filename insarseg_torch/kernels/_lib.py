@@ -15,6 +15,7 @@ it launches its kernel and nowhere else.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,7 +54,7 @@ _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "insarseg_conv3x3_i8": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f,
                             _i, _i, _vp),
-    "insarseg_se_squeeze_i8": (_vp, _vp, _i, _i, _i, _i, _i, _vp),
+    "insarseg_se_squeeze_i8": (_vp, _vp, _vp, _vp) + (_i,) * 6 + (_vp,),
     "insarseg_se_excite_i8": (_vp, _vp, _vp, _ll, _ll, _i, _i, _vp),
     "insarseg_maxpool2x2_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
     "insarseg_maxpool_exit_s2d_i8": (_vp, _vp, _i, _i, _i, _i, _vp),
@@ -165,8 +166,18 @@ def launch(kernel: str, fn_name: str, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+def device_guard(device: torch.device):
+    """The context of a launch on ``device``: none when it is the current
+    device already (``torch.cuda.device`` costs microseconds a call)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on ``t``'s device (without making
+    a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -13,7 +13,12 @@ from typing import Optional
 
 import torch
 
-from insarseg_torch.kernels._lib import check_cuda, launch, stream_of
+from insarseg_torch.kernels._lib import (
+    check_cuda,
+    device_guard,
+    launch,
+    stream_of,
+)
 from insarseg_torch.ops.quant import dequant, requant
 
 
@@ -55,7 +60,7 @@ def se_residual_i8(y3q: torch.Tensor, gate: torch.Tensor, idn: torch.Tensor,
     out = torch.empty(y3q.shape, dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         launch("se_residual_i8", "insarseg_se_residual_i8", y3q.data_ptr(),
                gate.data_ptr(), idn.data_ptr(), out.data_ptr(),
                y3q.numel() // 16, h * w * c, c, int(idn_f32),

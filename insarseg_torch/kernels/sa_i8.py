@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from insarseg_torch.kernels._lib import check_cuda, launch, stream_of
+from insarseg_torch.ops.quant import f32_scalar
 
 
 def _check_channels(name: str, c: int) -> None:
@@ -21,8 +22,8 @@ def sa_stats_i8_plain(q: torch.Tensor, s: float) -> torch.Tensor:
     """The kernel's formula: an exact integer sum and a code max, then
     ``sum * s / C`` and ``max * s`` in f32 (scale and divisor as device
     tensors: a CUDA operation with a host scalar may round otherwise)."""
-    st = torch.tensor(s, dtype=torch.float32, device=q.device)
-    ct = torch.tensor(float(q.shape[-1]), dtype=torch.float32, device=q.device)
+    st = f32_scalar(s, q.device)
+    ct = f32_scalar(q.shape[-1], q.device)
     mean = q.sum(dim=-1, dtype=torch.int32).to(torch.float32) * st / ct
     mx = q.amax(dim=-1).to(torch.float32) * st
     return torch.stack([mean, mx], dim=-1)

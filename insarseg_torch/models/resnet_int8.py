@@ -53,6 +53,7 @@ from insarseg_torch.ops.quant import (
     absmax_to_scale,
     calib_stat_fn,
     dequant,
+    f32_scalar,
     quant_weight,
     requant,
 )
@@ -258,7 +259,7 @@ def _mean_codes(yq: torch.Tensor) -> torch.Tensor:
     H, W is below 127 * H * W < 2^24 at every size the engine sees, so its
     f32 value and the division by H * W (a power of two at the served
     sizes) equal the JAX package's f32 ``mean``."""
-    hw = torch.tensor(float(yq.shape[1] * yq.shape[2]), device=yq.device)
+    hw = f32_scalar(yq.shape[1] * yq.shape[2], yq.device)
     return se_squeeze_i8(yq).to(torch.float32) / hw
 
 

@@ -70,6 +70,7 @@ from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
 from insarseg_torch.ops.quant import (
     absmax_to_scale,
     calib_stat_fn,
+    f32_scalar,
     quant_weight,
     requant,
 )
@@ -241,7 +242,7 @@ def _dc_i8(blk: Mapping, xq: torch.Tensor, s2d: bool = False) -> torch.Tensor:
     yq = _conv_i8(_conv_i8(xq, blk["c1"]), blk["c2"])
     if "fc1" not in blk:
         return yq
-    hw = torch.tensor(float(yq.shape[1] * yq.shape[2]), device=yq.device)
+    hw = f32_scalar(yq.shape[1] * yq.shape[2], yq.device)
     pooled = se_squeeze_i8(yq).to(torch.float32) / hw
     if s2d:
         c = yq.shape[-1] // 2

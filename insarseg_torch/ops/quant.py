@@ -80,17 +80,24 @@ def calib_stat_fn(stat: str) -> Callable[[torch.Tensor], torch.Tensor]:
         "'p<percent>' (e.g. 'p99.9' for the 99.9th percentile)")
 
 
+def f32_scalar(v: float, device: torch.device) -> torch.Tensor:
+    """A 0-d f32 tensor holding ``v`` (rounded to f32 as
+    ``torch.tensor(v, dtype=torch.float32)`` rounds it) on ``device``,
+    filled there: ``torch.tensor(v, device=cuda)`` copies from pageable
+    host memory, which synchronises the stream."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
 def dequant(q: torch.Tensor, s: float) -> torch.Tensor:
     """int8 codes at scale ``s`` -> f32 ``q * s``, one f32 multiply by a
     scale on ``q``'s device."""
-    return q.to(torch.float32) * torch.tensor(s, dtype=torch.float32,
-                                              device=q.device)
+    return q.to(torch.float32) * f32_scalar(s, q.device)
 
 
 def requant(y: torch.Tensor, s: float) -> torch.Tensor:
     """f32 values -> int8 codes at scale ``s``. The divisor is a tensor on
     ``y``'s device: a CUDA division by a host scalar is computed as a
     multiply by its reciprocal, which rounds differently."""
-    d = torch.tensor(s, dtype=torch.float32, device=y.device)
+    d = f32_scalar(s, y.device)
     return torch.round(y.to(torch.float32) / d).clamp_(-127, 127) \
         .to(torch.int8)

@@ -7,7 +7,10 @@ cases also cover the GEMM's own edges: pixel rows that do not fill the
 last 128-row tile and tiles that straddle two images, Cout under or
 between the 64 / 128 N tiles, Cin whose 16-padded width leaves a partial
 64-byte K chunk, the Cin 1 / 2 input conv, and the largest accumulator
-(Cin 2048, 3x3, every code +-127). Outputs must be exactly equal.
+(Cin 2048, 3x3, every code +-127). K2's squeeze runs at C 16 / 2048 / 4096,
+B 1 / 8 / 9 and 512^2 codes all +127 or -128; K5b on quotients at the
+ties. Outputs must be exactly equal. A warm int8 forward of each engine
+family must not synchronise the stream.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -254,6 +257,116 @@ def test_k5b_equals_plain(dev, b, h, w, c, idn_kind):
     torch.cuda.synchronize()
     assert torch.equal(got, K.se_residual_i8_plain(y3q, gate, idn, in_s,
                                                    0.03))
+
+
+SQUEEZE_CASES = [  # (b, h, w, c, fill)
+    (1, 1, 1, 16, "random"), (8, 1, 1, 2048, "random"),
+    (9, 1, 1, 4096, "random"), (1, 7, 9, 16, "random"),
+    (8, 7, 9, 2048, "random"), (9, 13, 11, 4096, "random"),
+    (1, 512, 512, 16, "random"), (8, 512, 512, 16, "+127"),
+    (9, 512, 512, 16, "-128"), (1, 512, 512, 2048, "+127"),
+    (1, 512, 512, 4096, "-128"), (8, 64, 64, 2048, "random"),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,fill", SQUEEZE_CASES)
+def test_k2_squeeze_equals_plain(dev, b, h, w, c, fill):
+    """One launch a call, C 16 / 2048 / 4096, HW 1 / odd / 512^2, B 1 / 8 /
+    9; all codes +127 or -128 at 512^2 (every 16-bit lane fills and
+    flushes)."""
+    if fill == "random":
+        gen = torch.Generator().manual_seed(b * h * c)
+        q = torch.randint(-128, 128, (b, h, w, c), generator=gen,
+                          dtype=torch.int8).to(dev)
+    else:
+        q = torch.full((b, h, w, c), 127 if fill == "+127" else -128,
+                       dtype=torch.int8, device=dev)
+    before = K.LAUNCHES["se_squeeze_i8"]
+    got = K.se_squeeze_i8(q)
+    assert K.LAUNCHES["se_squeeze_i8"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.se_squeeze_i8_plain(q))
+    # the last-block counters were left at 0: a second call agrees
+    assert torch.equal(K.se_squeeze_i8(q), got)
+
+
+@pytest.mark.parametrize("c", [16, 2048])
+@pytest.mark.parametrize("idn_kind", ["s8", "f32"])
+def test_k5b_ragged_and_ties(dev, c, idn_kind):
+    """An element count that is no multiple of a block (16,384 elements
+    with an int8 identity, 8,192 with an f32 one), and quotients on the
+    half-integer ties: out_s 0.5, gate 0.125 and in_s 0.5 make every
+    y / out_s = q / 4 + qi exact, a tie where q = 2 mod 4 (int8 identity);
+    the f32 identity holds (k + 1/2) / 2 and its neighbours."""
+    b, h, w = 3, 5, 7
+    gen = torch.Generator().manual_seed(c)
+    y3q = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                        dtype=torch.int8)
+    gate = torch.full((b, c), 0.125)
+    if idn_kind == "s8":
+        idn = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                            dtype=torch.int8)
+        in_s = 0.5
+    else:
+        k = torch.randint(-20, 280, (b, h, w, c), generator=gen)
+        idn = (k.float() + 0.5) / 2
+        idn = torch.where(k % 3 == 0, torch.nextafter(idn, idn + 1),
+                          torch.where(k % 3 == 1, idn,
+                                      torch.nextafter(idn, idn - 1)))
+        in_s = None
+    args = (y3q.to(dev), gate.to(dev), idn.to(dev), in_s, 0.5)
+    got = K.se_residual_i8(*args)
+    torch.cuda.synchronize()
+    want = K.se_residual_i8_plain(*args)
+    assert torch.equal(got, want)
+    assert (want == 127).any() and (want == 0).any()
+
+
+def _no_sync_forward(predict, x):
+    predict(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = predict(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("engine", ["unet-s2d", "unet-standard",
+                                    "fcn-channel", "deeplabv3-none"])
+def test_int8_forward_never_synchronises(dev, engine):
+    """A warm int8 forward on a CUDA input under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that synchronises
+    the stream (a host-to-device copy of a scalar, an item()) raises."""
+    x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
+        .astype(np.float32)
+    torch.manual_seed(0)
+    if engine.startswith("unet"):
+        from insarseg_torch.models.unet import UNet
+        from insarseg_torch.models.unet_int8 import (
+            make_int8_predict_fn,
+            pack_unet_int8,
+            prepare_int8,
+        )
+        model = UNet(num_classes=2, base_features=16, use_se=True).eval()
+        tree = pack_unet_int8(model.state_dict(), [x],
+                              s2d=engine == "unet-s2d", device=dev)
+        predict = make_int8_predict_fn(prepare_int8(tree, dev))
+    else:
+        from insarseg_torch.models.registry import build
+        from insarseg_torch.models.resnet_int8 import (
+            make_resnet_int8_predict_fn,
+            pack_resnet_int8,
+            prepare_resnet_int8,
+        )
+        name, attention = engine.split("-")
+        model = build(name, attention).eval()
+        tree = pack_resnet_int8(model.state_dict(), [x], device=dev)
+        predict = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, dev))
+    out = _no_sync_forward(predict, torch.from_numpy(x).to(dev))
+    assert out.shape == (2, 64, 64, 2) and bool(torch.isfinite(out).all())
 
 
 def test_resnet_int8_engine_card_vs_cpu(dev):
