@@ -17,7 +17,9 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    and 32^2x1024 with both exits, its squeeze also at C 16 / 2048 / 4096, b1 /
    b8 / b9 and 512^2 codes all +127 or -128; K3 at 512^2x64; K3s at 256x512x128
    and an odd width; K4a / K4b at C 128/256/512/1024 at their path sizes and a
-   ragged 7x5x48; K5a at k1/k3 x stride 1/2 x dilation 1/2/4/12/36 x every exit
+   ragged 7x5x48; K6 in both forms at a ragged size with and without a bias;
+   K7 at odd sizes and two channel groups; K5a at k1/k3 x stride 1/2 x
+   dilation 1/2/4/12/36 x every exit
    x ReLU or not x no / int8 / f32 identity, and at Cin 1280 and 2048; K1 and
    K5a at the edges of their GEMM tiling (pixel rows that straddle images and
    leave a partial 128-row tile, Cout 2/16/40/192, Cin 1/2/40/96, odd sizes at
@@ -29,30 +31,36 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    PyTorch reference call where one exists (device alone), and computing each
    call's bound (a kernel's row sums its calls over the main paths that launch
    it);
-3. drives four main paths at full width with seeded random weights, each
+3. drives five main paths at full width with seeded random weights, each
    with the launch counters set to 0 just before and read just after:
-   U-Net-CA and U-Net-SA (base 64), FCN-ResNet50-CA and
-   DeepLabV3-ResNet50, 1 -> 2 classes, through ``make_engine`` 'module'
+   U-Net-CA and U-Net-SA (base 64), the fast cell U-Net-fast-CA (level 1
+   128, its int8 engine the standard-layout graph on the space-to-depth
+   input), FCN-ResNet50-CA and DeepLabV3-ResNet50, 1 -> 2 classes, through
+   ``make_engine`` 'module'
    (f32), 'serve' (f32 and bf16 input) and 'int8' (calibrated on two seeded
    512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
    the standard layout), each serving batches of eight 512^2 tiles, plus a
    1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
    FCN int8 engines; after each path, one warm int8 forward on a CUDA input
    under ``torch.cuda.set_sync_debug_mode("error")`` (no call may
-   synchronise the stream), the int8 forward timed in turns with its device
-   scalars filled on the device and copied from host memory,
-   and the device's idle share and top operations in a short
-   ``torch.profiler`` window; then U-Net-CA's int8 engine in the standard
+   synchronise the stream), the int8 forward timed in turns as it is, with
+   its device scalars copied from host memory and with K6 / K7 replaced by
+   the library chains they replace, and the device's idle share and top
+   operations in a short ``torch.profiler`` window of each (a U-Net window
+   may hold no transposed conv and no concat: K6 does both); then
+   U-Net-CA's int8 engine in the standard
    layout (``pack_unet_int8(s2d=False)``), checked for syncs and timed in
    turns against the H-s2d one; then DeepLab-CA, DeepLab-SA, FCN and FCN-SA
    once each through 'int8' (512^2, b2);
 4. checks the outputs: serve f32 within 1e-3 x max|logit| of module f32
    (TF32 off), int8 logits correlated with serve's > 0.98 (U-Net) and
    > 0.97 (ResNet cells, the JAX package's bar), the launches per int8
-   forward (U-Net-CA H-s2d 18 / 9 / 9 / 3 / 1 of K1 / K2 squeeze / K2
-   excite / K3 / K3s, in the standard layout 18 / 9 / 9 / 4; U-Net-SA
-   18 / 4 / 4 / 4 of K1 / K3 / K4a / K4b; FCN-CA 53 / 16 / 16 of K5a /
-   K5b / K2 squeeze; DeepLabV3 58 K5a and one K2 squeeze), the int8
+   forward (U-Net-CA H-s2d 18 / 9 / 9 / 3 / 1 / 4 of K1 / K2 squeeze /
+   K2 excite / K3 / K3s / K6, in the standard layout and U-Net-fast-CA
+   18 / 9 / 9 / 4 / 4 of K1 / K2 squeeze / K2 excite / K3 / K6; U-Net-SA
+   18 / 4 / 4 / 4 / 4 of K1 / K3 / K4a / K4b / K6; FCN-CA 53 / 16 / 16 / 1
+   of K5a / K5b / K2 squeeze / K7; DeepLabV3 58 K5a, one K2 squeeze and
+   one K7), the int8
    engines on the card against the same trees on the CPU (plain
    versions), finite scenes;
 5. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
@@ -71,6 +79,7 @@ import numpy as np
 
 # NVIDIA's published H100 SXM peaks at the full 700 W power limit
 PEAK_OPS = 1979e12    # dense int8 tensor-core rate, operations/s
+PEAK_BF16 = 989e12    # dense bf16 tensor-core rate, FLOP/s
 PEAK_BYTES = 3.35e12  # HBM3 bandwidth, bytes/s
 BATCH, HW, BASE = 8, 512, 64
 SEED = 0
@@ -146,8 +155,8 @@ def device_ms(fn, reps: int, warmup: int = 1):
     return e1.elapsed_time(e2) / reps, host / reps * 1e6
 
 
-def bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -298,6 +307,26 @@ def check_fixed_shapes(dev) -> None:
         del q, g
     log(f"K4a sa_stats_i8 / K4b sa_gate_i8 == plain at b{BATCH} "
         "512^2x128, 256^2x256, 128^2x512, 64^2x1024 and 3x7x5x48")
+    for b, h, w, cin, cout, s2d in ((3, 9, 11, 40, 48, False),
+                                    (1, 5, 7, 128, 128, True)):
+        y = torch.randn((b, h, w, cin), generator=gen).to(torch.bfloat16)
+        k = torch.randn((1 if s2d else 2, 2, cin, cout), generator=gen) \
+            / np.sqrt(cin)
+        skip = torch.randint(-127, 128, (b, h if s2d else 2 * h, 2 * w, 32),
+                             generator=gen, dtype=torch.int8).to(dev)
+        for bias in ((torch.randn(cout, generator=gen) * 0.5)
+                     .to(torch.bfloat16).to(dev), None):
+            args = (y.to(dev), K.pack_up_weight(k, s2d).to(dev), bias, skip,
+                    0.015, s2d)
+            same(K.up_concat_i8(*args), K.up_concat_i8_plain(*args))
+    log("K6 up_concat_i8 == plain at 3x9x11x40 -> 48 (k2 s2) and "
+        "1x5x7x128 -> 128 (H-s2d up4), with and without a bias")
+    for shape in ((1, 64, 7, 9), (3, 48, 11, 7), (1, 128, 5, 130)):
+        y = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+        for t in (y, y.contiguous(memory_format=torch.channels_last)):
+            same(K.stem_pool_i8(t, 0.01), K.stem_pool_i8_plain(t, 0.01))
+    log("K7 stem_pool_i8 == plain at 1x64x7x9, 3x48x11x7 and 1x128x5x130, "
+        "NCHW and channels-last")
     torch.cuda.synchronize()
 
 
@@ -477,7 +506,7 @@ def kernel_row(name, source, replaces, cases):
         ms, hus = device_ms(c["kernel"], reps=5)
         b2b = back_to_back_ms(c["kernel"], reps=5)
         pms, _ = device_ms(c["plain"], reps=2)
-        bms, by = bound(c["ops"], c["bytes"])
+        bms, by = bound(c["ops"], c["bytes"], c.get("peak", PEAK_OPS))
         lms = None if c["lib"] is None else device_ms(c["lib"], reps=5)[0]
         by_path[c["path"]] = by_path.get(c["path"], 0.0) + ms
         log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms device, "
@@ -527,6 +556,10 @@ KERNELS = {
                            "insarseg/models/resnet_int8.py:231"),
     "se_residual_i8": ("se_residual_i8", "block_i8.cu",
                        "insarseg/models/resnet_int8.py:262"),
+    "up_concat_i8": ("up_concat_i8", "up_i8.cu",
+                     "insarseg/models/unet_int8.py:345"),
+    "stem_pool_i8": ("stem_pool_i8", "stem_i8.cu",
+                     "insarseg/models/resnet_int8.py:278"),
 }
 
 
@@ -640,12 +673,44 @@ def kernel_cases(calls, path):
             "bytes": q.numel() * (2 + idn.element_size())
             + a["gate"].numel() * 4}
 
+    def up(a):  # K6; library: the bf16 ConvT alone (cuDNN)
+        y, w, bias, skip, s2d = a["y"], a["w"], a["bias"], a["skip"], \
+            a["s2d"]
+        b, h, wd, cin = y.shape
+        n = w.shape[1]
+        rt = 1 if s2d else 2
+        cout = n // (2 * rt)
+        yb = y.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        wl = w.reshape(cin, rt, 2, cout).permute(0, 3, 1, 2).contiguous()
+        return {
+            "shape": f"b{b} {h}x{wd} {cin}->{cout}x{2 * rt} "
+                     f"{'s2d' if s2d else 'k2s2'} + skip {skip.shape[-1]}",
+            "kernel": lambda: K.up_concat_i8(**a),
+            "plain": lambda: K.up_concat_i8_plain(**a),
+            "lib": lambda: F.conv_transpose2d(yb, wl, stride=(rt, 2)),
+            "ops": 2.0 * b * h * wd * n * cin, "peak": PEAK_BF16,
+            "bytes": 2 * y.numel() + 2 * w.numel() + 2 * cout
+            + 2 * skip.numel() + b * h * wd * n}
+
+    def stem(a):  # K7; library: the max-pool alone
+        y = a["y"]
+        b, c, h, w = y.shape
+        out = b * c * ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1)
+        return {
+            "shape": f"b{b} {c}x{h}x{w} "
+                     f"{'NCHW' if y.is_contiguous() else 'channels-last'}",
+            "kernel": lambda: K.stem_pool_i8(**a),
+            "plain": lambda: K.stem_pool_i8_plain(**a),
+            "lib": lambda: F.max_pool2d(y, 3, 2, 1),
+            "ops": 10.0 * out, "bytes": 2 * y.numel() + out}
+
     make = {"conv3x3_i8": lambda a: conv(K.conv3x3_i8, a),
             "conv_i8": lambda a: conv(K.conv_i8, a),
             "se_squeeze_i8": squeeze, "se_excite_i8": excite,
             "maxpool2x2_i8": pool, "maxpool_exit_s2d_i8": pool_exit,
             "sa_stats_i8": sa_stats, "sa_gate_i8": sa_gate,
-            "se_residual_i8": residual}
+            "se_residual_i8": residual, "up_concat_i8": up,
+            "stem_pool_i8": stem}
     return {n: [dict(make[n](a), path=path) for a in args]
             for n, args in calls.items()}
 
@@ -675,7 +740,7 @@ def random_state_dict(model, seed: int, conv_gain: float = 2.0):
             a = rng.uniform(0.8, 1.2, shape)
         elif k.endswith(".bias"):
             a = rng.normal(0, 0.1 if len(shape) == 1 else 0.01, shape)
-        elif k.startswith("up"):  # ConvTranspose2d (I, O, 2, 2)
+        elif k.split(".")[-2].startswith("up"):  # ConvT (I, O, 2, 2)
             a = rng.normal(0, np.sqrt(1.0 / shape[0]), shape)
         else:  # Conv2d (O, I, kh, kw) or Linear (O, I)
             fan_in = int(np.prod(shape[1:]))
@@ -706,6 +771,9 @@ def build_model(name: str, attention: str, seed: int = SEED):
         model = UNet(num_classes=2, base_features=BASE,
                      use_se=attention == "channel",
                      use_sa=attention == "spatial")
+        sd = random_state_dict(model, seed)
+    elif name == "unet-fast":  # level 1 = 128, the JAX package's default
+        model = build(name, attention, num_classes=2)
         sd = random_state_dict(model, seed)
     else:
         model = build(name, attention, num_classes=2)
@@ -785,19 +853,28 @@ def serve_and_check(engines, images, dev, corr_bar: float,
 # The main paths: (model, attention, name, int8 correlation bar, the
 # kernels launched per int8 forward)
 UNET_CA_STANDARD = {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
-                    "se_excite_i8": 9, "maxpool2x2_i8": 4}
+                    "se_excite_i8": 9, "maxpool2x2_i8": 4,
+                    "up_concat_i8": 4}
 PATHS = (
     ("unet", "channel", f"U-Net-CA base {BASE}", 0.98,
      {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9, "se_excite_i8": 9,
-      "maxpool2x2_i8": 3, "maxpool_exit_s2d_i8": 1}),
+      "maxpool2x2_i8": 3, "maxpool_exit_s2d_i8": 1, "up_concat_i8": 4}),
     ("unet", "spatial", f"U-Net-SA base {BASE}", 0.98,
      {"int8_conv3x3_epilogue": 18, "maxpool2x2_i8": 4, "sa_stats_i8": 4,
-      "sa_gate_i8": 4}),
+      "sa_gate_i8": 4, "up_concat_i8": 4}),
+    ("unet-fast", "channel", "U-Net-fast-CA level 1 128", 0.98,
+     dict(UNET_CA_STANDARD)),
     ("fcn", "channel", "FCN-ResNet50-CA", 0.97,
-     {"int8_conv_epilogue": 53, "se_residual_i8": 16, "se_squeeze_i8": 16}),
+     {"int8_conv_epilogue": 53, "se_residual_i8": 16, "se_squeeze_i8": 16,
+      "stem_pool_i8": 1}),
     ("deeplabv3", "none", "DeepLabV3-ResNet50", 0.97,
-     {"int8_conv_epilogue": 58, "se_squeeze_i8": 1}),
+     {"int8_conv_epilogue": 58, "se_squeeze_i8": 1, "stem_pool_i8": 1}),
 )
+# a U-Net int8 forward's profiler window holds none of these: K6 writes
+# the decoder's transposed convs and concats (cuDNN runs a transposed
+# conv as a data-gradient kernel, "dgrad")
+UNET_ABSENT = ("aten::cat", "CatArray", "conv_transpose",
+               "convolution_transpose", "dgrad")
 
 
 def run_path(engines, images, dev, corr_bar, want, label, power_line,
@@ -865,6 +942,39 @@ def host_copied_scalars():
             m.f32_scalar = f
 
 
+@contextlib.contextmanager
+def library_chain():
+    """The int8 forwards with K6 and K7 replaced by the chains of library
+    operations they replace (the U-Net up path of PRs 1-5: layout copies,
+    the cuDNN bf16 transposed conv, the bf16 bias add, the f32 requant and
+    ``torch.cat``; the ResNet stem exit's max-pool, copies and requant):
+    the other side of ``forward_turns``."""
+    import torch
+    import torch.nn.functional as F
+    from insarseg_torch import kernels as K
+    from insarseg_torch.models import resnet_int8, unet_int8
+    from insarseg_torch.ops.quant import requant
+
+    def up_chain(y, w, bias, skip, cat_s, s2d=False):
+        rt = 1 if s2d else 2
+        cin, n = w.shape
+        wt = w.reshape(cin, rt, 2, n // (2 * rt)).permute(0, 3, 1, 2)
+        z = F.conv_transpose2d(y.permute(0, 3, 1, 2).contiguous(), wt,
+                               stride=(rt, 2))
+        if bias is not None:
+            z = z + bias[None, :, None, None]
+        zq = requant(z.permute(0, 2, 3, 1).contiguous().float(), cat_s)
+        return torch.cat([skip, zq], dim=-1)
+
+    saved = unet_int8.up_concat_i8, resnet_int8.stem_pool_i8
+    unet_int8.up_concat_i8 = up_chain
+    resnet_int8.stem_pool_i8 = K.stem_pool_i8_plain
+    try:
+        yield
+    finally:
+        unet_int8.up_concat_i8, resnet_int8.stem_pool_i8 = saved
+
+
 def check_no_sync(predict, x, label) -> None:
     """One warm int8 forward on a CUDA input under
     ``torch.cuda.set_sync_debug_mode("error")``: any call that synchronises
@@ -902,7 +1012,7 @@ def profile_window(predict, x, reps: int = 3):
                    for e in prof.events()
                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
     if not spans:
-        return None, []
+        return None, [], set()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > cur_e:
@@ -917,23 +1027,30 @@ def profile_window(predict, x, reps: int = 3):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:10]
+    averages = prof.key_averages()
+    top = sorted(averages, key=dev_us, reverse=True)[:10]
     return 1.0 - busy / window, [(e.key, dev_us(e) / reps / 1e3)
-                                 for e in top if dev_us(e) > 0]
+                                 for e in top if dev_us(e) > 0], \
+        {e.key for e in averages}
 
 
-def forward_turns(predict, x, label, power_line, reps: int = 5):
-    """The int8 forward with its device scalars filled on the device and
-    copied from host memory (``host_copied_scalars``), in turns: filled,
-    copied, copied, filled; host clock over ``reps`` synchronised forwards
-    each, on a CUDA input. Then each one's idle share from
-    ``profile_window``."""
+def forward_turns(predict, x, label, power_line, reps: int = 5,
+                  absent=()):
+    """The int8 forward as it is ("filled": its device scalars filled on
+    the device), with the scalars copied from host memory
+    (``host_copied_scalars``) and with K6 / K7 replaced by the library
+    chains they replace (``library_chain``), in turns: filled, copied,
+    chain, chain, copied, filled; host clock over ``reps`` synchronised
+    forwards each, on a CUDA input. Then each one's idle share and top
+    operations from ``profile_window``; no operation or kernel of the
+    filled window may have a name that holds one of ``absent``."""
     import torch
 
-    ms = {"filled": [], "copied": []}
-    for mode in ("filled", "copied", "copied", "filled"):
-        with (host_copied_scalars() if mode == "copied"
-              else contextlib.nullcontext()):
+    modes = {"filled": contextlib.nullcontext, "copied": host_copied_scalars,
+             "chain": library_chain}
+    ms = {m: [] for m in modes}
+    for mode in ("filled", "copied", "chain", "chain", "copied", "filled"):
+        with modes[mode]():
             predict(x)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -942,30 +1059,49 @@ def forward_turns(predict, x, label, power_line, reps: int = 5):
             torch.cuda.synchronize()
             ms[mode].append((time.perf_counter() - t0) / reps * 1e3)
     idle = {}
-    for mode in ("filled", "copied"):
-        with (host_copied_scalars() if mode == "copied"
-              else contextlib.nullcontext()):
-            idle[mode], top = profile_window(predict, x)
-        if mode == "filled":
+    for mode in modes:
+        with modes[mode]():
+            idle[mode], top, keys = profile_window(predict, x)
+        if mode != "copied":
             for key, dms in top:
-                log(f"    profiler, device ms per forward: {dms:.4f} {key}")
+                log(f"    profiler ({mode}), device ms per forward: "
+                    f"{dms:.4f} {key}")
+        if mode == "filled":
+            found = sorted(k for k in keys for a in absent if a in k)
+            if found:
+                raise AssertionError(f"{label}: the int8 forward runs {found}")
+            if absent:
+                log(f"  {label}: the profiler window holds no "
+                    f"{' / '.join(absent)}")
     share = {m: "not measured" if v is None else f"{100 * v:.1f}%"
              for m, v in idle.items()}
     turns = {m: " / ".join(f"{v:.3f}" for v in ms[m]) for m in ms}
     log(f"  {label} int8 forward ms (host clock, b{x.shape[0]}, CUDA "
-        f"input): scalars filled on the device {turns['filled']}, copied "
-        f"from the host {turns['copied']} (turns 1 and 4, or 2 and 3); "
-        f"device idle share under the profiler {share['filled']} filled, "
-        f"{share['copied']} copied; on {power_line}")
+        f"input): as it is {turns['filled']}, scalars copied from the host "
+        f"{turns['copied']}, K6 / K7 replaced by the library chains "
+        f"{turns['chain']} (turns 1 and 6, 2 and 5, 3 and 4); device idle "
+        f"share under the profiler {share['filled']} / {share['copied']} / "
+        f"{share['chain']}; on {power_line}")
 
 
 def card_vs_cpu(dev, name, attention, model, calib, images):
     """The same int8 tree on the card and on the CPU (plain versions), at
-    64^2, b2 (U-Net: H-s2d, standard for SA, as ``make_engine`` packs it).
+    64^2, b2 (U-Net: H-s2d, standard for SA and the fast cell, as
+    ``make_engine`` packs it).
     The kernels are exact against their plain versions (phase 2); what
     differs is the bf16 float ops (cuDNN vs CPU)."""
     import functools
 
+    x_small = images[:2, :64, :64]
+    calib_small = [c[:1, :64, :64] for c in calib]
+    if name == "unet-fast":
+        from insarseg_torch.engines import engine_from_artifact, pack_engine
+
+        art = pack_engine(name, attention, model, None, "int8",
+                          calib_batches=calib_small, device=dev)
+        g = engine_from_artifact(art, device=dev)(x_small).float().cpu()
+        c = engine_from_artifact(art, device="cpu")(x_small).float()
+        return _card_vs_cpu_check(name, attention, g.numpy(), c.numpy())
     if name == "unet":
         from insarseg_torch.models.unet_int8 import (
             make_int8_predict_fn as make,
@@ -979,11 +1115,13 @@ def card_vs_cpu(dev, name, attention, model, calib, images):
             pack_resnet_int8 as pack,
             prepare_resnet_int8 as prepare,
         )
-    tree = pack(model.state_dict(), [c[:1, :64, :64] for c in calib],
-                device=dev)
-    x_small = images[:2, :64, :64]
+    tree = pack(model.state_dict(), calib_small, device=dev)
     g = make(prepare(tree, dev))(x_small).float().cpu().numpy()
     c = make(prepare(tree, "cpu"))(x_small).float().numpy()
+    _card_vs_cpu_check(name, attention, g, c)
+
+
+def _card_vs_cpu_check(name, attention, g, c) -> None:
     rel = float(np.abs(g - c).max() / np.abs(c).max())
     corr = float(np.corrcoef(g.ravel(), c.ravel())[0, 1])
     agree = float(np.mean(g.argmax(-1) == c.argmax(-1)))
@@ -1019,8 +1157,13 @@ def unet_standard_layout(dev, model, calib, images, s2d_predict,
     if per_forward != UNET_CA_STANDARD:
         raise AssertionError(f"standard layout: launches {per_forward} != "
                              f"{UNET_CA_STANDARD}")
-    check_no_sync(std, torch.from_numpy(images).to(dev),
-                  "U-Net-CA, standard layout")
+    x_dev = torch.from_numpy(images).to(dev)
+    check_no_sync(std, x_dev, "U-Net-CA, standard layout")
+    found = sorted(k for k in profile_window(std, x_dev)[2]
+                   for a in UNET_ABSENT if a in k)
+    if found:
+        raise AssertionError(f"standard layout: the int8 forward runs {found}")
+    del x_dev
     y_s2d = s2d_predict(images).float().cpu().numpy()
     corr = float(np.corrcoef(y_std.ravel(), y_s2d.ravel())[0, 1])
     log(f"  standard vs H-s2d int8 logits: correlation {corr:.5f}")
@@ -1070,7 +1213,8 @@ def run(dev, power_line: str, phase) -> list:
         phase(f"{label}: weights, packing, calibration")
 
         # 2b. the tensors each kernel gets in one int8 forward (512^2, b8)
-        module = unet_int8 if name == "unet" else resnet_int8
+        is_unet = name.startswith("unet")
+        module = unet_int8 if is_unet else resnet_int8
         wrappers = [KERNELS[k][0] for k in want]
         for n, c in kernel_cases(record_calls(
                 module, wrappers, engines["int8"], images), label).items():
@@ -1078,14 +1222,16 @@ def run(dev, power_line: str, phase) -> list:
         phase(f"{label}: recording the kernels' arguments")
 
         # 3b. the main path, counters from 0
-        with_scene = attention == "channel"  # U-Net-CA and FCN-CA
+        # U-Net-CA and FCN-CA
+        with_scene = attention == "channel" and name != "unet-fast"
         launches[label] = run_path(
             engines, images, dev, corr_bar, want, label, power_line,
             scene=scene if with_scene else None)
         phase(f"{label}: main path")
         x_dev = torch.from_numpy(images).to(dev)
         check_no_sync(engines["int8"], x_dev, label)
-        forward_turns(engines["int8"], x_dev, label, power_line)
+        forward_turns(engines["int8"], x_dev, label, power_line,
+                      absent=UNET_ABSENT if is_unet else ())
         del x_dev
         phase(f"{label}: int8 forward without syncs, in turns with them")
         card_vs_cpu(dev, name, attention, model, calib, images)

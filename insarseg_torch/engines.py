@@ -2,17 +2,19 @@
 
 - ``module`` — the ``nn.Module`` graph in eval mode;
 - ``serve``  — the BN-folded exact graph: UNet with deferred SE gates
-  (``models/unet_serve.py``), DeepLabV3 / FCN (``models/resnet_serve.py``);
+  (``models/unet_serve.py``; the fast cell's inner UNet, with the
+  space-to-depth stem at the rim, ``models/unet_stem.py``), DeepLabV3 /
+  FCN (``models/resnet_serve.py``);
 - ``int8``   — post-training quantization (needs calibration batches):
-  UNet through the hand-written kernels K1-K4 (``models/unet_int8.py``;
-  the H-space-to-depth layout for attention ``none`` and ``channel``, the
-  standard layout for ``spatial``, as the JAX package packs them),
-  DeepLabV3 / FCN through K5a, K5b and K2's squeeze
-  (``models/resnet_int8.py``).
+  UNet through the hand-written kernels K1-K4 and K6
+  (``models/unet_int8.py``; the H-space-to-depth layout for attention
+  ``none`` and ``channel``, the standard layout for ``spatial`` and for
+  the fast cell's inner UNet, as the JAX package packs them), DeepLabV3 /
+  FCN through K5a, K5b, K7 and K2's squeeze (``models/resnet_int8.py``).
 
-The port serves ``unet``, ``deeplabv3`` and ``fcn`` with attention
-``none``, ``channel`` or ``spatial``. Every ``predict`` takes and returns
-NHWC tensors and runs on the engine's device.
+The port serves ``unet``, ``unet-fast``, ``deeplabv3`` and ``fcn`` with
+attention ``none``, ``channel`` or ``spatial``. Every ``predict`` takes
+and returns NHWC tensors and runs on the engine's device.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
 RESNET_MODELS = ("deeplabv3", "fcn")
 ATTENTIONS = ("none", "channel", "spatial")
 _TODO = {
-    "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
     "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
     "mesh": "multi-GPU serving (ROADMAP Queue 1 item 16)",
 }
@@ -48,7 +49,7 @@ def _check_cell(model_name: str, attention: str, engine: str,
     if model_name not in KNOWN_MODELS:
         raise ValueError(f"unknown model {model_name!r}; known models: "
                          f"{KNOWN_MODELS}")
-    if model_name not in ("unet",) + RESNET_MODELS:
+    if model_name not in ("unet", "unet-fast") + RESNET_MODELS:
         raise _not_ported(model_name)
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
@@ -104,10 +105,12 @@ def make_engine(
             model.load_state_dict(state_dict, strict=True)
         return make_predict_fn(model, argmax=argmax, input_dtype=input_dtype,
                                device=dev)
+    meta = _meta(model_name, model)
     if engine == "serve":
         return _serve_predict(model_name,
-                              _pack(model_name, attention, sd, engine),
-                              dev, argmax, input_dtype)
+                              _pack(model_name, attention, sd, engine,
+                                    meta=meta),
+                              dev, argmax, input_dtype, meta)
     if not calib_batches:
         raise ValueError(
             "engine='int8' needs at least one calibration batch "
@@ -115,17 +118,35 @@ def make_engine(
             f"{'None' if calib_batches is None else 'empty'}); collect "
             "them with insarseg_torch.engines.collect_calib_batches")
     tree = _pack(model_name, attention, sd, engine, calib_batches,
-                 calib_stat, dev)
-    return _int8_predict(model_name, tree, dev, argmax)
+                 calib_stat, dev, meta)
+    return _int8_predict(model_name, tree, dev, argmax, meta)
+
+
+def _meta(model_name: str, model: torch.nn.Module) -> Dict[str, Any]:
+    """An artifact's ``meta``: the class count, and for the fast cell its
+    space-to-depth factor (the JAX package's keys)."""
+    nc = getattr(model, "num_classes", None)
+    meta: Dict[str, Any] = {}
+    if model_name == "unet-fast":
+        meta["factor"] = int(model.factor)
+    meta["num_classes"] = int(nc) if nc is not None else None
+    return meta
 
 
 def _pack(model_name: str, attention: str, sd: Mapping[str, torch.Tensor],
           engine: str, calib_batches: Optional[List[Any]] = None,
           calib_stat: str = "absmax",
-          device: Optional[torch.device] = None) -> Dict[str, Any]:
+          device: Optional[torch.device] = None,
+          meta: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
     """The packed tree of a serve or int8 engine (on the CPU, in the JAX
     package's format); int8 calibrates on ``device``. The U-Net int8 tree
-    is H-s2d except for the SA variant, as the JAX package packs it."""
+    is H-s2d except for the SA variant and the fast cell's inner UNet, as
+    the JAX package packs them."""
+    if model_name == "unet-fast":
+        from insarseg_torch.models.unet_stem import pack_fast
+
+        return pack_fast(sd, engine, meta["factor"], calib_batches,
+                         calib_stat, device)
     if model_name == "unet":
         if engine == "serve":
             from insarseg_torch.models.unet_serve import pack_unet_serve
@@ -147,9 +168,16 @@ def _pack(model_name: str, attention: str, sd: Mapping[str, torch.Tensor],
 
 def _serve_predict(model_name: str, tree: Mapping[str, Any],
                    dev: torch.device, argmax: bool,
-                   input_dtype: Optional[torch.dtype]):
+                   input_dtype: Optional[torch.dtype],
+                   meta: Mapping[str, Any]):
     from insarseg_torch.engines_io import to_torch_tree
 
+    if model_name == "unet-fast":
+        from insarseg_torch.models.unet_stem import make_fast_predict_fn
+
+        return make_fast_predict_fn(
+            to_torch_tree(tree, dev), "serve", int(meta["factor"]),
+            int(meta["num_classes"]), argmax=argmax, input_dtype=input_dtype)
     if model_name == "unet":
         from insarseg_torch.models.unet_serve import make_serve_predict_fn
     else:
@@ -161,7 +189,14 @@ def _serve_predict(model_name: str, tree: Mapping[str, Any],
 
 
 def _int8_predict(model_name: str, tree: Mapping[str, Any],
-                  dev: torch.device, argmax: bool):
+                  dev: torch.device, argmax: bool, meta: Mapping[str, Any]):
+    if model_name == "unet-fast":
+        from insarseg_torch.models.unet_int8 import prepare_int8
+        from insarseg_torch.models.unet_stem import make_fast_predict_fn
+
+        return make_fast_predict_fn(
+            prepare_int8(tree, dev), "int8", int(meta["factor"]),
+            int(meta["num_classes"]), argmax=argmax)
     if model_name == "unet":
         from insarseg_torch.models.unet_int8 import (
             make_int8_predict_fn,
@@ -197,14 +232,12 @@ def pack_engine(
     sd = model.state_dict() if state_dict is None else state_dict
     if engine == "int8" and not calib_batches:
         raise ValueError("engine='int8' needs calibration batches")
+    meta = _meta(model_name, model)
     tree = _pack(model_name, attention, sd, engine, calib_batches,
                  calib_stat,
-                 resolve_device(device) if engine == "int8" else None)
-    nc = getattr(model, "num_classes", None)
+                 resolve_device(device) if engine == "int8" else None, meta)
     return {"format": 1, "model": model_name, "attention": attention,
-            "engine": engine,
-            "meta": {"num_classes": int(nc) if nc is not None else None},
-            "tree": tree}
+            "engine": engine, "meta": meta, "tree": tree}
 
 
 def engine_from_artifact(
@@ -228,10 +261,11 @@ def engine_from_artifact(
             f" (known models: {KNOWN_MODELS})")
     _check_cell(model_name, artifact.get("attention", "none"), engine, mesh)
     dev = resolve_device(device)
+    meta = artifact.get("meta") or {}
     if engine == "serve":
         return _serve_predict(model_name, artifact["tree"], dev, argmax,
-                              input_dtype)
-    return _int8_predict(model_name, artifact["tree"], dev, argmax)
+                              input_dtype, meta)
+    return _int8_predict(model_name, artifact["tree"], dev, argmax, meta)
 
 
 def collect_calib_batches(loader, n: int, normalize_mean: float = 0.5,

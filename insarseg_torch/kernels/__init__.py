@@ -18,6 +18,12 @@ K5a   ``conv_i8``                  ``models/resnet_int8.py::_conv_i8`` and
                                    the residual add of ``_block_i8``
 K5b   ``se_residual_i8``           ``models/resnet_int8.py::_block_i8`` SE
                                    excite + residual + ReLU + requant
+K6    ``up_concat_i8``             ``models/unet_int8.py::unet_int8_apply``
+                                   up path: bf16 ConvT (k2 s2, or the H-s2d
+                                   up4) + bias + requant + concat
+K7    ``stem_pool_i8``             ``models/resnet_int8.py::
+                                   resnet_int8_apply`` stem exit: 3x3/s2
+                                   max-pool + requant to NHWC codes
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -57,6 +63,12 @@ from insarseg_torch.kernels.se_i8 import (
     se_squeeze_i8,
     se_squeeze_i8_plain,
 )
+from insarseg_torch.kernels.stem_i8 import stem_pool_i8, stem_pool_i8_plain
+from insarseg_torch.kernels.up_i8 import (
+    pack_up_weight,
+    up_concat_i8,
+    up_concat_i8_plain,
+)
 
 __all__ = [
     "LAUNCHES", "build_info", "load_library", "reset_launches",
@@ -66,5 +78,6 @@ __all__ = [
     "sa_gate_i8_plain", "sa_stats_i8", "sa_stats_i8_plain",
     "se_excite_i8", "se_excite_i8_plain", "se_residual_i8",
     "se_residual_i8_plain", "se_squeeze_i8", "se_squeeze_i8_plain",
-    "tile_n",
+    "stem_pool_i8", "stem_pool_i8_plain", "tile_n", "pack_up_weight",
+    "up_concat_i8", "up_concat_i8_plain",
 ]

@@ -32,7 +32,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
-           "block_i8.cu", "sa_i8.cu")
+           "block_i8.cu", "sa_i8.cu", "up_i8.cu", "stem_i8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -47,6 +47,8 @@ LAUNCHES: Dict[str, int] = {
     "sa_gate_i8": 0,
     "int8_conv_epilogue": 0,
     "se_residual_i8": 0,
+    "up_concat_i8": 0,
+    "stem_pool_i8": 0,
 }
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -64,6 +66,8 @@ _SIGNATURES = {
     + (_f, _f, _i, _i, _vp),
     "insarseg_se_residual_i8": (_vp, _vp, _vp, _vp, _ll, _ll, _i, _i, _f, _f,
                                 _vp),
+    "insarseg_up_concat_i8": (_vp,) * 5 + (_i,) * 7 + (_f, _vp),
+    "insarseg_stem_pool_i8": (_vp, _vp, _i, _i, _i, _i, _i, _f, _vp),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -10,15 +10,14 @@ from insarseg_torch.models.fcn import FCN
 from insarseg_torch.models.unet import UNet
 
 NOT_PORTED = {
-    "unet-fast": "the fast cell (ROADMAP Queue 1 item 13)",
     "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
 }
 
 
 def build(model: str, attention: str = "none", num_classes: int = 2,
           backbone: str = "resnet50", in_channels: int = 1) -> nn.Module:
-    """The port's module for ``model`` in {unet, deeplabv3, fcn} and
-    ``attention`` in {none, channel, spatial}."""
+    """The port's module for ``model`` in {unet, unet-fast, deeplabv3,
+    fcn} and ``attention`` in {none, channel, spatial}."""
     model, attention = model.lower().replace("_", "-"), attention.lower()
     if attention not in ("none", "channel", "spatial"):
         raise ValueError(f"unknown attention {attention!r}")
@@ -28,6 +27,13 @@ def build(model: str, attention: str = "none", num_classes: int = 2,
     if model == "unet":
         return UNet(num_classes=num_classes, use_se=attention == "channel",
                     use_sa=attention == "spatial", in_channels=in_channels)
+    if model == "unet-fast":
+        from insarseg_torch.models.unet_stem import UNetFastS2D
+
+        return UNetFastS2D(num_classes=num_classes,
+                           use_se=attention == "channel",
+                           use_sa=attention == "spatial",
+                           in_channels=in_channels)
     if model == "deeplabv3":
         return DeepLabV3(num_classes, attention, backbone, in_channels)
     if model == "fcn":

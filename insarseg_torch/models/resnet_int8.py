@@ -15,7 +15,8 @@ The graph is the JAX package's:
 - the ASPP image-pool branch is the mean of the codes (K2's sum) times
   their scale, an f32 1x1 conv, and a requant at the shared concat scale;
 - the 7x7 stem conv, the CBAM heads and the classifier stay bf16 torch ops
-  (the FCN-SA gate runs f32 on the dequantized backbone output);
+  (the FCN-SA gate runs f32 on the dequantized backbone output); the
+  stem's max-pool and the requant to NHWC codes are one pass (kernel K7);
 - activation scales come from an f32 replay of the folded graph on
   calibration batches.
 
@@ -39,6 +40,7 @@ from insarseg_torch.kernels import (
     repack_conv_weight,
     se_residual_i8,
     se_squeeze_i8,
+    stem_pool_i8,
 )
 from insarseg_torch.models.resnet_serve import (
     _attention_apply,
@@ -290,8 +292,7 @@ def resnet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
     (B, H, W, nc), or the int32 argmax map (B, H, W)."""
     input_size = x.shape[1:3]
     y = _ca(nhwc_to_nchw(x.to(torch.bfloat16)), packed["stem"], 2)
-    y = max_pool_2d(y, 3, 2, 1)
-    yq = requant(nchw_to_nhwc(y).to(torch.float32), packed["stem_out_s"])
+    yq = stem_pool_i8(y, packed["stem_out_s"])  # bf16 -> NHWC codes
     chain = block_chain(packed)
     for name in chain:
         yq = _block_i8(packed[name], yq)

@@ -11,12 +11,14 @@ DoubleConv), 1x1 head. With ``use_se`` the decoder bilinear-resizes the
 upsampled tensor to the skip's size before the concat when they differ
 (``shape_fix``, default on iff ``use_se``, as the reference CA script).
 With ``use_sa`` a ``SpatialAttentionDC`` named ``sa{i}`` gates each
-decoder concat before ``conv{i}``.
+decoder concat before ``conv{i}``. ``features_plan`` replaces the channel
+plan ``(f, 2f, 4f, 8f, 16f)`` of levels 1-5, as the JAX module's does (the
+fast cell's inner UNet, ``models/unet_stem.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,10 +30,14 @@ from insarseg_torch.ops.resize import resize_bilinear
 class UNet(nn.Module):
     def __init__(self, num_classes: int = 2, base_features: int = 64,
                  use_se: bool = False, shape_fix: Optional[bool] = None,
-                 in_channels: int = 1, use_sa: bool = False):
+                 in_channels: int = 1, use_sa: bool = False,
+                 features_plan: Optional[Sequence[int]] = None):
         super().__init__()
         f = base_features
-        plan = (f, 2 * f, 4 * f, 8 * f, 16 * f)
+        plan = (f, 2 * f, 4 * f, 8 * f, 16 * f) if features_plan is None \
+            else tuple(features_plan)
+        if len(plan) != 5:
+            raise ValueError(f"features_plan needs 5 levels, got {plan}")
         self.num_classes = num_classes
         self.use_se, self.use_sa = use_se, use_sa
         self.shape_fix = use_se if shape_fix is None else shape_fix

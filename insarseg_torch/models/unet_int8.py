@@ -23,13 +23,17 @@ The graph is the JAX package's:
   (K4a), runs its DoubleConv(2 -> 1) and sigmoid in torch f32 and rescales
   the codes in place (K4b): the gate is in (0, 1), so the concat's scale
   still bounds the gated tensor;
+- each decoder level's bf16 transposed conv (k2 s2, or the H-s2d up4),
+  its bf16 bias, the requant to the concat's scale and the concat with the
+  skip's codes are one launch (kernel K6) on the bf16 NHWC decoder tensor;
 - activation scales come from an f32 replay of the folded graph on
   calibration batches; each tensor gets one scale where it is consumed;
-- the SE MLPs, the transposed convs and the 1x1 head stay bf16 torch ops.
+- the SE MLPs and the 1x1 head stay bf16 torch ops.
 
 Packed trees have the JAX package's keys, so a tree packed by either
 package serves in the port (``prepare_int8`` places it on a device and
-repacks the codes into K1's layout).
+repacks the codes into K1's layout and the transposed-conv kernels into
+K6's).
 """
 
 from __future__ import annotations
@@ -46,11 +50,13 @@ from insarseg_torch.kernels import (
     conv3x3_i8,
     maxpool2x2_i8,
     maxpool_exit_s2d_i8,
+    pack_up_weight,
     repack_conv_weight,
     sa_gate_i8,
     sa_stats_i8,
     se_excite_i8,
     se_squeeze_i8,
+    up_concat_i8,
 )
 from insarseg_torch.models.unet_s2d import (
     _conv_transpose_k2s2,
@@ -66,7 +72,7 @@ from insarseg_torch.models.unet_s2d import (
     pack_unet_folded,
     pack_unet_s2d,
 )
-from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.ops.layers import max_pool_2d, nhwc_to_nchw
 from insarseg_torch.ops.quant import (
     absmax_to_scale,
     calib_stat_fn,
@@ -213,12 +219,19 @@ def prepare_int8(packed: Mapping[str, Any],
     """Place an int8 tree of either layout (packed here, or by the JAX
     package and read with ``insarseg_torch.engines_io``) on ``device`` as
     torch tensors, and add each conv's codes in K1's layout under ``"w"``
-    (done once, here)."""
+    and each transposed conv's kernel and bias in K6's bf16 layout under
+    ``"w"`` and ``"wb"`` (done once, here)."""
     tree = to_torch_tree(packed, torch.device(device))
     for name in _DC_IO:
         for tag in ("c1", "c2"):
             blk = tree[name][tag]
             blk["w"] = repack_conv_weight(blk["q"])
+    s2d = tree.get("s2d", True)
+    for i in range(1, 5):
+        up = tree[f"up{i}"]
+        up["w"] = pack_up_weight(up["k"], s2d and i == 4)
+        up["wb"] = None if up["bias"] is None \
+            else up["bias"].to(torch.bfloat16).contiguous()
     return tree
 
 
@@ -234,11 +247,14 @@ def _dc_i8(blk: Mapping, xq: torch.Tensor, s2d: bool = False) -> torch.Tensor:
     """One DoubleConv on int8 codes: s8 codes at the block's output scale,
     or bf16 when the block exits the int8 domain.
 
-    The SE squeeze follows the JAX order: the exact integer sum (K2) over
-    the pixel count, then (s2d) the mean of the two parity halves, then the
-    pre-SE scale. The integer sum is exact in the f32 it is divided in while
-    127 * H * W < 2^24 (at 512^2 tiles in s2d: 127 * 256 * 512 =
-    16,646,144 < 16,777,216; larger tiles break it)."""
+    The SE squeeze follows the JAX order: the sum (K2) over the pixel
+    count, then (s2d) the mean of the two parity halves, then the pre-SE
+    scale. K2's integer sum is exact and rounds once to f32; JAX's f32
+    ``mean`` rounds as it sums. The two agree while 127 * H * W < 2^24
+    (at 512^2 tiles in s2d: 127 * 256 * 512 = 16,646,144 < 16,777,216);
+    above it they differ by a few ulps, which moved no code in the test of
+    a 384^2 squeeze with sums past 2^24 (``tests/test_torch_kernels.py::
+    test_k2_squeeze_past_2_24_matches_dc_i8``)."""
     yq = _conv_i8(_conv_i8(xq, blk["c1"]), blk["c2"])
     if "fc1" not in blk:
         return yq
@@ -249,7 +265,8 @@ def _dc_i8(blk: Mapping, xq: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         pooled = 0.5 * (pooled[:, :c] + pooled[:, c:])
     sc = _se_scales(blk, pooled * blk["se_pre_s"])
     if s2d:
-        sc = torch.cat([sc, sc], dim=-1)
+        # the gate of both parity halves (``repeat`` would run aten::cat)
+        sc = sc[:, None].expand(-1, 2, -1).reshape(sc.shape[0], -1)
     if blk["se_out_s"] is None:  # excite + bf16 exit, one pass
         gain = (sc * blk["se_pre_s"]).to(torch.bfloat16)
     else:  # excite + requant, one pass
@@ -263,15 +280,6 @@ def _sa_gate_i8(pk: Mapping, catq: torch.Tensor, cat_s: float) -> torch.Tensor:
     m = nhwc_to_nchw(sa_stats_i8(catq, cat_s))
     g = _sa_sigmoid(pk, m)[:, 0].contiguous()  # (B, H, W)
     return sa_gate_i8(catq, g)
-
-
-def _up_requant(y: torch.Tensor, up: Mapping, s2d: bool = False
-                ) -> torch.Tensor:
-    """bf16 ConvT on NHWC (k2 s2, or the s2d up4), then int8 codes at the
-    concat's scale."""
-    up_fn = _up4_s2d if s2d else _conv_transpose_k2s2
-    z = up_fn(nhwc_to_nchw(y), up["k"], up["bias"])
-    return requant(nchw_to_nhwc(z).to(torch.float32), up["cat_s"])
 
 
 def unet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
@@ -291,11 +299,12 @@ def unet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
         skips[f"l{i + 1}"] = y
         if i < 4:
             y = maxpool2x2_i8(y)
-    # the bottom is bf16 (down4 exits the int8 domain for the decoder)
+    # the bottom is bf16 (down4 exits the int8 domain for the decoder); K6
+    # takes it NHWC and writes the int8 concat [skip, up] at the cat scale
     for i, skip in ((1, "l4"), (2, "l3"), (3, "l2"), (4, "l1")):
         up = packed[f"up{i}"]
-        zq = _up_requant(y, up, s2d and i == 4)
-        catq = torch.cat([skips[skip], zq], dim=-1)
+        catq = up_concat_i8(y, up["w"], up["wb"], skips[skip], up["cat_s"],
+                            s2d and i == 4)
         if f"sa{i}" in packed:
             catq = _sa_gate_i8(packed[f"sa{i}"], catq, up["cat_s"])
         y = _dc_i8(packed[f"conv{i}"], catq, s2d and i == 4)

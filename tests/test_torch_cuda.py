@@ -1,4 +1,4 @@
-"""The int8 kernels K1-K4, K5a and K5b on the card against their plain
+"""The int8 kernels K1-K7 on the card against their plain
 versions, at small and ragged shapes (partial channel chunks, tiles cut by
 the image border, output channels that are not a multiple of the kernel's
 tile, dilations larger than the map, odd widths, pixel counts that are not
@@ -9,8 +9,11 @@ between the 64 / 128 N tiles, Cin whose 16-padded width leaves a partial
 64-byte K chunk, the Cin 1 / 2 input conv, and the largest accumulator
 (Cin 2048, 3x3, every code +-127). K2's squeeze runs at C 16 / 2048 / 4096,
 B 1 / 8 / 9 and 512^2 codes all +127 or -128; K5b on quotients at the
-ties. Outputs must be exactly equal. A warm int8 forward of each engine
-family must not synchronise the stream.
+ties; K6 in both forms at Cin 1024 / 128 / 40, b1 and b8, odd pixel
+counts, codes at +-127 and quotients at the ties; K7 on NCHW and
+channels-last input, odd H and W, b1, partial channel groups. Outputs
+must be exactly equal. A warm int8 forward of each engine family must not
+synchronise the stream.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -131,6 +134,20 @@ def test_wrappers_reject_bad_input(dev):
         K.sa_gate_i8(torch.zeros((1, 4, 4, 32), dtype=torch.int8,
                                  device=dev),
                      torch.zeros((1, 4, 5), device=dev))  # gate shape
+    y = torch.zeros((1, 2, 2, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # Cout 8
+        K.up_concat_i8(y, torch.zeros((32, 32), dtype=torch.bfloat16,
+                                      device=dev), None,
+                       torch.zeros((1, 4, 4, 16), dtype=torch.int8,
+                                   device=dev), 0.5)
+    with pytest.raises(ValueError):  # the skip's pixels
+        K.up_concat_i8(y, torch.zeros((32, 64), dtype=torch.bfloat16,
+                                      device=dev), None,
+                       torch.zeros((1, 4, 2, 16), dtype=torch.int8,
+                                   device=dev), 0.5)
+    with pytest.raises(ValueError):  # C % 16
+        K.stem_pool_i8(torch.zeros((1, 24, 4, 4), dtype=torch.bfloat16,
+                                   device=dev), 0.5)
 
 
 def test_int8_engine_card_vs_cpu(dev):
@@ -151,7 +168,8 @@ def test_int8_engine_card_vs_cpu(dev):
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                 if K.LAUNCHES[k] != before[k]}
     assert launched == {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
-                        "se_excite_i8": 9, "maxpool2x2_i8": 4}
+                        "se_excite_i8": 9, "maxpool2x2_i8": 4,
+                        "up_concat_i8": 4}
     cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
     rel = float((gpu - cpu).abs().max() / cpu.abs().max())
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
@@ -181,10 +199,11 @@ def test_unet_int8_variants_card_vs_cpu(dev, variant):
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                 if K.LAUNCHES[k] != before[k]}
     assert launched == ({"int8_conv3x3_epilogue": 18, "maxpool2x2_i8": 4,
-                         "sa_stats_i8": 4, "sa_gate_i8": 4} if sa else
+                         "sa_stats_i8": 4, "sa_gate_i8": 4,
+                         "up_concat_i8": 4} if sa else
                         {"int8_conv3x3_epilogue": 18, "se_squeeze_i8": 9,
                          "se_excite_i8": 9, "maxpool2x2_i8": 3,
-                         "maxpool_exit_s2d_i8": 1})
+                         "maxpool_exit_s2d_i8": 1, "up_concat_i8": 4})
     cpu = make_int8_predict_fn(prepare_int8(tree, "cpu"))(x).float()
     rel = float((gpu - cpu).abs().max() / cpu.abs().max())
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
@@ -335,7 +354,8 @@ def _no_sync_forward(predict, x):
 
 
 @pytest.mark.parametrize("engine", ["unet-s2d", "unet-standard",
-                                    "fcn-channel", "deeplabv3-none"])
+                                    "fcn-channel", "deeplabv3-none",
+                                    "unet-fast"])
 def test_int8_forward_never_synchronises(dev, engine):
     """A warm int8 forward on a CUDA input under
     ``torch.cuda.set_sync_debug_mode("error")``: a call that synchronises
@@ -343,7 +363,15 @@ def test_int8_forward_never_synchronises(dev, engine):
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
         .astype(np.float32)
     torch.manual_seed(0)
-    if engine.startswith("unet"):
+    if engine == "unet-fast":
+        from insarseg_torch.engines import make_engine
+        from insarseg_torch.models.unet_stem import UNetFastS2D
+
+        model = UNetFastS2D(num_classes=2, level1_features=16,
+                            use_se=True).eval()
+        predict = make_engine("unet-fast", "channel", model, None, "int8",
+                              calib_batches=[x], device=dev)
+    elif engine.startswith("unet"):
         from insarseg_torch.models.unet import UNet
         from insarseg_torch.models.unet_int8 import (
             make_int8_predict_fn,
@@ -387,7 +415,7 @@ def test_resnet_int8_engine_card_vs_cpu(dev):
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                 if K.LAUNCHES[k] != before[k]}
     assert launched == {"int8_conv_epilogue": 53, "se_residual_i8": 16,
-                        "se_squeeze_i8": 16}
+                        "se_squeeze_i8": 16, "stem_pool_i8": 1}
     cpu = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, "cpu"))(x)
     gpu, cpu = gpu.float().cpu(), cpu.float()
     corr = float(np.corrcoef(gpu.numpy().ravel(), cpu.numpy().ravel())[0, 1])
@@ -479,3 +507,69 @@ def test_conv_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         K.conv3x3_i8(torch.zeros((1, 4, 4, 40), dtype=torch.int8,
                                  device=dev), wt, mult[:32], mult[:32], 0.5)
+
+
+UP_CASES = [  # (b, h, w, cin, cout, s2d): y (b, h, w, cin) bf16
+    (1, 4, 4, 1024, 512, False),   # up1's widths, b1
+    (8, 3, 5, 1024, 64, False),    # b8, 15 pixels an image (M = 120)
+    (2, 7, 9, 128, 64, False),     # Cin 128, 63 pixels an image
+    (1, 5, 7, 128, 128, True),     # the H-s2d up4, b1, 35 pixels
+    (8, 4, 6, 128, 128, True),     # the H-s2d up4, b8
+    (3, 9, 11, 40, 48, False),     # Cin 40 (a k-tile of 8), N = 192
+    (1, 33, 17, 256, 16, False),   # M = 561: a partial 128-row tile
+]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,s2d", UP_CASES)
+@pytest.mark.parametrize("cat_s", [0.015, 0.5])
+def test_k6_equals_plain(dev, b, h, w, cin, cout, s2d, cat_s):
+    """K6 against its plain version, bit for bit: both forms, with and
+    without a bias. cat_s 0.015 drives a share of the codes to +-127 (z is
+    about N(0, 1)); cat_s 0.5 with z about N(0, 20^2) puts a quarter of
+    the bf16 z on the half-integer ties of z / cat_s."""
+    gen = torch.Generator().manual_seed(b * h * w + cin + cout)
+    scale = 1.0 if cat_s < 0.1 else 20.0
+    y = (torch.randn((b, h, w, cin), generator=gen) * scale) \
+        .to(torch.bfloat16)
+    k = torch.randn((1 if s2d else 2, 2, cin, cout), generator=gen) \
+        / np.sqrt(cin)
+    wt = K.pack_up_weight(k, s2d).to(dev)
+    ho = h if s2d else 2 * h
+    skip = torch.randint(-127, 128, (b, ho, 2 * w, cout), generator=gen,
+                         dtype=torch.int8).to(dev)
+    bias = (torch.randn(cout, generator=gen) * 0.5).to(torch.bfloat16)
+    for bb in (bias.to(dev), None):
+        args = (y.to(dev), wt, bb, skip, cat_s, s2d)
+        before = K.LAUNCHES["up_concat_i8"]
+        got = K.up_concat_i8(*args)
+        assert K.LAUNCHES["up_concat_i8"] == before + 1
+        want = K.up_concat_i8_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (b, ho, 2 * w, 2 * cout)
+        assert torch.equal(got, want), (bb is None)
+        if cat_s < 0.1:
+            zq = want[..., cout:]
+            assert (zq == 127).any() and (zq == -127).any()
+
+
+@pytest.mark.parametrize("b,c,h,w", [(1, 64, 7, 9), (2, 16, 13, 1),
+                                     (1, 128, 5, 130), (3, 48, 11, 7),
+                                     (8, 64, 64, 64)])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_k7_equals_plain(dev, b, c, h, w, layout):
+    """K7 against requant(max_pool2d(3, 2, 1)) on NCHW and on channels-last
+    input (the stem conv's output on the card): odd H and W, b1 and b8,
+    channel groups of 64 with a partial one (C 48, 128), more output
+    columns than a block's 64 (W 130), codes driven to +-127."""
+    gen = torch.Generator().manual_seed(b * c * h + w)
+    y = torch.randn((b, c, h, w), generator=gen).to(torch.bfloat16).to(dev)
+    if layout == "channels_last":
+        y = y.contiguous(memory_format=torch.channels_last)
+    before = K.LAUNCHES["stem_pool_i8"]
+    got = K.stem_pool_i8(y, 0.01)
+    assert K.LAUNCHES["stem_pool_i8"] == before + 1
+    want = K.stem_pool_i8_plain(y, 0.01)
+    torch.cuda.synchronize()
+    assert got.shape == (b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c)
+    assert torch.equal(got, want)
+    assert (want == 127).any()

@@ -2,7 +2,11 @@
 engines_io.py) against the JAX package: the port serves artifacts the JAX
 package saved (serve, and int8 in the H-s2d default and the standard
 layout) and writes artifacts the JAX package serves (U-Net-SA:
-tests/test_torch_unet_sa.py)."""
+tests/test_torch_unet_sa.py; the fast cell: tests/test_torch_unet_stem.py).
+The H-s2d int8 artifact is held to the JAX package's op-by-op
+``unet_int8_apply`` (2e-2 x max|logit|, argmax >= 99.5%) and to its jitted
+engine, which rounds the fused bf16 ops elsewhere, at a bar pinned above
+the value measured (max rel err 0.0115, argmax agreement 1.0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,7 @@ from insarseg.engines import pack_engine as jax_pack_engine
 from insarseg.engines_io import load_artifact as jax_load
 from insarseg.engines_io import save_artifact as jax_save
 from insarseg.models.unet_int8 import pack_unet_int8 as jax_pack_int8
+from insarseg.models.unet_int8 import unet_int8_apply as jax_int8_apply
 from insarseg_torch.engines import (
     collect_calib_batches,
     engine_from_artifact,
@@ -63,17 +68,24 @@ def test_serves_jax_default_s2d_int8_artifact(tmp_path, pair, argmax):
                           calib_batches=[x])
     assert art["tree"]["s2d"] is True
     path = jax_save(str(tmp_path / "s2d"), art)
-    want = np.asarray(jax_from_artifact(jax_load(path), argmax=argmax)(
+    jitted = np.asarray(jax_from_artifact(jax_load(path), argmax=argmax)(
         jnp.asarray(x)))
     got = engine_from_artifact(load_artifact(path), argmax=argmax,
                                device=CPU)(x)
     if argmax:
         assert got.dtype == torch.int32
-        assert np.mean(got.numpy() == want) >= 0.995
+        assert np.mean(got.numpy() == jitted) >= 0.995
         return
-    got, want = got.float().numpy(), want.astype(np.float32)
-    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
-    assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.995
+    want = np.asarray(jax_int8_apply(jax_load(path)["tree"], jnp.asarray(x)),
+                      np.float32)
+    got, jitted = got.float().numpy(), jitted.astype(np.float32)
+    for what, ref, bar in (("op by op", want, 2e-2),
+                           ("jitted", jitted, 1.5e-2)):
+        rel = np.abs(got - ref).max() / np.abs(ref).max()
+        agree = np.mean(got.argmax(-1) == ref.argmax(-1))
+        print(f"U-Net-CA H-s2d int8, port vs JAX {what}: max rel err "
+              f"{rel:.4g}, argmax {agree:.5f}")
+        assert rel <= bar and agree >= 0.995, (what, rel, agree)
 
 
 def test_port_int8_engine_packs_s2d_like_jax(pair):
@@ -132,7 +144,7 @@ def test_bf16_artifact_leaves_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("model,attention,kw,err", [
-    ("unet-fast", "channel", {}, NotImplementedError),
+    ("unet-fast", "channel", {"mesh": object()}, NotImplementedError),
     ("deeplabv3", "none", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"engine": "int8"}, ValueError),

@@ -63,6 +63,7 @@ def test_entry_points_default_to_cuda():
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.models.unet_int8 import pack_unet_int8
     from insarseg_torch.models.unet_s2d import make_s2d_predict_fn
+    from insarseg_torch.models.unet_stem import UNetFastS2D
     from insarseg_torch.parallel.inference import make_predict_fn
 
     model = UNet(base_features=16, use_se=True)
@@ -73,6 +74,10 @@ def test_entry_points_default_to_cuda():
                     None, "serve")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_s2d_predict_fn(model.state_dict())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine("unet-fast", "channel", UNetFastS2D(level1_features=16,
+                                                        use_se=True),
+                    None, "serve")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_unet_int8(model.state_dict(),
                        [np.zeros((1, 32, 32, 1), np.float32)])
@@ -95,6 +100,8 @@ def test_kernel_wrappers_refuse_other_devices():
         sa_gate_i8,
         sa_stats_i8,
         se_residual_i8,
+        stem_pool_i8,
+        up_concat_i8,
     )
 
     q = torch.zeros((1, 2, 2, 16), dtype=torch.int8, device="meta")
@@ -108,6 +115,11 @@ def test_kernel_wrappers_refuse_other_devices():
         conv_i8(q, torch.zeros((16, 1, 1, 16), dtype=torch.int8), None, None)
     with pytest.raises(ValueError, match="unsupported device"):
         se_residual_i8(q, None, q, 1.0, 1.0)
+    y = torch.zeros((1, 16, 2, 2), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        stem_pool_i8(y, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        up_concat_i8(y, None, None, q, 1.0)
 
 
 def test_chip_smoke_fails_without_a_card():

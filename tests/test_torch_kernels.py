@@ -123,6 +123,31 @@ def test_k2_se_tail_matches_dc_i8(cin, se_out_s, s2d):
         assert_codes_equal(got.numpy(), want, f"K2 cin={cin} int8")
 
 
+@pytest.mark.parametrize("se_out_s", [0.2, None])
+def test_k2_squeeze_past_2_24_matches_dc_i8(se_out_s):
+    """An SE DoubleConv at 384^2 whose conv2 codes sit near +124, so each
+    channel's sum (about 18.3 M) passes 2^24: K2's exact integer sum,
+    rounded once to f32, against JAX's f32 ``mean`` (a few ulps apart),
+    through the MLP to the excite. Measured: 0 codes differ, both
+    exits."""
+    rng = np.random.default_rng(3)
+    blk = _dc_blk(rng, 16, 16, se_out_s)
+    blk["c2"]["mult"] *= np.float32(0.02)
+    blk["c2"]["off"] = np.full(16, 124 * 0.25, np.float32)
+    x = _codes(rng, (1, 384, 384, 16))
+    yq = J._conv_i8(J._conv_i8(jnp.asarray(x), blk["c1"]), blk["c2"])
+    sums = np.asarray(yq).astype(np.int64).sum(axis=(1, 2))
+    assert sums.min() > 2 ** 24
+    want = np.asarray(J._dc_i8(blk, jnp.asarray(x), s2d=False))
+    pb = {k: _port_blk(v) if k in ("c1", "c2") else v
+          for k, v in to_torch_tree(blk, CPU).items()}
+    got = T._dc_i8(pb, torch.from_numpy(x))
+    if se_out_s is None:
+        assert_codes_equal(_bf16_np(got), want, "SE past 2^24, bf16")
+    else:
+        assert_codes_equal(got.numpy(), want, "SE past 2^24, int8")
+
+
 def test_k2_squeeze_and_excite_plain():
     rng = np.random.default_rng(5)
     q = _codes(rng, (2, 16, 8, 32))

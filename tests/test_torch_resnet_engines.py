@@ -5,12 +5,13 @@ the CPU.
 
 Bars: serve within 1e-4 x max|logit|; int8 within 2e-2 x max|logit| with
 argmax agreement >= 99.5% of the JAX package's ``resnet_int8_apply`` run
-op by op on the artifact's tree. The JAX package's jitted int8 engine is
-held to argmax agreement >= 99% only: XLA fuses the bf16 head and the
-conv epilogues under ``jit`` and rounds at other places than its own op
-by op graph (2.4e-2 x max|logit| apart on FCN-CA at 32^2); the int8
-engine against the f32 engines is held to the JAX package's correlation
-bar, > 0.97 (``tests/test_resnet_int8.py``)."""
+op by op on the artifact's tree. The JAX package's jitted int8 engine
+(what ``insarseg.engines.engine_from_artifact`` serves) rounds at other
+places than its own op by op graph: XLA fuses the bf16 head and the conv
+epilogues under ``jit`` (2.4e-2 x max|logit| apart on FCN-CA at 32^2). The
+port is held to it too, at bars pinned from the values measured on these
+inputs (``JITTED``); the int8 engine against the f32 engines is held to
+the JAX package's correlation bar, > 0.97 (``tests/test_resnet_int8.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,12 @@ from insarseg_torch.engines_io import load_artifact, save_artifact
 from tests.test_torch_common import CPU, make_resnet_pair, smooth
 
 CELLS = [("deeplabv3", "none"), ("fcn", "channel")]
+# the port's int8 engine against the JAX package's jitted one on these
+# inputs: (max |delta| / max|logit|, argmax agreement) bars, pinned above
+# the values measured (DeepLabV3: 0.0147 on the JAX-saved tree and 0.0074
+# on the port-saved one, agreement 1.0 on both; FCN-CA: 0.0242 and 0.0047,
+# agreement 0.99756 and 1.0)
+JITTED = {"deeplabv3": (0.02, 0.995), "fcn": (0.03, 0.995)}
 
 
 @pytest.fixture(scope="module", params=CELLS,
@@ -60,14 +67,24 @@ def _check(got, want, engine):
         assert _argmax_agree(got, want) >= 0.995
 
 
-def _jax_serves(path, x, engine):
+def _jax_serves(path, x, engine, got):
     """The JAX package serves the artifact at ``path``: its jitted engine,
-    and (int8) its op-by-op apply, the reference for the bars."""
-    jitted = jax_from_artifact(jax_load(path))(jnp.asarray(x))
+    and (int8) its op-by-op apply, the reference for the bars. The port's
+    int8 output ``got`` is also held to the jitted engine at the pinned
+    ``JITTED`` bars."""
+    art = jax_load(path)
+    jitted = jax_from_artifact(art)(jnp.asarray(x))
     if engine == "serve":
         return jitted
-    want = jax_int8_apply(jax_load(path)["tree"], jnp.asarray(x))
+    want = jax_int8_apply(art["tree"], jnp.asarray(x))
     assert _argmax_agree(jitted, want) >= 0.99
+    got, jitted = _np32(got), _np32(jitted)
+    rel = np.abs(got - jitted).max() / np.abs(jitted).max()
+    agree = _argmax_agree(got, jitted)
+    print(f"{art['model']} int8, port vs the JAX jitted engine: max rel err "
+          f"{rel:.4g}, argmax {agree:.5f}")
+    bar_rel, bar_agree = JITTED[art["model"]]
+    assert rel <= bar_rel and agree >= bar_agree, (rel, agree)
     return want
 
 
@@ -78,7 +95,7 @@ def test_serves_jax_artifact(tmp_path, cell, engine):
                           calib_batches=calib if engine == "int8" else None)
     path = jax_save(str(tmp_path / engine), art)
     got = engine_from_artifact(load_artifact(path), device=CPU)(x)
-    _check(got, _jax_serves(path, x, engine), engine)
+    _check(got, _jax_serves(path, x, engine, got), engine)
 
 
 @pytest.mark.parametrize("engine", ["serve", "int8"])
@@ -92,7 +109,7 @@ def test_port_artifact_serves_in_jax(tmp_path, cell, engine):
                        calib_batches=calib, device=CPU)(x).float().numpy()
     back = engine_from_artifact(load_artifact(path), device=CPU)(x)
     np.testing.assert_array_equal(back.float().numpy(), ours)
-    _check(ours, _jax_serves(path, x, engine), engine)
+    _check(ours, _jax_serves(path, x, engine, ours), engine)
 
 
 def test_engines_agree_on_cpu(cell):

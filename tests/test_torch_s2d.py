@@ -4,7 +4,9 @@ transforms and packed trees bit for bit, the f32 s2d graph within
 1e-4 x max|logit| of JAX's and of the port module, the int8 tree's codes
 equal and scales within rtol 1e-5, and the int8 forward on a JAX-packed
 s2d tree within 2e-2 x max|logit| with argmax agreement >= 99.5% (the bf16
-transposed convs and head round at other places in the two frameworks)."""
+head rounds at other places in the two frameworks), and each decoder level
+(K6's plain version) on JAX's own decoder inputs: the bf16 transposed conv
+within one bf16 ulp and the concat codes equal up to a counted handful."""
 
 import functools
 
@@ -17,7 +19,12 @@ import torch
 from insarseg.models import unet_int8 as J
 from insarseg.models import unet_s2d as JS
 from insarseg.ops.quant import requant as jax_requant
-from insarseg_torch.kernels import maxpool_exit_s2d_i8
+from insarseg_torch.kernels import (
+    maxpool_exit_s2d_i8,
+    pack_up_weight,
+    up_concat_i8,
+)
+from insarseg_torch.kernels.up_i8 import up_bf16_plain
 from insarseg_torch.models import unet_int8 as T
 from insarseg_torch.models import unet_s2d as TS
 from insarseg_torch.models.unet import UNet
@@ -218,3 +225,81 @@ def test_int8_s2d_predict_checks_h(int8_setup):
     predict = T.make_int8_predict_fn(T.prepare_int8(numpy_tree(tree), CPU))
     with pytest.raises(ValueError, match="H divisible by 32"):
         predict(np.zeros((1, 48, 64, 1), np.float32))
+
+
+def _bf16_torch(a):
+    """A JAX bf16 array -> the same bits as a torch bf16 tensor."""
+    return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+
+
+def _jax_up_levels(tree, x):
+    """JAX's op-by-op int8 graph (``insarseg/models/unet_int8.py::
+    unet_int8_apply``) on ``tree``, level by level: for up1-4 its bf16
+    decoder input y, the skip codes, the bf16 transposed conv z (lines 347
+    and 355-356) and its codes zq (lines 348 and 357)."""
+    s2d = tree["s2d"]
+    xq = jax_requant(JS._h_s2d(x) if s2d else x, tree["in_s"])
+    x1 = J._dc_i8(tree["inc"], xq, s2d=s2d)
+    y = JS._maxpool_exit_s2d(x1) if s2d else J._maxpool_i8(x1)
+    skips = {"l1": x1}
+    for i in range(1, 5):
+        y = J._dc_i8(tree[f"down{i}"], y, s2d=False)
+        skips[f"l{i + 1}"] = y
+        if i < 4:
+            y = J._maxpool_i8(y)
+    levels = []
+    for i, skip in ((1, "l4"), (2, "l3"), (3, "l2"), (4, "l1")):
+        up = tree[f"up{i}"]
+        conv_t = JS._up4_s2d if s2d and i == 4 else JS._conv_transpose_k2s2
+        z = conv_t(y, up["k"], up["bias"])
+        zq = jax_requant(z.astype(jnp.float32), up["cat_s"])
+        levels.append((y, skips[skip], z, zq))
+        if i < 4:
+            y = J._dc_i8(tree[f"conv{i}"],
+                         jnp.concatenate([skips[skip], zq], -1), s2d=False)
+    return levels
+
+
+@pytest.fixture(scope="module")
+def up_levels(int8_setup):
+    """JAX's decoder levels on the H-s2d tree and on a standard-layout tree
+    of the same weights and calibration batches."""
+    v, _, calib, tree = int8_setup
+    std = J.pack_unet_int8(v, [jnp.asarray(c) for c in calib], s2d=False)
+    x = jnp.asarray(smooth(np.random.default_rng(48), (4, HW, HW, 1)))
+    return {"s2d": (numpy_tree(tree), _jax_up_levels(tree, x)),
+            "standard": (numpy_tree(std), _jax_up_levels(std, x))}
+
+
+@pytest.mark.parametrize("layout,level", [("s2d", 1), ("s2d", 2),
+                                          ("s2d", 3), ("s2d", 4),
+                                          ("standard", 4)])
+def test_k6_plain_matches_jax_up_level(up_levels, layout, level):
+    """K6's plain version on JAX's decoder input y of one level against
+    JAX's lines 347-348 (up1-3) / 355-357 (up4, H-s2d or standard): the
+    bf16 z within one bf16 ulp (the f32 sums run in other orders), the
+    codes equal up to a counted handful of |delta| = 1, the skip's codes
+    copied in front. Measured here: 0 differing z and 0 differing codes
+    at every level."""
+    tree, levels = up_levels[layout]
+    y, skip, z, zq = levels[level - 1]
+    up = tree[f"up{level}"]
+    s2d = layout == "s2d" and level == 4
+    w = pack_up_weight(torch.from_numpy(np.array(up["k"])), s2d)
+    bias = None if up["bias"] is None else \
+        torch.from_numpy(np.array(up["bias"])).to(torch.bfloat16)
+    yt, skip = _bf16_torch(y), np.array(skip)
+    got = up_concat_i8(yt, w, bias, torch.from_numpy(skip), up["cat_s"],
+                       s2d).numpy()
+    cs = skip.shape[-1]
+    assert got.shape == skip.shape[:3] + (cs + np.asarray(zq).shape[-1],)
+    np.testing.assert_array_equal(got[..., :cs], skip)
+    zt = up_bf16_plain(yt, w, bias, s2d).float().numpy()
+    zj = np.asarray(z).astype(np.float32)
+    ulp = np.maximum(np.spacing(np.abs(zj)) * 2.0 ** 16,
+                     np.float32(2.0 ** -133))  # bf16: 16 fewer bits
+    print(f"K6 {layout} up{level}: {np.count_nonzero(zt != zj)} of "
+          f"{zj.size} bf16 z differ")
+    assert np.all(np.abs(zt - zj) <= ulp)
+    assert_codes_equal(got[..., cs:], np.asarray(zq), f"K6 {layout} "
+                       f"up{level} codes")
