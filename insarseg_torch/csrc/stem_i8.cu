@@ -24,17 +24,21 @@
 // the max of nine 16-byte loads (neighbouring threads read neighbouring
 // channels; the window overlap hits L1 / L2) and stores 8 codes.
 //
-// NCHW input: the transpose goes through shared memory. A block takes
-// one output row of 64 output columns and up to 64 channels of one image.
-// Phase 1:
-// each thread takes one output column and a quarter of the channels, and
-// reads the nine window values of each channel along the NCHW rows (a
-// warp's 32 columns read one 128-byte span of each input row; the
-// overlapping windows hit L1, and the next output row's block finds the
-// shared input row in L2); the codes go to a shared tile [column][channel]
-// (rows padded to 68 bytes: a warp's byte stores land in 32 banks). Phase
-// 2: the tile leaves as 16-byte NHWC vectors, 64 contiguous channels of a
-// column.
+// NCHW input (the main path): a block takes 64 channels of one image, 4
+// output rows and 128 output columns (256 input columns). Phase 1: warp w
+// takes channels w, w + 8, ...; for each, lane l reads input columns
+// 8 l .. 8 l + 7 of each of the 9 input rows the 4 output rows need as one
+// 16-byte vector (a warp reads 512 contiguous bytes of a row; all 9 loads
+// are in flight at once), gets column 8 l - 1 from lane l - 1 with a
+// shuffle (lane 0 reads it, or -inf at the image's edge), takes the
+// horizontal max of its 4 output columns in each row and the vertical max
+// of 3 rows in registers: each input row is read once, and the one row two
+// blocks share (1 in 9) is read again while the other block holds it in
+// L2. W not a multiple of 8 (rows not 16-byte aligned) takes 9 scalar
+// loads a row instead, the same arithmetic. The codes go to a shared tile
+// [row][column][channel] (columns in lane-major order and rows of 68
+// bytes: a warp's byte stores land in 32 banks). Phase 2: the tile leaves
+// as 16-byte NHWC vectors, 64 contiguous channels of a pixel.
 //
 // Layouts: y (B, C, H, W) bf16, NCHW or channels-last, 16-byte aligned;
 // out (B, Ho, Wo, C) int8 with Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
@@ -48,7 +52,9 @@
 
 namespace {
 
-constexpr int THREADS = 256, TW = 64, TC = 64, ROW = TC + 4;
+// NCHW kernel: output columns, output rows and channels a block; a
+// staged column of channels, bytes
+constexpr int THREADS = 256, TW = 128, R = 4, TC = 64, ROW = TC + 4;
 
 __device__ __forceinline__ float bf_lo(uint32_t u) {
   return __uint_as_float(u << 16);
@@ -103,48 +109,102 @@ __global__ void __launch_bounds__(THREADS) stem_pool_nhwc_i8_kernel(
   *reinterpret_cast<uint2*>(out + i * 8) = make_uint2(w[0], w[1]);
 }
 
+// NCHW y: block (column span, output row band, image x channel group)
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS) stem_pool_i8_kernel(
     const __nv_bfloat16* __restrict__ y, int8_t* __restrict__ out, int C,
     int H, int W, int Ho, int Wo, int cgroups, float s) {
-  __shared__ __align__(16) int8_t tile[TW * ROW];
-  const int tid = threadIdx.x;
-  const int ow0 = blockIdx.x * TW, oh = blockIdx.y;
+  __shared__ __align__(16) int8_t tile[R * TW * ROW];
+  constexpr int NR = 2 * R + 1;  // input rows of R output rows
+  const float NEG = __uint_as_float(0xff800000u);  // -inf, the padding
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ow0 = blockIdx.x * TW, oh0 = blockIdx.y * R;
   const int b = blockIdx.z / cgroups, c0 = (blockIdx.z % cgroups) * TC;
   const int nc = min(TC, C - c0);
   const float r = __frcp_rn(s);
   const float lim = __fmul_rn(127.0f, s);
+  const int x0 = 2 * ow0 + lane * 8;  // the lane's first input column
 
-  const int ol = tid & (TW - 1), ow = ow0 + ol;
-  if (ow < Wo) {
-    const int h0 = 2 * oh - 1, w0 = 2 * ow - 1;
-    for (int cl = tid >> 6; cl < nc; cl += THREADS / TW) {
-      const __nv_bfloat16* p = y + ((size_t)b * C + c0 + cl) * H * W;
-      float m = __uint_as_float(0xff800000u);  // -inf
+  for (int cl = warp; cl < nc; cl += THREADS / 32) {  // warp-uniform
+    const __nv_bfloat16* p = y + ((size_t)b * C + c0 + cl) * H * W;
+    // hm[k][i]: the max of input row 2 oh0 - 1 + k over the window of
+    // the lane's output column i, columns x0 + 2i - 1 .. x0 + 2i + 1
+    float hm[NR][4];
+    if (VEC) {
+      uint4 u[NR];
 #pragma unroll
-      for (int dr = 0; dr < 3; ++dr) {
-        const int hh = h0 + dr;
-        if (hh < 0 || hh >= H) continue;
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          const int ww = w0 + dc;
-          if (ww >= 0 && ww < W)
-            m = fmaxf(m, __bfloat162float(p[(size_t)hh * W + ww]));
-        }
+      for (int k = 0; k < NR; ++k) {
+        const int ih = 2 * oh0 - 1 + k;
+        u[k] = (ih >= 0 && ih < H && x0 < W)
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                         p + (size_t)ih * W + x0))
+                   : make_uint4(0xff80ff80u, 0xff80ff80u, 0xff80ff80u,
+                                0xff80ff80u);  // bf16 -inf
       }
-      m = fminf(fmaxf(m, -lim), lim);
-      tile[ol * ROW + cl] = requant(m, s, r);
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int ih = 2 * oh0 - 1 + k;
+        float v[9];  // columns x0 - 1 .. x0 + 7
+        v[0] = bf_hi(__shfl_up_sync(0xffffffffu, u[k].w, 1));
+        if (lane == 0)
+          v[0] = (x0 > 0 && ih >= 0 && ih < H)
+                     ? __bfloat162float(p[(size_t)ih * W + x0 - 1])
+                     : NEG;
+        const uint32_t w4[4] = {u[k].x, u[k].y, u[k].z, u[k].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[1 + 2 * q] = bf_lo(w4[q]);
+          v[2 + 2 * q] = bf_hi(w4[q]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          hm[k][i] = fmaxf(fmaxf(v[2 * i], v[2 * i + 1]), v[2 * i + 2]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        const int ih = 2 * oh0 - 1 + k;
+        float v[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) {
+          const int x = x0 - 1 + j;
+          v[j] = (ih >= 0 && ih < H && x >= 0 && x < W)
+                     ? __bfloat162float(p[(size_t)ih * W + x])
+                     : NEG;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          hm[k][i] = fmaxf(fmaxf(v[2 * i], v[2 * i + 1]), v[2 * i + 2]);
+      }
     }
+    // output row q takes input rows 2q .. 2q + 2 of the band
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float m = fmaxf(fmaxf(hm[2 * q][i], hm[2 * q + 1][i]),
+                        hm[2 * q + 2][i]);
+        m = fminf(fmaxf(m, -lim), lim);
+        tile[(q * TW + i * 32 + lane) * ROW + cl] = requant(m, s, r);
+      }
   }
   __syncthreads();
 
-  // 64 columns x 4 vectors of 16 channels: one 16-byte store a thread
-  const int col = tid >> 2, v = tid & 3, owc = ow0 + col;
-  if (owc < Wo && v * 16 < nc) {
-    const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(tile + col * ROW + v * 16);
-    *reinterpret_cast<uint4*>(
-        out + (((size_t)b * Ho + oh) * Wo + owc) * C + c0 + v * 16) =
-        make_uint4(src[0], src[1], src[2], src[3]);
+  // R rows x TW columns x 4 vectors of 16 channels, 16 bytes a store; the
+  // tile holds output column 4 l + i at column i * 32 + l
+#pragma unroll
+  for (int it = 0; it < R * TW * (TC / 16) / THREADS; ++it) {
+    const int idx = tid + it * THREADS;
+    const int vq = idx & 3, rc = idx >> 2;
+    const int q = rc / TW, ol = rc % TW;
+    const int oh = oh0 + q, ow = ow0 + ol;
+    if (oh < Ho && ow < Wo && vq * 16 < nc) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          tile + (q * TW + (ol & 3) * 32 + (ol >> 2)) * ROW + vq * 16);
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)b * Ho + oh) * Wo + ow) * C + c0 + vq * 16) =
+          make_uint4(src[0], src[1], src[2], src[3]);
+    }
   }
 }
 
@@ -167,13 +227,18 @@ extern "C" int insarseg_stem_pool_i8(const void* y, void* out, int B, int C,
     return (int)cudaGetLastError();
   }
   const int cgroups = (C + TC - 1) / TC;
-  if (Ho > 65535 || (long long)B * cgroups > 65535)
+  if ((Ho + R - 1) / R > 65535 || (long long)B * cgroups > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Wo + TW - 1) / TW), (unsigned)Ho,
+  const dim3 grid((unsigned)((Wo + TW - 1) / TW), (unsigned)((Ho + R - 1) / R),
                   (unsigned)(B * cgroups));
-  stem_pool_i8_kernel<<<grid, THREADS, 0,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<int8_t*>(out), C, H,
-      W, Ho, Wo, cgroups, s);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* yb = static_cast<const __nv_bfloat16*>(y);
+  int8_t* o = static_cast<int8_t*>(out);
+  if (W % 8 == 0)  // rows 16-byte aligned
+    stem_pool_i8_kernel<true><<<grid, THREADS, 0, st>>>(yb, o, C, H, W, Ho,
+                                                        Wo, cgroups, s);
+  else
+    stem_pool_i8_kernel<false><<<grid, THREADS, 0, st>>>(yb, o, C, H, W, Ho,
+                                                         Wo, cgroups, s);
   return (int)cudaGetLastError();
 }

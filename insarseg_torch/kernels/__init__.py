@@ -27,7 +27,10 @@ K7    ``stem_pool_i8``             ``models/resnet_int8.py::
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
-launches its kernel (building the library at first use) or raises.
+launches its kernel (building the library at first use) or raises. Every
+kernel but K6 equals its plain version bit for bit; K6 sums on the tensor
+cores and is held to its plain version by a counted bar on its codes
+(``assert_up_codes_close``).
 """
 
 from insarseg_torch.kernels._lib import (
@@ -65,6 +68,10 @@ from insarseg_torch.kernels.se_i8 import (
 )
 from insarseg_torch.kernels.stem_i8 import stem_pool_i8, stem_pool_i8_plain
 from insarseg_torch.kernels.up_i8 import (
+    UP_SHARE_MAIN,
+    UP_SHARE_RANDOM,
+    UP_SHARE_TIES,
+    assert_up_codes_close,
     pack_up_weight,
     up_concat_i8,
     up_concat_i8_plain,
@@ -79,5 +86,6 @@ __all__ = [
     "se_excite_i8", "se_excite_i8_plain", "se_residual_i8",
     "se_residual_i8_plain", "se_squeeze_i8", "se_squeeze_i8_plain",
     "stem_pool_i8", "stem_pool_i8_plain", "tile_n", "pack_up_weight",
-    "up_concat_i8", "up_concat_i8_plain",
+    "up_concat_i8", "up_concat_i8_plain", "assert_up_codes_close",
+    "UP_SHARE_MAIN", "UP_SHARE_RANDOM", "UP_SHARE_TIES",
 ]

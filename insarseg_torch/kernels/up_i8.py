@@ -6,18 +6,24 @@ Replaces ``insarseg/models/unet_int8.py::unet_int8_apply`` lines 345-350
 (up1-3) and 355-358 (up4; in the H-s2d layout ``models/unet_s2d.py::
 _up4_s2d``). Kernel: ``insarseg_torch/csrc/up_i8.cu``.
 
-Two forms, one weight layout ``w`` (Cin, taps * Cout) bf16 with column
-``t * Cout + c`` (:func:`pack_up_weight`):
+Two forms, one weight layout ``w`` (taps * Cout, Cin) bf16 with row
+``t * Cout + c`` (:func:`pack_up_weight`), K-major as the kernel's
+tensor-core GEMM reads it:
 
 - ConvT k2 s2 (``s2d=False``): tap ``t = 2a + e`` of input pixel (i, j)
   is output pixel (2i + a, 2j + e), ``z = y[i, j] @ k[a, e]``;
 - the H-s2d up4 (``s2d=True``): a W-only transposed conv, tap ``e`` is
   output pixel (i, 2j + e), ``z = y[i, j] @ k[0, 1 - e]``.
+
+The kernel sums on the tensor cores in their own order, the plain version
+in ascending k in f32, so the two may differ by a code of one where the
+f32 sums straddle a bf16 rounding boundary or a tie of the requant:
+:func:`assert_up_codes_close` is the counted bar that holds them together.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,13 +39,13 @@ from insarseg_torch.ops.quant import requant
 def pack_up_weight(k: torch.Tensor, s2d: bool = False) -> torch.Tensor:
     """A packed transposed-conv kernel (kh, kw, Cin, Cout) in the JAX
     package's layout — (2, 2, Cin, Cout), or (1, 2, Cin, 2f) for the H-s2d
-    up4 — -> K6's (Cin, taps * Cout) bf16, rounded as the JAX graph's
+    up4 — -> K6's (taps * Cout, Cin) bf16, row ``t * Cout + c`` with tap
+    ``t = 2a + e`` of kernel position (a, e), rounded as the JAX graph's
     ``k.astype(bfloat16)``."""
     if s2d:
         k = k.flip(1)  # tap e takes k[0, 1 - e]
-    cin, cout = k.shape[2], k.shape[3]
-    return k.permute(2, 0, 1, 3).reshape(cin, -1).to(torch.bfloat16) \
-        .contiguous()
+    return k.permute(0, 1, 3, 2).reshape(-1, k.shape[2]) \
+        .to(torch.bfloat16).contiguous()
 
 
 def up_bf16_plain(y: torch.Tensor, w: torch.Tensor,
@@ -51,9 +57,9 @@ def up_bf16_plain(y: torch.Tensor, w: torch.Tensor,
     (B, Ho, Wo, Cout) bf16."""
     b, h, wd, cin = y.shape
     rt = 1 if s2d else 2
-    n = w.shape[1]
+    n = w.shape[0]
     y2 = y.reshape(-1, cin).to(torch.float32)
-    w2 = w.to(torch.float32)
+    w2 = w.t().to(torch.float32).contiguous()  # (Cin, N)
     acc = torch.zeros((y2.shape[0], n), dtype=torch.float32, device=y.device)
     for k in range(cin):
         acc.addcmul_(y2[:, k:k + 1], w2[k:k + 1])
@@ -74,13 +80,47 @@ def up_concat_i8_plain(y: torch.Tensor, w: torch.Tensor,
     return torch.cat([skip, requant(z.to(torch.float32), cat_s)], dim=-1)
 
 
+# K6's counted bar: the share of the ConvT's codes that may differ by one
+# from the plain version. Measured on an H100 (PERF.md §6) and rounded up:
+# at most 7.4e-6 a call on the activations of the U-Net main paths' int8
+# forwards, 6.5e-5 on z about N(0, 1) at cat_s 0.015, 3.0e-5 on the
+# tie-heavy case, z about N(0, 20^2) at cat_s 0.5 (a quarter of the bf16
+# z on a tie of z / cat_s).
+UP_SHARE_MAIN, UP_SHARE_RANDOM, UP_SHARE_TIES = 5e-5, 2e-4, 1e-4
+
+
+def assert_up_codes_close(got: torch.Tensor, want: torch.Tensor, cs: int,
+                          max_share: float) -> Tuple[int, float]:
+    """K6's counted bar: ``got`` and ``want`` (B, Ho, Wo, Cs + Cout) int8
+    agree exactly on the skip's ``cs`` channels, and on the ConvT's codes
+    every code lies within 1 and at most ``max_share`` of them differ.
+    Returns (max |delta|, share of the ConvT's codes that differ); raises
+    AssertionError otherwise."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got[..., :cs], want[..., :cs]):
+        raise AssertionError("the skip's codes differ")
+    d = (got[..., cs:].to(torch.int16) - want[..., cs:].to(torch.int16)) \
+        .abs()
+    n = d.numel()
+    dmax = int(d.max()) if n else 0
+    share = float((d != 0).sum()) / n if n else 0.0
+    if dmax > 1:
+        raise AssertionError(f"a code differs by {dmax} (bar: 1)")
+    if share > max_share:
+        raise AssertionError(f"{share:.3g} of the codes differ (bar: "
+                             f"{max_share:.3g})")
+    return dmax, share
+
+
 def up_concat_i8(y: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor], skip: torch.Tensor,
                  cat_s: float, s2d: bool = False) -> torch.Tensor:
     """``concat([skip, clip(rint(bf16(bf16(ConvT(y, w)) + bias) / cat_s),
     ±127)], -1)``.
 
-    y (B, H, W, Cin) bf16 NHWC; w (Cin, taps * Cout) bf16 from
+    y (B, H, W, Cin) bf16 NHWC; w (taps * Cout, Cin) bf16 from
     :func:`pack_up_weight`; bias (Cout,) bf16 or None; skip (B, Ho, Wo, Cs)
     int8 at ``cat_s`` with Ho = 2H (or H with ``s2d``) and Wo = 2W.
     Returns (B, Ho, Wo, Cs + Cout) int8 codes. CPU tensors take the plain
@@ -91,7 +131,7 @@ def up_concat_i8(y: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"up_concat_i8: unsupported device {y.device}")
     b, h, wd, cin = y.shape
     rt = 1 if s2d else 2
-    n = w.shape[1]
+    n = w.shape[0]
     cout, cs = n // (2 * rt), skip.shape[-1]
     if cin % 8 or cout % 16 or cs % 16 or n != 2 * rt * cout:
         raise ValueError(f"up_concat_i8 takes Cin % 8 == 0 and Cout, Cs % 16 "
@@ -103,7 +143,7 @@ def up_concat_i8(y: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         check_cuda("bias", bias, torch.bfloat16, dev)
     shape = (b, rt * h, 2 * wd)
-    if tuple(w.shape) != (cin, n) or tuple(skip.shape[:3]) != shape or (
+    if tuple(w.shape) != (n, cin) or tuple(skip.shape[:3]) != shape or (
             bias is not None and tuple(bias.shape) != (cout,)):
         raise ValueError(f"up_concat_i8: w {tuple(w.shape)}, skip "
                          f"{tuple(skip.shape)}, bias "

@@ -2,7 +2,8 @@
 """A/B of versions of the int8 convolution kernel K5a on one NVIDIA GPU.
 
 Each argument names a directory holding a version of ``conv_i8.cu`` and the
-``igemm_i8.cuh`` it includes (``insarseg_torch/csrc`` is the current one).
+headers it includes (``igemm_i8.cuh`` and, in the current one,
+``gmma_sm90.cuh``; ``insarseg_torch/csrc`` is the current one).
 The script compiles each into its own library with the port's nvcc flags,
 then, at the shapes the main paths give the kernel (512^2 tiles, batch 8)
 and two ragged ones, checks each version's output against the plain
