@@ -36,11 +36,13 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    PyTorch reference call where one exists (device alone), and computing each
    call's bound (a kernel's row sums its calls over the main paths that launch
    it);
-3. drives five main paths at full width with seeded random weights, each
+3. drives six main paths at full width with seeded random weights, each
    with the launch counters set to 0 just before and read just after:
    U-Net-CA and U-Net-SA (base 64), the fast cell U-Net-fast-CA (level 1
    128, its int8 engine the standard-layout graph on the space-to-depth
-   input), FCN-ResNet50-CA and DeepLabV3-ResNet50, 1 -> 2 classes, through
+   input), FCN-ResNet50-CA, DeepLabV3-ResNet50 and the true
+   PSPNet-ResNet50-CA (its int8 backbone on K5a / K5b / K2's squeeze / K7,
+   its pyramid-pooling head bf16), 1 -> 2 classes, through
    ``make_engine`` 'module'
    (f32), 'serve' (f32 and bf16 input) and 'int8' (calibrated on two seeded
    512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
@@ -54,11 +56,13 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    operations in a short ``torch.profiler`` window of each (a U-Net window
    may hold no transposed conv and no concat: K6 does both), and for a
    U-Net the int8 forward's argmax against the same forward with K6's
-   plain version (bars ``K6_AGREE``); then
+   plain version (bars ``K6_AGREE``), for PSPNet-CA its pyramid-pooling
+   head with the bins sharing one integral image against one a bin, in
+   turns; then
    U-Net-CA's int8 engine in the standard
    layout (``pack_unet_int8(s2d=False)``), checked for syncs and timed in
-   turns against the H-s2d one; then DeepLab-CA, DeepLab-SA, FCN and FCN-SA
-   once each through 'int8' (512^2, b2);
+   turns against the H-s2d one; then DeepLab-CA, DeepLab-SA, FCN, FCN-SA,
+   PSPNet and PSPNet-SA once each through 'int8' (512^2, b2);
 4. checks the outputs: serve f32 within 1e-3 x max|logit| of module f32
    (TF32 off), int8 logits correlated with serve's > 0.98 (U-Net) and
    > 0.97 (ResNet cells, the JAX package's bar), the launches per int8
@@ -67,11 +71,21 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    18 / 9 / 9 / 4 / 4 of K1 / K2 squeeze / K2 excite / K3 / K6; U-Net-SA
    18 / 4 / 4 / 4 / 4 of K1 / K3 / K4a / K4b / K6; FCN-CA 53 / 16 / 16 / 1
    of K5a / K5b / K2 squeeze / K7; DeepLabV3 58 K5a, one K2 squeeze and
-   one K7), the int8
-   engines on the card against the same trees on the CPU (plain
+   one K7; PSPNet-CA 52 / 16 / 16 / 1 of K5a / K5b / K2 squeeze / K7), the
+   int8 engines on the card against the same trees on the CPU (plain
    versions; a U-Net as it is and on K6's plain version, bars
    ``CARD_VS_CPU*``), finite scenes;
-5. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
+5. trains U-Net-CA (base 64, f32, TF32 off) at its preset shape
+   (``unet-channelattention``: 128^2, b8): ``fit`` for 2 epochs of 4
+   steps on in-memory ``synthetic_batch`` data with validation and a
+   ``Checkpointer`` (every loss finite, the second epoch's train loss below
+   the first's; the latest checkpoint restores step, weights and Adam
+   state bit for bit, the best loads on the CPU, a resume trains epoch 3),
+   then times the train step (CUDA events, 3 repeats of 5 warm steps at
+   128^2 b8, of 2 at 512^2 b8) beside its bound, with one warm step under
+   ``set_sync_debug_mode("error")`` and a 3-step profiler window, and
+   holds two steps on the card to the CPU's at 64^2 b2;
+6. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
    power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -948,6 +962,11 @@ PATHS = (
       "stem_pool_i8": 1}),
     ("deeplabv3", "none", "DeepLabV3-ResNet50", 0.97,
      {"int8_conv_epilogue": 58, "se_squeeze_i8": 1, "stem_pool_i8": 1}),
+    # the backbone's 52 convs (FCN's 53 less its head: the PSPNet's head
+    # stays bf16)
+    ("pspnet", "channel", "PSPNet-ResNet50-CA", 0.97,
+     {"int8_conv_epilogue": 52, "se_residual_i8": 16, "se_squeeze_i8": 16,
+      "stem_pool_i8": 1}),
 )
 # a U-Net int8 forward's profiler window holds none of these: K6 writes
 # the decoder's transposed convs and concats (cuDNN runs a transposed
@@ -1224,6 +1243,52 @@ def forward_turns(predict, x, label, power_line, reps: int = 5,
         f"{share['chain']}; on {power_line}")
 
 
+def ppm_turns(predict, x, power_line, reps: int = 5) -> None:
+    """PSPNet's pyramid-pooling head on the tensors of one int8 forward:
+    the bins sharing one integral image (``resnet_serve._ppm_apply``, as
+    it ships) against each bin building its own (the head before), equal
+    bit for bit, then the device ms of each (``device_ms``, ``reps`` calls)
+    in turns: per bin, shared, shared, per bin."""
+    import torch
+    from insarseg_torch.models import resnet_int8, resnet_serve
+    from insarseg_torch.ops.layers import adaptive_avg_pool_2d
+    from insarseg_torch.ops.resize import resize_bilinear
+
+    seen, ppm_apply = [], resnet_int8._ppm_apply
+
+    def spy(pp, h):
+        seen.append((pp, h))
+        return ppm_apply(pp, h)
+    resnet_int8._ppm_apply = spy
+    try:
+        predict(x)
+    finally:
+        resnet_int8._ppm_apply = ppm_apply
+    pp, h = seen[0]
+
+    def per_bin():
+        outs = [h]
+        for b in pp["bins"]:
+            p = resnet_serve._ca(adaptive_avg_pool_2d(h, b), pp[f"bin{b}"])
+            outs.append(resize_bilinear(p, h.shape[-2:]))
+        return torch.cat(outs, dim=1)
+
+    heads = {"per bin": per_bin,
+             "shared": lambda: resnet_serve._ppm_apply(pp, h)}
+    ms = {k: [] for k in heads}
+    with torch.inference_mode():
+        if not torch.equal(heads["per bin"](), heads["shared"]()):
+            raise AssertionError("the shared integral image changes the "
+                                 "pyramid-pooling head")
+        for mode in ("per bin", "shared", "shared", "per bin"):
+            ms[mode].append(device_ms(heads[mode], reps=reps)[0])
+    log(f"  pyramid-pooling head on {tuple(h.shape)} {h.dtype} (device ms, "
+        f"{reps} calls a turn): one integral image a bin "
+        f"{' / '.join(f'{v:.4f}' for v in ms['per bin'])}, one shared "
+        f"{' / '.join(f'{v:.4f}' for v in ms['shared'])} (turns 1 and 4, 2 "
+        f"and 3); equal bit for bit; on {power_line}")
+
+
 def card_vs_cpu_readings(dev, name, attention, model, calib, images):
     """The same int8 tree on the card and on the CPU (plain versions), at
     64^2, b2 (U-Net: H-s2d, standard for SA and the fast cell, as
@@ -1347,6 +1412,251 @@ def unet_standard_layout(dev, model, calib, images, s2d_predict,
             f"forward, on {power_line}")
 
 
+# ---------------------------------------------------------------------------
+# 5. the training path: U-Net-CA, full width, f32
+# ---------------------------------------------------------------------------
+
+TRAIN_PRESET = "unet-channelattention"  # 128^2, b8, the reference script's
+TRAIN_STEPS, VAL_STEPS = 4, 2  # batches an epoch
+PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores (TF32 off)
+
+
+def unet_flops(size: int, batch: int) -> float:
+    """FLOPs of one U-Net-CA (base ``BASE``) forward, counted from the
+    convolutions', transposed convolutions' and SE matmuls' shapes."""
+    import torch
+    from torch import nn
+    from insarseg_torch.models.unet import UNet
+
+    with torch.device("meta"):
+        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, nn.ConvTranspose2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1]
+            total[0] += 2 * inp[0].numel() * mod.out_channels * k
+        elif isinstance(mod, nn.Conv2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1]
+            total[0] += 2 * out.numel() * mod.in_channels * k
+        elif isinstance(mod, nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+    for m in model.modules():
+        m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(1, 1, 32, 32, device="meta"))
+    return total[0] * (size / 32) ** 2 * batch
+
+
+def _same_state(a, b, what) -> None:
+    """Two state_dicts (or optimizer state_dicts) equal bit for bit."""
+    import torch
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            if sorted(x, key=str) != sorted(y, key=str):
+                raise AssertionError(f"{what}: keys differ at {path}")
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y):
+                raise AssertionError(f"{what}: lengths differ at {path}")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}/{i}")
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {path} differs")
+        elif x != y:
+            raise AssertionError(f"{what}: {path} {x!r} != {y!r}")
+    walk(a, b, "")
+
+
+def train_fit(dev) -> None:
+    """``fit`` for 2 epochs of U-Net-CA at its preset shape on an in-memory
+    loader of ``synthetic_batch`` data, with validation and a
+    ``Checkpointer``; every loss finite and the last epoch's train loss
+    below the first's; then the latest checkpoint restores step, weights
+    and Adam state bit for bit, the best one loads on the CPU, and a
+    resumed run continues the epoch count."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.config import get_preset
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.checkpoint import Checkpointer
+    from insarseg_torch.train.engine import create_state, fit
+
+    cfg = get_preset(TRAIN_PRESET, num_epochs=2, log_every_steps=2)
+    size, b = cfg.image_size, cfg.batch_size
+    train = [synthetic_batch(b, size, seed=SEED + 10 + i)
+             for i in range(TRAIN_STEPS)]
+    val = [synthetic_batch(b, size, seed=SEED + 20 + i)
+           for i in range(VAL_STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+        state = create_state(model, cfg.learning_rate, seed=cfg.seed,
+                             device=dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        hist = fit(model, cfg, train, val, state=state, checkpointer=ck,
+                   device=dev)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in K.LAUNCHES.items() if n}
+        log(f"fit: {TRAIN_PRESET} (U-Net-CA base {BASE}, {size}^2 b{b}, "
+            f"{TRAIN_STEPS} steps and {VAL_STEPS} validation batches an "
+            f"epoch), 2 epochs in {time.perf_counter() - t0:.2f} s; "
+            f"kernel launches {launched} (the train path runs stock "
+            "PyTorch / cuDNN ops only)")
+        log("history " + json.dumps(hist))
+        losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite losses {losses}")
+        if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+            raise AssertionError("the train loss did not fall: "
+                                 f"{[h['train_loss'] for h in hist]}")
+        if not (ck.has_latest() and ck.best_metric() >= 0.0):
+            raise AssertionError("fit wrote no best / latest checkpoint")
+
+        other = create_state(UNet(num_classes=2, base_features=BASE,
+                                  use_se=True), cfg.learning_rate,
+                             seed=cfg.seed + 1, device=dev)
+        ck.restore_latest(other)
+        if not other.step == state.step == 2 * TRAIN_STEPS:
+            raise AssertionError(f"restored step {other.step}")
+        _same_state(state.model.state_dict(), other.model.state_dict(),
+                    "restored weights")
+        _same_state(state.optimizer.state_dict(),
+                    other.optimizer.state_dict(), "restored Adam state")
+        cpu_model = build("unet", "channel")
+        ck.restore_best(cpu_model, map_location="cpu")
+        rest = fit(other.model, dataclasses.replace(cfg, num_epochs=3),
+                   train, val, state=other, checkpointer=ck, resume=True,
+                   device=dev)
+        epochs = [h["epoch"] for h in rest]
+        if epochs != [3] or other.step != 3 * TRAIN_STEPS:
+            raise AssertionError(f"resume: epochs {epochs}, step "
+                                 f"{other.step}")
+    log(f"  resume from 'latest': step {state.step}, weights and Adam state "
+        "equal bit for bit; the best weights load on the CPU; the resumed "
+        "run trains epoch 3")
+
+
+def train_step_timing(dev, size, batch, power_line, steps: int) -> None:
+    """The U-Net-CA train step at ``size``^2 b``batch``: one warm step on
+    CUDA tensors under ``set_sync_debug_mode("error")``, then CUDA-event
+    ms of ``steps`` warm steps, 3 repeats (median and spread), tiles/s, the
+    bound (3 x the forward's FLOPs at the f32 peak), and the device idle
+    share and top operations of a 3-step profiler window; the host seconds
+    of each part."""
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    marks = [("start", time.perf_counter())]
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    state = create_state(model, seed=SEED, device=dev)
+    step = make_train_step(model, 2)
+    data = synthetic_batch(batch, size, seed=SEED + 30)
+    x = torch.from_numpy(data["image"]).to(dev)
+    m = torch.from_numpy(data["mask"]).to(dev)
+    marks.append(("init", time.perf_counter()))
+    step(state, x, m)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, x, m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    marks.append(("warm", time.perf_counter()))
+    ms = []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(steps):
+            step(state, x, m)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1) / steps)
+    marks.append(("timed", time.perf_counter()))
+    med = float(np.median(ms))
+    bound_ms = 3 * unet_flops(size, batch) / PEAK_F32 * 1e3
+    idle, top, _ = profile_window(lambda t: step(state, t, m), x)
+    marks.append(("profiler", time.perf_counter()))
+    share = "not measured" if idle is None else f"{100 * idle:.1f}%"
+    parts = ", ".join(f"{b[0]} {b[1] - a[1]:.2f}"
+                      for a, b in zip(marks, marks[1:]))
+    log(f"train step U-Net-CA base {BASE}, {size}^2 b{batch}, f32 (TF32 "
+        f"off): {med:.3f} ms median of {' / '.join(f'{v:.3f}' for v in ms)}"
+        f" ({steps} steps a repeat, spread {max(ms) - min(ms):.3f}), "
+        f"{batch / med * 1e3:.2f} tiles/s, bound {bound_ms:.3f} ms (3 x the "
+        f"forward's {unet_flops(size, batch) / 1e12:.4f} TFLOP at "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s), device idle {share} under the "
+        f"profiler; warm step synchronises nothing; host s: {parts}; on "
+        f"{power_line}")
+    for key, dms in top:
+        log(f"    profiler, device ms per step: {dms:.4f} {key}")
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Two U-Net-CA (base ``BASE``) train steps at 64^2 b2 on the card and
+    on the CPU from the same weights and batches: step 1's loss within
+    rtol 1e-4 and its counts equal, step 2's loss within rtol 5e-4 (the f32
+    loss bar of the JAX package's training-parity test)."""
+    import torch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    rng = np.random.default_rng(SEED + 40)
+    batches = [(torch.from_numpy(rng.standard_normal((2, 64, 64, 1))
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 2, (2, 64, 64))))
+               for _ in range(2)]
+    outs = {}
+    for where in ("cpu", dev):
+        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+        state = create_state(model, seed=SEED, device=where)
+        step = make_train_step(model, 2)
+        outs[str(where)] = [{k: v.cpu() for k, v in
+                             step(state, x.to(where), y.to(where)).items()}
+                            for x, y in batches]
+    cpu, card = outs["cpu"], outs[str(dev)]
+    rel = [abs(float(card[i]["loss"]) - float(cpu[i]["loss"]))
+           / abs(float(cpu[i]["loss"])) for i in range(2)]
+    same = all(torch.equal(card[0][k], cpu[0][k])
+               for k in ("tp", "fp", "fn", "correct", "valid"))
+    log(f"train step card vs CPU (U-Net-CA base {BASE}, 64^2 b2, the same "
+        f"weights and batches): losses {float(card[0]['loss']):.7f} / "
+        f"{float(cpu[0]['loss']):.7f} (rel {rel[0]:.3g}, bar 1e-4), "
+        f"{float(card[1]['loss']):.7f} / {float(cpu[1]['loss']):.7f} (rel "
+        f"{rel[1]:.3g}, bar 5e-4); step 1 counts "
+        f"{'equal' if same else 'differ'}")
+    if not (rel[0] <= 1e-4 and rel[1] <= 5e-4 and same):
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+
+
+def train_path(dev, power_line: str, phase) -> None:
+    import torch
+
+    train_fit(dev)
+    phase("training: fit, checkpoints, resume")
+    # 5 steps a repeat at 128^2, 2 at 512^2 (a step there is ~310 ms and
+    # its repeats agree within 0.1%)
+    for size, steps in ((128, 5), (HW, 2)):
+        train_step_timing(dev, size, BATCH, power_line, steps)
+        torch.cuda.empty_cache()
+    phase("training: the train step timed, without syncs")
+    train_card_vs_cpu(dev)
+    phase("training: card vs CPU")
+
+
 def run(dev, power_line: str, phase) -> list:
     """Phases 2-4 on ``dev``; returns the kernel table."""
     import torch
@@ -1379,9 +1689,10 @@ def run(dev, power_line: str, phase) -> list:
             cases[n] += c
         phase(f"{label}: recording the kernels' arguments")
 
-        # 3b. the main path, counters from 0
-        # U-Net-CA and FCN-CA
-        with_scene = attention == "channel" and name != "unet-fast"
+        # 3b. the main path, counters from 0; a scene through U-Net-CA
+        # and FCN-CA
+        with_scene = (name, attention) in (("unet", "channel"),
+                                           ("fcn", "channel"))
         launches[label] = run_path(
             engines, images, dev, corr_bar, want, label, power_line,
             scene=scene if with_scene else None)
@@ -1390,6 +1701,8 @@ def run(dev, power_line: str, phase) -> list:
         check_no_sync(engines["int8"], x_dev, label)
         forward_turns(engines["int8"], x_dev, label, power_line,
                       absent=UNET_ABSENT if is_unet else ())
+        if name == "pspnet":
+            ppm_turns(engines["int8"], x_dev, power_line)
         del x_dev
         phase(f"{label}: int8 forward without syncs, in turns with them")
         if is_unet:
@@ -1422,7 +1735,8 @@ def run(dev, power_line: str, phase) -> list:
     # 4. the other ResNet cells, once each through int8 (512^2, b2)
     for name, attention in (("deeplabv3", "channel"),
                             ("deeplabv3", "spatial"), ("fcn", "none"),
-                            ("fcn", "spatial")):
+                            ("fcn", "spatial"), ("pspnet", "none"),
+                            ("pspnet", "spatial")):
         model = build_model(name, attention)
         rng = np.random.default_rng(SEED + 1)
         calib = [smooth_batch(rng, 2, HW, HW) for _ in range(2)]
@@ -1474,6 +1788,7 @@ def main() -> int:
     phase("build")
 
     table = run(dev, power_line, phase)
+    train_path(dev, power_line, phase)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(power_line, flush=True)

@@ -3,7 +3,9 @@
 Own copy of ``insarseg/compat/torch_io.py::unet_variables_to_torch`` and
 ``segmentation_variables_to_torch`` (the port imports nothing of the JAX
 package; the DeepLabV3 / FCN names are torchvision's, see
-:func:`segmentation_variables_to_torch`). Input: the JAX variables as numpy
+:func:`segmentation_variables_to_torch`), and
+:func:`pspnet_variables_to_torch` for the true PSPNet, which has no
+reference twin. Input: the JAX variables as numpy
 arrays (or anything ``np.asarray`` takes). Output: numpy arrays under the
 reference's state_dict names (``inc.double_conv.0``, ``down{i}.1.…``,
 ``….double_conv.6.fc.0/2``, ``up{i}``, ``outc``), which
@@ -24,6 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from insarseg_torch.models.pspnet import BINS
 from insarseg_torch.models.resnet import backbone_layers
 
 
@@ -139,21 +142,10 @@ class _Exporter:
         self.out[t + ".num_batches_tracked"] = np.asarray(0)
 
 
-def segmentation_variables_to_torch(
-    variables: Mapping[str, Any],
-    model: str,
-    attention: str = "none",
-    prefix: str = "",
-    backbone: str = "resnet50",
-) -> Dict[str, np.ndarray]:
-    """insarseg DeepLabV3 / FCN variables -> torchvision-naming state_dict
-    (numpy), which ``insarseg_torch.models.registry.build(model,
-    attention)`` loads with ``strict=True``. ``model`` is 'deeplabv3' or
-    'fcn'; ``prefix`` prepends a wrapper prefix to every key."""
-    m = _Exporter(variables, prefix)
+def _backbone(m: _Exporter, backbone: str, use_se: bool) -> None:
+    """The ResNet backbone under torchvision's ``backbone.*`` names."""
     m.conv("backbone.conv1", "backbone", "conv1")
     m.bn("backbone.bn1", "backbone", "bn1")
-    use_se = model == "fcn" and attention == "channel"
     for li, blocks in enumerate(backbone_layers(backbone), start=1):
         for bi in range(blocks):
             t, j = f"backbone.layer{li}.{bi}", ("backbone", f"layer{li}_{bi}")
@@ -167,6 +159,20 @@ def segmentation_variables_to_torch(
                 m.conv(f"{t}.se_block.fc.0", *j, "se_block", "fc1")
                 m.conv(f"{t}.se_block.fc.2", *j, "se_block", "fc2")
 
+
+def segmentation_variables_to_torch(
+    variables: Mapping[str, Any],
+    model: str,
+    attention: str = "none",
+    prefix: str = "",
+    backbone: str = "resnet50",
+) -> Dict[str, np.ndarray]:
+    """insarseg DeepLabV3 / FCN variables -> torchvision-naming state_dict
+    (numpy), which ``insarseg_torch.models.registry.build(model,
+    attention)`` loads with ``strict=True``. ``model`` is 'deeplabv3' or
+    'fcn'; ``prefix`` prepends a wrapper prefix to every key."""
+    m = _Exporter(variables, prefix)
+    _backbone(m, backbone, model == "fcn" and attention == "channel")
     if model == "deeplabv3":
         for i in range(4):  # ASPP convs.0..3: 1x1 + three atrous branches
             m.conv(f"classifier.0.convs.{i}.0", "aspp", f"conv{i}")
@@ -192,4 +198,29 @@ def segmentation_variables_to_torch(
             m.conv("spatial_attention.conv", "spatial_attention", "conv")
     else:
         raise KeyError(f"unknown model {model!r}")
+    return m.out
+
+
+def pspnet_variables_to_torch(
+    variables: Mapping[str, Any],
+    attention: str = "none",
+    prefix: str = "",
+    backbone: str = "resnet50",
+) -> Dict[str, np.ndarray]:
+    """insarseg true-PSPNet variables -> the port's state_dict (numpy),
+    which ``insarseg_torch.models.registry.build('pspnet', attention)``
+    loads with ``strict=True``: torchvision's names for the backbone, the
+    JAX package's module names for the head (``ppm.conv_bin{b}``,
+    ``ppm.bn_bin{b}``, ``bottleneck_conv``, ``bottleneck_bn``,
+    ``classifier``; the reference has no PSPNet to name them)."""
+    m = _Exporter(variables, prefix)
+    _backbone(m, backbone, attention == "channel")
+    if attention == "spatial":
+        m.conv("spatial_attention.conv", "spatial_attention", "conv")
+    for b in BINS:
+        m.conv(f"ppm.conv_bin{b}", "ppm", f"conv_bin{b}")
+        m.bn(f"ppm.bn_bin{b}", "ppm", f"bn_bin{b}")
+    m.conv("bottleneck_conv", "bottleneck_conv")
+    m.bn("bottleneck_bn", "bottleneck_bn")
+    m.conv("classifier", "classifier")
     return m.out

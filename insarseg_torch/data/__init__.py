@@ -1,1 +1,1 @@
-"""Scene tiling and stitching."""
+"""Scene tiling and stitching, on-device augmentation, synthetic batches."""

@@ -4,17 +4,19 @@
 - ``serve``  — the BN-folded exact graph: UNet with deferred SE gates
   (``models/unet_serve.py``; the fast cell's inner UNet, with the
   space-to-depth stem at the rim, ``models/unet_stem.py``), DeepLabV3 /
-  FCN (``models/resnet_serve.py``);
+  FCN / the true PSPNet (``models/resnet_serve.py``);
 - ``int8``   — post-training quantization (needs calibration batches):
   UNet through the hand-written kernels K1-K4 and K6
   (``models/unet_int8.py``; the H-space-to-depth layout for attention
   ``none`` and ``channel``, the standard layout for ``spatial`` and for
   the fast cell's inner UNet, as the JAX package packs them), DeepLabV3 /
-  FCN through K5a, K5b, K7 and K2's squeeze (``models/resnet_int8.py``).
+  FCN / PSPNet through K5a, K5b, K7 and K2's squeeze
+  (``models/resnet_int8.py``; the PSPNet's head stays bf16).
 
-The port serves ``unet``, ``unet-fast``, ``deeplabv3`` and ``fcn`` with
-attention ``none``, ``channel`` or ``spatial``. Every ``predict`` takes
-and returns NHWC tensors and runs on the engine's device.
+The port serves ``unet``, ``unet-fast``, ``deeplabv3``, ``fcn`` and
+``pspnet`` with attention ``none``, ``channel`` or ``spatial``. Every
+``predict`` takes and returns NHWC tensors and runs on the engine's
+device.
 """
 
 from __future__ import annotations
@@ -28,17 +30,9 @@ from insarseg_torch.device import DeviceLike, resolve_device
 
 ENGINES = ("module", "serve", "int8")
 KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
-RESNET_MODELS = ("deeplabv3", "fcn")
 ATTENTIONS = ("none", "channel", "spatial")
-_TODO = {
-    "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
-    "mesh": "multi-GPU serving (ROADMAP Queue 1 item 16)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"insarseg_torch does not port {_TODO[what]} "
-                               "yet")
+MESH_TODO = ("insarseg_torch does not port multi-GPU serving (ROADMAP "
+             "Queue 1 item 16) yet")
 
 
 def _check_cell(model_name: str, attention: str, engine: str,
@@ -49,12 +43,10 @@ def _check_cell(model_name: str, attention: str, engine: str,
     if model_name not in KNOWN_MODELS:
         raise ValueError(f"unknown model {model_name!r}; known models: "
                          f"{KNOWN_MODELS}")
-    if model_name not in ("unet", "unet-fast") + RESNET_MODELS:
-        raise _not_ported(model_name)
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
     if mesh is not None:
-        raise _not_ported("mesh")
+        raise NotImplementedError(MESH_TODO)
     return model_name
 
 

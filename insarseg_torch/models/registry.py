@@ -7,23 +7,17 @@ from torch import nn
 
 from insarseg_torch.models.deeplab import DeepLabV3
 from insarseg_torch.models.fcn import FCN
+from insarseg_torch.models.pspnet import PSPNet
 from insarseg_torch.models.unet import UNet
-
-NOT_PORTED = {
-    "pspnet": "the true PSPNet (ROADMAP Queue 1 item 14)",
-}
 
 
 def build(model: str, attention: str = "none", num_classes: int = 2,
           backbone: str = "resnet50", in_channels: int = 1) -> nn.Module:
     """The port's module for ``model`` in {unet, unet-fast, deeplabv3,
-    fcn} and ``attention`` in {none, channel, spatial}."""
+    fcn, pspnet} and ``attention`` in {none, channel, spatial}."""
     model, attention = model.lower().replace("_", "-"), attention.lower()
     if attention not in ("none", "channel", "spatial"):
         raise ValueError(f"unknown attention {attention!r}")
-    if model in NOT_PORTED:
-        raise NotImplementedError(
-            f"insarseg_torch does not port {NOT_PORTED[model]} yet")
     if model == "unet":
         return UNet(num_classes=num_classes, use_se=attention == "channel",
                     use_sa=attention == "spatial", in_channels=in_channels)
@@ -38,5 +32,7 @@ def build(model: str, attention: str = "none", num_classes: int = 2,
         return DeepLabV3(num_classes, attention, backbone, in_channels)
     if model == "fcn":
         return FCN(num_classes, attention, backbone, in_channels)
+    if model == "pspnet":
+        return PSPNet(num_classes, attention, backbone, in_channels)
     raise KeyError(f"unknown model {model!r}; expected "
                    "unet|unet-fast|deeplabv3|fcn|pspnet")

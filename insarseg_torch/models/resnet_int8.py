@@ -1,5 +1,6 @@
-"""int8 post-training-quantized DeepLabV3 / FCN inference (counterpart of
-``insarseg/models/resnet_int8.py``), every attention variant.
+"""int8 post-training-quantized DeepLabV3 / FCN / true-PSPNet inference
+(counterpart of ``insarseg/models/resnet_int8.py``), every attention
+variant.
 
 The graph is the JAX package's:
 
@@ -17,13 +18,16 @@ The graph is the JAX package's:
 - the 7x7 stem conv, the CBAM heads and the classifier stay bf16 torch ops
   (the FCN-SA gate runs f32 on the dequantized backbone output); the
   stem's max-pool and the requant to NHWC codes are one pass (kernel K7);
+- the PSPNet's backbone is int8 as above; its last codes are dequantized
+  to bf16, and the attention, the pyramid-pooling head and the folded
+  bottleneck conv run bf16 (nothing past the backbone is int8, so the
+  calibration records nothing there);
 - activation scales come from an f32 replay of the folded graph on
   calibration batches.
 
 Packed trees have the JAX package's keys, so a tree packed by either
 package serves in the port (:func:`prepare_resnet_int8` places it on a
-device and repacks the codes into K5a's layout). The true PSPNet is ROADMAP
-Queue 1 item 14 and raises.
+device and repacks the codes into K5a's layout).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from insarseg_torch.models.resnet_serve import (
     _attention_apply,
     _ca,
     _classify,
+    _ppm_apply,
     _se_gate,
     block_chain,
     pack_resnet_serve,
@@ -59,10 +64,6 @@ from insarseg_torch.ops.quant import (
     quant_weight,
     requant,
 )
-
-PSPNET_TODO = ("the true PSPNet int8 engine is not ported yet (ROADMAP "
-               "Queue 1 item 14)")
-
 
 # ---------------------------------------------------------------------------
 # calibration: statistic replay of the f32 folded graph (NCHW inside)
@@ -114,8 +115,11 @@ def _replay_absmax(pf: Mapping, x: torch.Tensor,
         rec("aspp.cat", *branches)
         proj = _ca(torch.cat(branches, dim=1), pa["project"])
         rec("aspp.proj", proj)
-    elif pf["attention"] is not None:  # FCN-SA gates before the head
+    elif pf["kind"] == "fcn" and pf["attention"] is not None:
+        # FCN-SA gates before the head
         rec("head.in", _attention_apply(pf["attention"], y))
+    # pspnet: the pyramid-pooling head stays bf16, nothing past the
+    # backbone is int8
     return am
 
 
@@ -145,8 +149,8 @@ def pack_resnet_int8(
     calib_stat: str = "absmax",
     device: DeviceLike = None,
 ) -> Dict[str, Any]:
-    """DeepLabV3 / FCN state_dict + calibration images -> int8 serving tree
-    (on the CPU, in the JAX package's format).
+    """DeepLabV3 / FCN / PSPNet state_dict + calibration images -> int8
+    serving tree (on the CPU, in the JAX package's format).
 
     ``calib_batches``: a few (B, H, W, C_in) f32 batches as fed to the
     model; the replay runs on ``device`` (``None`` means ``cuda``)."""
@@ -211,11 +215,14 @@ def pack_resnet_int8(
         # int8 -> bf16 exit; the SA variant's head is a bare conv
         packed["head"] = _qconv(pf["head"], scales["aspp.proj"], None,
                                 relu="s" in pf["head"])
-    else:
+    elif pf["kind"] == "fcn":
         s_head_in = scales["head.in"] if pf["attention"] is not None \
             else s_in
         packed["head_in_s"] = s_head_in
         packed["head"] = _qconv(pf["head"], s_head_in, None, relu=True)
+    else:  # pspnet: the folded bf16 head on the dequantized backbone out
+        packed["ppm"] = pf["ppm"]
+        packed["head"] = pf["head"]
     return packed
 
 
@@ -228,7 +235,8 @@ def _qconvs(tree: Mapping[str, Any]):
     if tree["kind"] == "deeplab":
         for tag in ("b0", "b1", "b2", "b3", "project"):
             yield tree["aspp"][tag]
-    yield tree["head"]
+    if tree["kind"] != "pspnet":
+        yield tree["head"]
 
 
 def prepare_resnet_int8(packed: Mapping[str, Any],
@@ -236,8 +244,8 @@ def prepare_resnet_int8(packed: Mapping[str, Any],
     """Place an int8 tree (packed here, or by the JAX package and read with
     ``insarseg_torch.engines_io``) on ``device`` as torch tensors, and add
     each conv's codes in K5a's layout under ``"w"`` (done once, here)."""
-    if packed["kind"] not in ("deeplab", "fcn"):
-        raise NotImplementedError(PSPNET_TODO)
+    if packed["kind"] not in ("deeplab", "fcn", "pspnet"):
+        raise ValueError(f"unknown packed kind {packed['kind']!r}")
     tree = to_torch_tree(packed, torch.device(device))
     for c in _qconvs(tree):
         c["w"] = repack_conv_weight(c["q"])
@@ -310,6 +318,13 @@ def resnet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
         proj = _conv_i8(torch.cat(branches, dim=-1), pa["project"])
         h = nhwc_to_nchw(_conv_i8(proj, packed["head"], bf16=True))
         h = _attention_apply(packed["attention"], h)
+    elif packed["kind"] == "pspnet":
+        # an NCHW view of the NHWC values: the bf16 head runs channels-last
+        # (cuDNN's NHWC convs, and the pyramid pool's integral image wants
+        # channels innermost), with no transposing copy
+        h = dequant(yq, last_s).to(torch.bfloat16).permute(0, 3, 1, 2)
+        h = _attention_apply(packed["attention"], h)
+        h = _ca(_ppm_apply(packed["ppm"], h), packed["head"])
     else:
         if packed["attention"] is not None:  # FCN-SA, f32 gate
             yf = _attention_apply(packed["attention"],

@@ -1,5 +1,6 @@
-"""BN-folded serving graphs for DeepLabV3 and FCN (counterpart of
-``insarseg/models/resnet_serve.py``), every attention variant.
+"""BN-folded serving graphs for DeepLabV3, FCN and the true PSPNet
+(counterpart of ``insarseg/models/resnet_serve.py``), every attention
+variant.
 
 Every BatchNorm is folded (in numpy f32, ``ops/fold.py``) into the
 preceding conv's ``y * s + b`` epilogue, so the graph is a chain of
@@ -7,9 +8,9 @@ conv + affine (+ReLU) steps; dropout is the identity in eval mode. The
 packers read a torchvision-naming state_dict (the port's modules, or
 ``segmentation_variables_to_torch``) and return the JAX package's tree:
 conv kernels HWIO, MLP matrices (in, out), ``backbone.layer{l}_{b}``
-blocks with ``stride`` / ``dilation``, ``layers`` a list, ``rates`` a
-tuple, the DeepLab-SA head a bare ``{'k'}`` (no BN, no ReLU). A tree the
-JAX package packed serves here unchanged.
+blocks with ``stride`` / ``dilation``, ``layers`` a list, ``rates`` and
+the PSPNet's ``ppm.bins`` tuples, the DeepLab-SA head a bare ``{'k'}``
+(no BN, no ReLU). A tree the JAX package packed serves here unchanged.
 
 The public functions take and return NHWC; the float graph runs NCHW.
 """
@@ -22,10 +23,16 @@ import torch
 import torch.nn.functional as F
 
 from insarseg_torch.models.deeplab import ASPP_RATES
+from insarseg_torch.models.pspnet import BINS
 from insarseg_torch.models.resnet import layer_schedule
 from insarseg_torch.models.unet_s2d import _chan, _hwio, _optional
 from insarseg_torch.ops.fold import fold_bn
-from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.ops.layers import (
+    adaptive_avg_pools,
+    max_pool_2d,
+    nchw_to_nhwc,
+    nhwc_to_nchw,
+)
 from insarseg_torch.ops.resize import resize_bilinear
 
 # ---------------------------------------------------------------------------
@@ -120,12 +127,27 @@ def pack_fcn_serve(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             "attention": _pack_attention(sd, "spatial_attention")}
 
 
+def pack_pspnet_serve(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """True-PSPNet state_dict -> BN-folded serving tree: each bin's conv and
+    BN, and the bottleneck conv and BN, folded."""
+    ppm: Dict[str, Any] = {"bins": BINS}
+    for b in BINS:
+        ppm[f"bin{b}"] = _fold_conv(sd, f"ppm.conv_bin{b}", f"ppm.bn_bin{b}")
+    return {"kind": "pspnet", "backbone": pack_backbone(sd), "ppm": ppm,
+            "head": _fold_conv(sd, "bottleneck_conv", "bottleneck_bn"),
+            "classifier": _pack_classifier(sd, "classifier"),
+            "attention": _pack_attention(sd, "spatial_attention")}
+
+
 def pack_resnet_serve(
         state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Detect DeepLabV3 / FCN from the state_dict and pack (on the CPU)."""
+    """Detect DeepLabV3 / FCN / PSPNet from the state_dict and pack (on the
+    CPU)."""
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     if "classifier.0.project.0.weight" in sd:
         return pack_deeplab_serve(sd)
+    if "ppm.conv_bin1.weight" in sd:
+        return pack_pspnet_serve(sd)
     return pack_fcn_serve(sd)
 
 
@@ -194,6 +216,17 @@ def _aspp_apply(pa: Mapping, x: torch.Tensor) -> torch.Tensor:
     return _ca(torch.cat(branches, dim=1), pa["project"])
 
 
+def _ppm_apply(pp: Mapping, x: torch.Tensor) -> torch.Tensor:
+    """The pyramid-pooling head on the folded tree: per bin, pool, conv +
+    affine + ReLU, resize back; concatenated after ``x``. The bins share
+    one integral image."""
+    outs = [x]
+    for b, pooled in zip(pp["bins"], adaptive_avg_pools(x, pp["bins"])):
+        p = _ca(pooled, pp[f"bin{b}"])
+        outs.append(resize_bilinear(p, x.shape[-2:]))
+    return torch.cat(outs, dim=1)
+
+
 def _attention_apply(att: Optional[Mapping], y: torch.Tensor) -> torch.Tensor:
     if att is None:
         return y
@@ -226,7 +259,7 @@ def _classify(pc: Mapping, y: torch.Tensor, input_size,
 
 def resnet_serve_apply(packed: Mapping[str, Any], x: torch.Tensor,
                        argmax: bool = False) -> torch.Tensor:
-    """Eval-mode DeepLabV3 / FCN forward on the folded tree. ``x``:
+    """Eval-mode DeepLabV3 / FCN / PSPNet forward on the folded tree. ``x``:
     (B, H, W, C_in) in the compute dtype; returns logits (B, H, W, nc) or
     the int32 class map (B, H, W)."""
     input_size = x.shape[1:3]
@@ -236,13 +269,14 @@ def resnet_serve_apply(packed: Mapping[str, Any], x: torch.Tensor,
         head = packed["head"]
         y = _ca(y, head) if "s" in head else _conv(y, head["k"])
         y = _attention_apply(packed["attention"], y)
+    elif packed["kind"] == "pspnet":
+        y = _attention_apply(packed["attention"], y)
+        y = _ca(_ppm_apply(packed["ppm"], y), packed["head"])
     elif packed["kind"] == "fcn":
         y = _attention_apply(packed["attention"], y)
         y = _ca(y, packed["head"])
     else:
-        raise NotImplementedError(
-            f"packed kind {packed['kind']!r} is not ported (the true PSPNet "
-            "is ROADMAP Queue 1 item 14)")
+        raise ValueError(f"unknown packed kind {packed['kind']!r}")
     return _classify(packed["classifier"], y, input_size, argmax)
 
 

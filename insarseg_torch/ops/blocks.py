@@ -3,7 +3,8 @@
 - :class:`DoubleConv` and :class:`SELayer` (U-Net): the Sequential indices
   reproduce the reference state_dict names ``double_conv.{0,1,3,4,6}``
   (conv, BN, ReLU, conv, BN, ReLU, SE) and ``fc.{0,2}`` (Linear, ReLU,
-  Linear; no bias, reduction 16);
+  Linear; no bias, reduction 16); in train mode the two convs' biases get
+  no gradient (:class:`BNFedConv2d`);
 - :class:`SEBlock` (FCN-CA bottlenecks): the same squeeze-excite with a
   bias-free 1x1-conv MLP, ``fc.{0,2}``;
 - :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
@@ -41,6 +42,22 @@ class SELayer(nn.Module):
         return x * y[:, :, None, None]
 
 
+class BNFedConv2d(nn.Conv2d):
+    """A conv whose output feeds a BatchNorm directly (the JAX package's
+    ``Conv2d(stop_bias_grad=train)``, ``insarseg/ops/layers.py:80-89``). In
+    train mode BN subtracts the batch mean, so a per-channel shift cancels
+    and the bias's gradient is exactly zero; autograd would give float
+    noise (~1e-8) instead, on which Adam takes full-size steps. So in train
+    mode the conv uses the detached bias, and the bias gets no gradient
+    and keeps its value; the state_dict names are ``nn.Conv2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias
+        if self.training and bias is not None:
+            bias = bias.detach()
+        return self._conv_forward(x, self.weight, bias)
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 same-pad -> BN -> ReLU) x2, optional SE tail."""
 
@@ -48,10 +65,10 @@ class DoubleConv(nn.Module):
                  use_se: bool = False):
         super().__init__()
         layers = [
-            nn.Conv2d(in_channels, out_channels, 3, padding=1),
+            BNFedConv2d(in_channels, out_channels, 3, padding=1),
             nn.BatchNorm2d(out_channels),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            BNFedConv2d(out_channels, out_channels, 3, padding=1),
             nn.BatchNorm2d(out_channels),
             nn.ReLU(inplace=True),
         ]

@@ -358,7 +358,7 @@ def _no_sync_forward(predict, x):
 
 @pytest.mark.parametrize("engine", ["unet-s2d", "unet-standard",
                                     "fcn-channel", "deeplabv3-none",
-                                    "unet-fast"])
+                                    "unet-fast", "pspnet-channel"])
 def test_int8_forward_never_synchronises(dev, engine):
     """A warm int8 forward on a CUDA input under
     ``torch.cuda.set_sync_debug_mode("error")``: a call that synchronises
@@ -400,7 +400,17 @@ def test_int8_forward_never_synchronises(dev, engine):
     assert out.shape == (2, 64, 64, 2) and bool(torch.isfinite(out).all())
 
 
-def test_resnet_int8_engine_card_vs_cpu(dev):
+RESNET_CA_LAUNCHES = {  # per int8 forward
+    "fcn": {"int8_conv_epilogue": 53, "se_residual_i8": 16,
+            "se_squeeze_i8": 16, "stem_pool_i8": 1},
+    # the backbone's 52 convs; the head is bf16
+    "pspnet": {"int8_conv_epilogue": 52, "se_residual_i8": 16,
+               "se_squeeze_i8": 16, "stem_pool_i8": 1},
+}
+
+
+@pytest.mark.parametrize("name", ["fcn", "pspnet"])
+def test_resnet_int8_engine_card_vs_cpu(dev, name):
     from insarseg_torch.models.registry import build
     from insarseg_torch.models.resnet_int8 import (
         make_resnet_int8_predict_fn,
@@ -409,7 +419,7 @@ def test_resnet_int8_engine_card_vs_cpu(dev):
     )
 
     torch.manual_seed(0)
-    model = build("fcn", "channel").eval()
+    model = build(name, "channel").eval()
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 1)) \
         .astype(np.float32)
     tree = pack_resnet_int8(model.state_dict(), [x], device=dev)
@@ -417,8 +427,7 @@ def test_resnet_int8_engine_card_vs_cpu(dev):
     gpu = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, dev))(x)
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                 if K.LAUNCHES[k] != before[k]}
-    assert launched == {"int8_conv_epilogue": 53, "se_residual_i8": 16,
-                        "se_squeeze_i8": 16, "stem_pool_i8": 1}
+    assert launched == RESNET_CA_LAUNCHES[name]
     cpu = make_resnet_int8_predict_fn(prepare_resnet_int8(tree, "cpu"))(x)
     gpu, cpu = gpu.float().cpu(), cpu.float()
     corr = float(np.corrcoef(gpu.numpy().ravel(), cpu.numpy().ravel())[0, 1])
@@ -601,3 +610,40 @@ def test_k7_equals_plain(dev, b, c, h, w, layout):
     assert got.shape == (b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c)
     assert torch.equal(got, want)
     assert (want == 127).any()
+
+
+def test_train_step_never_synchronises_and_matches_the_cpu(dev):
+    """A warm U-Net-CA train step on CUDA tensors synchronises nothing, and
+    two steps on the card match the CPU's from the same weights (TF32 off
+    inside the step): losses within rtol 1e-4 and 5e-4, equal counts on
+    step 1."""
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    rng = np.random.default_rng(0)
+    batches = [(torch.from_numpy(rng.standard_normal((2, 32, 32, 1))
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 2, (2, 32, 32))))
+               for _ in range(2)]
+    outs = {}
+    for where in ("cpu", "cuda"):
+        model = UNet(base_features=16, use_se=True)
+        state = create_state(model, seed=0, device=where)
+        step = make_train_step(model, 2)
+        outs[where] = [step(state, x.to(where), m.to(where))
+                       for x, m in batches]
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    assert float(gpu[0]["loss"]) == pytest.approx(float(cpu[0]["loss"]),
+                                                  rel=1e-4)
+    assert float(gpu[1]["loss"]) == pytest.approx(float(cpu[1]["loss"]),
+                                                  rel=5e-4)
+    for k in ("tp", "fp", "fn", "correct", "valid"):
+        assert torch.equal(gpu[0][k].cpu(), cpu[0][k]), k
+    x, m = (t.to(dev) for t in batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, x, m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

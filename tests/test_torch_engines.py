@@ -149,13 +149,25 @@ def test_bf16_artifact_leaves_round_trip(tmp_path):
     ("unet", "channel", {"mesh": object()}, NotImplementedError),
     ("unet", "channel", {"engine": "int8"}, ValueError),
     ("unet", "channel", {"engine": "fp4"}, ValueError),
-    ("pspnet", "none", {}, NotImplementedError),
+    ("pspnet", "cbam", {}, ValueError),
+    ("psp", "none", {}, ValueError),
 ])
 def test_make_engine_refuses(pair, model, attention, kw, err):
     _, _, tm, _ = pair
     kw = {"engine": "serve", **kw}
     with pytest.raises(err):
         make_engine(model, attention, tm, None, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("attention", ["none", "channel", "spatial"])
+def test_pspnet_cells_build(attention):
+    """Every true-PSPNet cell builds its module and serve engines."""
+    from insarseg_torch.models.registry import build
+
+    model = build("pspnet", attention)
+    for engine in ("module", "serve"):
+        assert callable(make_engine("pspnet", attention, model, None,
+                                    engine, device=CPU))
 
 
 def test_collect_calib_batches_normalizes_u8():

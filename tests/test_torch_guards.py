@@ -57,7 +57,9 @@ def test_port_imports_with_jax_blocked():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
+    from insarseg_torch.config import Config
     from insarseg_torch.data.stitch import sliding_window_inference
+    from insarseg_torch.data.synthetic import synthetic_batch
     from insarseg_torch.engines import make_engine
     from insarseg_torch.models.resnet_int8 import pack_resnet_int8
     from insarseg_torch.models.unet import UNet
@@ -65,6 +67,11 @@ def test_entry_points_default_to_cuda():
     from insarseg_torch.models.unet_s2d import make_s2d_predict_fn
     from insarseg_torch.models.unet_stem import UNetFastS2D
     from insarseg_torch.parallel.inference import make_predict_fn
+    from insarseg_torch.train.engine import (
+        create_state,
+        fit,
+        make_engine_eval_step,
+    )
 
     model = UNet(base_features=16, use_se=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -81,9 +88,19 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_unet_int8(model.state_dict(),
                        [np.zeros((1, 32, 32, 1), np.float32)])
-    for name in ("deeplabv3", "fcn"):
+    for name in ("deeplabv3", "fcn", "pspnet"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_engine(name, "channel", torch.nn.Identity(), None, "serve")
+    for engine in ("module", "int8"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_engine("pspnet", "spatial", torch.nn.Identity(), None,
+                        engine, calib_batches=[np.zeros((1, 32, 32, 1))])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_state(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(model, Config(), [synthetic_batch(1, 16)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine_eval_step(lambda t: t, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_resnet_int8({}, [np.zeros((1, 32, 32, 1), np.float32)])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -25,6 +25,7 @@ from insarseg.engines_io import save_artifact as jax_save
 from insarseg.models.resnet_int8 import resnet_int8_apply as jax_int8_apply
 from insarseg_torch.engines import engine_from_artifact, make_engine, pack_engine
 from insarseg_torch.engines_io import load_artifact, save_artifact
+from insarseg_torch.models.registry import build
 from tests.test_torch_common import CPU, make_resnet_pair, smooth
 
 CELLS = [("deeplabv3", "none"), ("fcn", "channel")]
@@ -130,11 +131,22 @@ def test_engines_agree_on_cpu(cell):
 
 @pytest.mark.parametrize("model,attention,engine", [
     ("pspnet", "none", "serve"), ("pspnet", "spatial", "int8")])
-def test_pspnet_is_not_ported(model, attention, engine):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        make_engine(model, attention, torch.nn.Identity(), None, engine,
-                    device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        engine_from_artifact({"format": 1, "model": model,
-                              "attention": attention, "engine": engine,
-                              "tree": {}}, device=CPU)
+def test_pspnet_builds_and_round_trips(model, attention, engine):
+    """The true PSPNet's cells build and serve on the CPU: through
+    ``make_engine`` on the port's module at full ResNet-50 widths, and
+    from the port's artifact, with the same logits."""
+    torch.manual_seed(0)
+    tm = build(model, attention).eval()
+    rng = np.random.default_rng(60)
+    calib = [smooth(rng, (2, 32, 32, 1))] if engine == "int8" else None
+    x = smooth(rng, (2, 32, 32, 1))
+    got = make_engine(model, attention, tm, None, engine,
+                      calib_batches=calib, device=CPU)(x)
+    assert got.shape == (2, 32, 32, 2)
+    assert got.dtype == (torch.bfloat16 if engine == "int8"
+                         else torch.float32)
+    assert bool(torch.isfinite(got.float()).all())
+    art = pack_engine(model, attention, tm, None, engine,
+                      calib_batches=calib, device=CPU)
+    back = engine_from_artifact(art, device=CPU)(x)
+    assert torch.equal(back, got)
