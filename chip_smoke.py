@@ -48,7 +48,11 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
    the standard layout), each serving batches of eight 512^2 tiles, plus a
    1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
-   FCN int8 engines; after each path, one warm int8 forward on a CUDA input
+   FCN int8 engines; after each path, 9 tiles' int8 logits alone against
+   the same tiles as the first 9 of 18 (bit-equal: the batched
+   multi-scene ``predict`` runs chunks of other sizes than a scene alone;
+   PSPNet-CA, whose bf16 head conv is cuDNN's, by its argmax at
+   ``CLI_AGREE``), one warm int8 forward on a CUDA input
    under ``torch.cuda.set_sync_debug_mode("error")`` (no call may
    synchronise the stream), the int8 forward timed in turns as it is, with
    its device scalars copied from host memory and with K6 / K7 replaced by
@@ -85,8 +89,33 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    128^2 b8, of 2 at 512^2 b8) beside its bound, with one warm step under
    ``set_sync_debug_mode("error")`` and a 3-step profiler window, and
    holds two steps on the card to the CPU's at 64^2 b2;
-6. prints the kernel table as one JSON line, the ``nvidia-smi`` name and
-   power-limit line, and last ``{"ok": true, "device": {...}}``.
+6. runs the commands users run (``insarseg_torch.cli``, on the card) on
+   files, the ``cli`` phase: a synthetic VOC tree (``make_synthetic_voc``)
+   in a temporary directory; ``train --preset unet-channelattention``
+   (base 64, 128^2 b8, 16 train and 8 val tiles) for 2 epochs on the
+   native loader, then ``--resume`` to epoch 3 (finite losses, the history
+   JSON's keys, best and latest written); ``eval`` of the checkpoint on
+   the module and the int8 engine (calibrated on the train split, saved
+   with ``--save-engine``; finite mIoU); ``predict --engine-artifact`` of
+   two 1024^2 scenes and a 1536x1024 one in one call (the first two
+   through the batched stitch), each PNG against a single-scene
+   ``predict`` of it (agreement >= ``CLI_AGREE``, the differing pixels
+   printed), with the launches of each kernel counted from 0 around the
+   call; ``train --preset pspnet-channelattention`` (FCN-ResNet50-CA,
+   64^2 b128, 136 train tiles) for 1 epoch, an int8 ``predict`` of one
+   1024^2 scene, ``export-torch`` and the exported file's ``predict``
+   (the same PNG bit for bit); one train step of ``--preset pspnet-true``
+   at batch 1; every kernel call of every command held against its plain
+   version on the same arguments, as the main paths' calls are (equal,
+   K6 within its counted bar; ``checked_calls``), and each kernel checked
+   at least as often as it launched; each command's wall seconds and the
+   checks' share of them;
+7. prints the kernel table as one JSON line (each row with
+   ``cli_launches``, its launches in the cli phase's predicts, and
+   ``cli_checked`` / ``cli_max_abs_err``, its calls checked in the cli
+   phase and their largest difference from the plain version), the
+   ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
+   "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -547,33 +576,81 @@ def check_resnet_fixed_shapes(dev) -> None:
     torch.cuda.synchronize()
 
 
-def record_calls(module, names, predict, images):
-    """One int8 forward with the kernel wrappers ``names`` of ``module``
-    recording their arguments (bound to the wrappers' parameter names):
-    the tensors the main path gives each kernel."""
+@contextlib.contextmanager
+def spying(modules, names, on_call):
+    """While open, each call of a kernel wrapper of ``names`` that a module
+    of ``modules`` holds runs as it is, then goes to ``on_call(name, args,
+    out)`` with its arguments bound to the wrapper's parameter names."""
     import inspect
 
-    calls = {n: [] for n in names}
-    orig = {n: getattr(module, n) for n in names}
+    saved = [(m, n, getattr(m, n)) for m in modules for n in names
+             if hasattr(m, n)]
 
-    def rec(key, fn):
+    def spy(n, fn):
         sig = inspect.signature(fn)
 
         def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
             bound_args = sig.bind(*args, **kwargs)
             bound_args.apply_defaults()
-            calls[key].append(dict(bound_args.arguments))
-            return fn(*args, **kwargs)
+            on_call(n, dict(bound_args.arguments), out)
+            return out
         return wrapped
 
-    for n, fn in orig.items():
-        setattr(module, n, rec(n, fn))
+    for m, n, fn in saved:
+        setattr(m, n, spy(n, fn))
     try:
-        predict(images)
+        yield
     finally:
-        for n, fn in orig.items():
-            setattr(module, n, fn)
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def record_calls(module, names, predict, images):
+    """One int8 forward with the kernel wrappers ``names`` of ``module``
+    recording their arguments: the tensors the main path gives each
+    kernel."""
+    calls = {n: [] for n in names}
+    with spying([module], names, lambda n, a, out: calls[n].append(a)):
+        predict(images)
     return calls
+
+
+@contextlib.contextmanager
+def checked_calls(checked):
+    """While open, every kernel call the int8 engines make is held against
+    the wrapper's plain version on the same arguments, as ``kernel_row``
+    holds the main paths' calls: equal, K6 within its counted bar
+    (``up_compare`` at ``UP_SHARE_MAIN``); the first that disagrees
+    raises. ``checked`` gathers per kernel name the calls, the largest
+    |delta|, the differing and all elements, and the seconds the checks
+    took."""
+    from insarseg_torch import kernels as K
+    from insarseg_torch.models import resnet_int8, unet_int8
+
+    kernel_of = {w: k for k, (w, _, _) in KERNELS.items()}
+
+    def check(n, a, out):
+        t0 = time.perf_counter()
+        cmp = (up_compare(K.UP_SHARE_MAIN, a["skip"].shape[-1])
+               if n == "up_concat_i8" else compare)
+        try:
+            e, nd, nall = cmp(out, getattr(K, n + "_plain")(**a))
+        except AssertionError as err:
+            shapes = {k: tuple(v.shape) for k, v in a.items()
+                      if hasattr(v, "shape")}
+            raise AssertionError(f"{n} on {shapes}: {err}") from None
+        c = checked.setdefault(kernel_of[n], {
+            "calls": 0, "max_abs_err": 0.0, "differing": 0, "elements": 0,
+            "seconds": 0.0})
+        c["calls"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"], e)
+        c["differing"] += nd
+        c["elements"] += nall
+        c["seconds"] += time.perf_counter() - t0
+
+    with spying([unet_int8, resnet_int8], list(kernel_of), check):
+        yield
 
 
 def kernel_row(name, source, replaces, cases):
@@ -1134,6 +1211,27 @@ def k6_agreement(predict, images, label, bar) -> float:
     return agree
 
 
+def batch_invariance(predict, dev, label, exact: bool = True) -> None:
+    """9 tiles' int8 logits alone and as the first 9 of 18 (512^2), since
+    the batched multi-scene ``predict`` runs chunks of other sizes than a
+    scene alone: bit-equal with ``exact``, else their argmax agreeing on
+    ``CLI_AGREE`` of the pixels. Raises otherwise."""
+    import torch
+
+    x = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 9), 18,
+                                      HW, HW)).to(dev)
+    with torch.inference_mode():
+        among = predict(x)[:9]
+        alone = predict(x[:9])
+    n = int((among != alone).sum())
+    agree = float((among.argmax(-1) == alone.argmax(-1)).double().mean())
+    log(f"{label}: int8 logits of 9 tiles among 18 vs alone, {n} of "
+        f"{alone.numel()} differ, argmax agreement {agree:.6f}")
+    if (exact and n) or agree < CLI_AGREE:
+        raise AssertionError(f"{label}: a tile's int8 logits depend on the "
+                             "batch")
+
+
 def check_no_sync(predict, x, label) -> None:
     """One warm int8 forward on a CUDA input under
     ``torch.cuda.set_sync_debug_mode("error")``: any call that synchronises
@@ -1657,6 +1755,237 @@ def train_path(dev, power_line: str, phase) -> None:
     phase("training: card vs CPU")
 
 
+# The CLI phase: the commands users run, on files, through
+# ``insarseg_torch.cli.main`` on the card (no --device: cuda)
+CLI_UNET = ["--preset", "unet-channelattention"]  # base 64, 128^2 b8
+CLI_FCN = ["--preset", "pspnet-channelattention"]  # FCN-ResNet50-CA, 64^2 b128
+# the kernels each predict of the phase launches: U-Net-CA's int8 engine
+# (H-s2d) and FCN-CA's
+CLI_UNET_KERNELS = ("int8_conv3x3_epilogue", "se_squeeze_i8", "se_excite_i8",
+                    "maxpool2x2_i8", "maxpool_exit_s2d_i8", "up_concat_i8")
+CLI_FCN_KERNELS = ("int8_conv_epilogue", "se_residual_i8", "se_squeeze_i8",
+                   "stem_pool_i8")
+CLI_AGREE = 0.9999  # batched against single-scene predict, on the card
+
+
+def cli(argv, timings, checked, label=None):
+    """One CLI command in this process (its own exit code must be 0), every
+    kernel call in it held against its plain version (``checked_calls``,
+    into ``checked``); returns what it printed. Its wall seconds, checks
+    included, and the checks' seconds go into ``timings``. Fails unless
+    each kernel was checked at least as often as it launched."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.cli import main
+
+    buf = io.StringIO()
+    before = dict(K.LAUNCHES)
+    mine = {}
+    t0 = time.perf_counter()
+    with redirect_stdout(buf), checked_calls(mine):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = buf.getvalue()
+    check_sec = sum(c["seconds"] for c in mine.values())
+    timings.append((label or " ".join(argv[:3]), sec, check_sec))
+    log(f"  [{sec:.2f} s, {check_sec:.2f} s of it checking "
+        f"{sum(c['calls'] for c in mine.values())} kernel calls] "
+        f"insarseg_torch.cli {' '.join(argv)}")
+    for line in out.strip().splitlines()[-3:]:
+        log("    " + line)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited with {rc}:\n{out}")
+    for k, n in K.LAUNCHES.items():
+        done = mine.get(k, {"calls": 0})["calls"]
+        if n - before[k] > done:
+            raise AssertionError(f"cli {argv[0]}: {k} launched "
+                                 f"{n - before[k]} times, {done} checked")
+    for k, c in mine.items():
+        if k not in checked:
+            checked[k] = dict(c)
+            continue
+        for f in ("calls", "differing", "elements", "seconds"):
+            checked[k][f] += c[f]
+        checked[k]["max_abs_err"] = max(checked[k]["max_abs_err"],
+                                        c["max_abs_err"])
+    return out
+
+
+def write_scene(path, h, w, seed) -> None:
+    """A seeded smooth grayscale scene file."""
+    from PIL import Image
+
+    x = smooth_batch(np.random.default_rng(seed), 1, h, w)[0, ..., 0]
+    u8 = np.clip((x * 0.5 + 0.5) * 255, 0, 255).astype(np.uint8)
+    Image.fromarray(u8, "L").save(path)
+
+
+def cli_metrics(out):
+    import ast
+
+    res = ast.literal_eval(out.strip().splitlines()[-1])
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"non-finite metrics {res}")
+    return res
+
+
+def cli_path(power_line: str) -> dict:
+    """The ``cli`` phase: train / eval / predict / export-torch at full
+    width on the card from a synthetic VOC tree and scene files, every
+    kernel call held against its plain version. Returns the kernel
+    launches of its int8 predicts (counters set to 0 just before each and
+    read just after) and, per kernel, the calls checked."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from insarseg_torch import kernels as K
+    from insarseg_torch.data.synthetic import make_synthetic_voc
+
+    if importlib.util.find_spec("PIL") is None:
+        raise AssertionError("the cli phase reads and writes image files "
+                             "and needs PIL, which this machine lacks")
+    import PIL
+    from PIL import Image
+
+    log(f"cli phase (PIL {PIL.__version__}) on {power_line}")
+    timings, launches, checked = [], {}, {}
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            make_synthetic_voc("voc_unet", n_train=16, n_val=8, size=128,
+                               seed=SEED)
+            make_synthetic_voc("voc_fcn", n_train=136, n_val=8, size=64,
+                               seed=SEED + 1)
+            make_synthetic_voc("voc_one", n_train=1, n_val=1, size=64,
+                               seed=SEED + 2)
+            write_scene("s1.png", 1024, 1024, SEED + 50)
+            write_scene("s2.png", 1024, 1024, SEED + 51)
+            write_scene("s3.png", 1536, 1024, SEED + 52)
+
+            # U-Net-CA: train 2 epochs on the native loader, resume to 3
+            unet = [*CLI_UNET, "--voc-root", "voc_unet", "--native",
+                    "--model-save-path", "ck_unet/m", "--metrics-save-path",
+                    "unet.json"]
+            cli(["train", *unet, "--num-epochs", "2"], timings, checked)
+            cli(["train", *unet, "--num-epochs", "3", "--resume"], timings,
+                checked, "train --resume")
+            hist = json.load(open("unet.json"))
+            keys = {f"{p}_{k}" for p in ("train", "val")
+                    for k in ("loss", "acc", "miou", "mpa", "mf1")}
+            if [h["epoch"] for h in hist] != [1, 2, 3] or \
+                    not all(keys <= set(h) for h in hist) or \
+                    not all(np.isfinite(h[k]) for h in hist for k in keys):
+                raise AssertionError(f"U-Net-CA history {hist}")
+            if not {"best.pt", "latest.pt"} <= set(os.listdir("ck_unet/m")):
+                raise AssertionError("no best / latest checkpoint")
+            log(f"  U-Net-CA losses: train "
+                f"{[round(h['train_loss'], 5) for h in hist]}, val "
+                f"{[round(h['val_loss'], 5) for h in hist]}")
+
+            # scored on the module and the int8 engine (calibrated on the
+            # train split), the int8 engine saved as an artifact
+            ev = [*CLI_UNET, "--voc-root", "voc_unet", "--checkpoint",
+                  "ck_unet/m"]
+            m_mod = cli_metrics(cli(["eval", *ev], timings, checked,
+                                    "eval module"))
+            m_i8 = cli_metrics(cli(["eval", *ev, "--engine", "int8",
+                                    "--calib-split", "train",
+                                    "--save-engine", "A"], timings, checked,
+                                   "eval int8 --save-engine"))
+            log(f"  U-Net-CA val mIoU: module {m_mod['val_miou']:.5f}, "
+                f"int8 {m_i8['val_miou']:.5f}")
+
+            # three scenes, two of one shape through the batched stitch
+            pred = [*CLI_UNET, "--engine-artifact", "A.npz"]
+            K.reset_launches()
+            cli(["predict", *pred, "--input", "s1.png", "s2.png", "s3.png",
+                 "--output", "multi"], timings, checked, "predict 3 scenes")
+            launches["unet"] = {k: n for k, n in K.LAUNCHES.items() if n}
+            log(f"  launches of the U-Net-CA predict: {launches['unet']}")
+            for k in CLI_UNET_KERNELS:
+                if not launches["unet"].get(k):
+                    raise AssertionError(f"{k} never launched in predict")
+            for s in ("s1", "s2", "s3"):
+                cli(["predict", *pred, "--input", f"{s}.png", "--output",
+                     f"{s}_one.png"], timings, checked, f"predict {s} alone")
+                a = np.asarray(Image.open(f"multi/{s}_pred.png"))
+                b = np.asarray(Image.open(f"{s}_one.png"))
+                n_diff = int((a != b).sum())
+                agree = 1 - n_diff / a.size
+                log(f"  {s} {a.shape}: batched vs alone, {n_diff} of "
+                    f"{a.size} pixels differ (agreement {agree:.6f}, bar "
+                    f"{CLI_AGREE}); classes {np.unique(a).tolist()}")
+                if a.shape != b.shape or agree < CLI_AGREE:
+                    raise AssertionError(f"{s}: batched predict disagrees")
+
+            # FCN-ResNet50-CA at its preset (64^2 b128): one epoch, then an
+            # int8 predict calibrated on the scene; export-torch and the
+            # exported file predict the same PNG
+            fcn = [*CLI_FCN, "--voc-root", "voc_fcn", "--model-save-path",
+                   "ck_fcn/m", "--metrics-save-path", "fcn.json"]
+            cli(["train", *fcn, "--num-epochs", "1"], timings, checked,
+                "train FCN-CA")
+            fh = json.load(open("fcn.json"))
+            if not (np.isfinite(fh[0]["train_loss"])
+                    and np.isfinite(fh[0]["val_loss"])):
+                raise AssertionError(f"FCN-CA history {fh}")
+            log(f"  FCN-CA losses: train {fh[0]['train_loss']:.5f}, val "
+                f"{fh[0]['val_loss']:.5f}")
+            K.reset_launches()
+            cli(["predict", *CLI_FCN, "--checkpoint", "ck_fcn/m",
+                 "--engine", "int8", "--input", "s1.png", "--output",
+                 "fcn_s1.png"], timings, checked, "predict FCN-CA int8")
+            launches["fcn"] = {k: n for k, n in K.LAUNCHES.items() if n}
+            log(f"  launches of the FCN-CA predict: {launches['fcn']}")
+            for k in CLI_FCN_KERNELS:
+                if not launches["fcn"].get(k):
+                    raise AssertionError(f"{k} never launched in predict")
+            cli(["export-torch", *CLI_FCN, "--checkpoint", "ck_fcn/m",
+                 "--output", "fcn.pth"], timings, checked)
+            cli(["predict", *CLI_FCN, "--torch-checkpoint", "fcn.pth",
+                 "--engine", "int8", "--input", "s1.png", "--output",
+                 "fcn_pth.png"], timings, checked,
+                "predict --torch-checkpoint")
+            a = np.asarray(Image.open("fcn_s1.png"))
+            b = np.asarray(Image.open("fcn_pth.png"))
+            if not np.array_equal(a, b):
+                raise AssertionError("export-torch: the exported file "
+                                     f"predicts {int((a != b).sum())} "
+                                     "other pixels")
+            log("  FCN-CA: export-torch -> --torch-checkpoint predicts the "
+                "same PNG bit for bit")
+
+            # the true PSPNet takes a train step at batch 1 (one value per
+            # channel in its 1x1 bin)
+            cli(["train", "--preset", "pspnet-true", "--batch-size", "1",
+                 "--voc-root", "voc_one", "--num-epochs", "1",
+                 "--model-save-path", "ck_psp/m", "--metrics-save-path",
+                 "psp.json"], timings, checked, "train pspnet-true b1")
+            ph = json.load(open("psp.json"))
+            if not np.isfinite(ph[0]["train_loss"]):
+                raise AssertionError(f"pspnet-true at batch 1: {ph}")
+        finally:
+            os.chdir(old)
+    log("cli command seconds (checks included, checks): " + json.dumps(
+        {k: [round(v, 3), round(c, 3)] for k, v, c in timings}))
+    log("cli kernel calls checked against their plain versions: "
+        + json.dumps(checked))
+    for k in set(CLI_UNET_KERNELS) | set(CLI_FCN_KERNELS):
+        if not checked.get(k, {}).get("calls"):
+            raise AssertionError(f"{k}: no call checked in the cli phase")
+    total = {}
+    for per in launches.values():
+        for k, n in per.items():
+            total[k] = total.get(k, 0) + n
+    return total, checked
+
+
 def run(dev, power_line: str, phase) -> list:
     """Phases 2-4 on ``dev``; returns the kernel table."""
     import torch
@@ -1697,6 +2026,9 @@ def run(dev, power_line: str, phase) -> list:
             engines, images, dev, corr_bar, want, label, power_line,
             scene=scene if with_scene else None)
         phase(f"{label}: main path")
+        # the PSPNet's bf16 head convolves 4096 -> 512 channels in cuDNN,
+        # which picks its kernel, and its sum order, by the batch
+        batch_invariance(engines["int8"], dev, label, exact=name != "pspnet")
         x_dev = torch.from_numpy(images).to(dev)
         check_no_sync(engines["int8"], x_dev, label)
         forward_turns(engines["int8"], x_dev, label, power_line,
@@ -1704,7 +2036,8 @@ def run(dev, power_line: str, phase) -> list:
         if name == "pspnet":
             ppm_turns(engines["int8"], x_dev, power_line)
         del x_dev
-        phase(f"{label}: int8 forward without syncs, in turns with them")
+        phase(f"{label}: int8 forward batch-invariant, without syncs, in "
+              "turns with them")
         if is_unet:
             k6_agreement(engines["int8"], images, label,
                          K6_AGREE[(name, attention)])
@@ -1789,6 +2122,13 @@ def main() -> int:
 
     table = run(dev, power_line, phase)
     train_path(dev, power_line, phase)
+    cli_launches, cli_checked = cli_path(power_line)
+    for row in table:
+        row["cli_launches"] = cli_launches.get(row["name"], 0)
+        c = cli_checked.get(row["name"], {})
+        row["cli_checked"] = c.get("calls", 0)
+        row["cli_max_abs_err"] = c.get("max_abs_err")
+    phase("cli: train, eval, predict, export-torch")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(power_line, flush=True)

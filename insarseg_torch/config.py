@@ -1,16 +1,16 @@
-"""Configuration and the named experiment presets (own copy of the part
-of ``insarseg/config.py`` that training reads: the port imports nothing of
-the JAX package). The model, data-path, remat and save-path fields come
-with the code that reads them (ROADMAP Queue 1 items 11 and 12).
+"""Configuration and the named experiment presets (own copy of
+``insarseg/config.py``: the port imports nothing of the JAX package).
 
 The reference's configuration is a block of constants at the top of each
 training script; the per-script differences (tile 64 or 128, batch 8 or
 128, 25 or 100 epochs, metrics v1 or v2) are the experiment grid. Here it
 is one frozen dataclass with one preset per reference script, named after
-the script, plus the two extensions. The port trains in f32 only:
-``compute_dtype='bfloat16'`` is ROADMAP Queue 1 item 18, and
-``mesh_data`` / ``mesh_spatial`` above 1 are item 16 (``train/engine.py``
-raises for both).
+the script, plus the two extensions; the CLI overrides any field.
+
+What the port does not run yet raises where it is read:
+``compute_dtype='bfloat16'`` (ROADMAP Queue 1 item 18) and ``mesh_data``
+/ ``mesh_spatial`` above 1 (item 16) in ``train/engine.py::fit``;
+``remat=True`` (item 19) in ``models/registry.py::build_model``.
 """
 
 from __future__ import annotations
@@ -21,15 +21,22 @@ from typing import Dict
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX package's fields that :func:`train.engine.fit` reads, with
-    the same defaults. The model is built by the caller and passed to
-    ``fit`` beside its config."""
+    """The JAX package's fields, with the same defaults."""
 
+    # -- model --
+    model: str = "unet"  # unet | unet-fast | deeplabv3 | fcn | pspnet
+    attention: str = "none"  # none | channel | spatial
     num_classes: int = 2
+    in_channels: int = 1
+    backbone: str = "resnet50"  # for deeplabv3 / fcn / pspnet
 
     # -- data --
+    voc_root: str = "data/VOCdevkit/VOC2012"
     image_size: int = 64
     ignore_index: int = 255
+    # legacy: the reference's {0, 255} masks through ToTensor() and
+    # .long() (only 255 becomes class 1); index: raw class ids
+    mask_contract: str = "legacy"  # legacy | index
     normalize_mean: float = 0.5
     normalize_std: float = 0.5
     # the on-device D4 augment of the train step (the reference has none)
@@ -40,6 +47,11 @@ class Config:
     num_epochs: int = 25
     learning_rate: float = 1e-4
     seed: int = 0
+    # drop the last partial train batch; by default it is zero-padded to
+    # the batch size and the padded images enter BN's batch statistics
+    drop_last: bool = False
+    # activation checkpointing of the U-Net blocks: ROADMAP item 19
+    remat: bool = False
     log_every_steps: int = 100
     # 1: (acc, miou) of the reference's Unet.py; 2: {acc, miou, mpa, mf1}
     # of its Unet-ChannalAttention.py, OA quirk kept
@@ -48,37 +60,50 @@ class Config:
     # reference); global: one confusion matrix over the epoch
     metrics_mode: str = "batch_mean"  # batch_mean | global
 
+    # -- checkpoint / history --
+    model_save_path: str = "trained_models/model_best.ckpt"
+    metrics_save_path: str = "training_metrics/history.json"
+
     # -- execution --
     compute_dtype: str = "float32"  # float32 | bfloat16
     mesh_data: int = -1  # -1 = all devices on the data axis
     mesh_spatial: int = 1  # spatial partitioning of H
 
 
-# One preset per reference script (SURVEY.md §2.1), named after it: tile
-# size, batch, epochs and metrics version as the script sets them. The
-# reference's "PSPNet" scripts train FCN-ResNet50 (SURVEY.md §0); the last
-# two are the extensions with no reference script (the fast cell, and the
-# true PSPNet under the 'pspnet' protocol).
+def _p(model: str, attention: str, image_size: int, batch_size: int,
+       num_epochs: int, stem: str, metrics_version: int = 2) -> Config:
+    return Config(model=model, attention=attention, image_size=image_size,
+                  batch_size=batch_size, num_epochs=num_epochs,
+                  metrics_version=metrics_version,
+                  model_save_path=f"trained_models/{stem}_best.ckpt",
+                  metrics_save_path=f"training_metrics/{stem}.json")
+
+
+# One preset per reference script (SURVEY.md §2.1), named after it: model,
+# attention, tile size, batch, epochs, metrics version and save paths as
+# the JAX package sets them. The reference's "PSPNet" scripts train
+# FCN-ResNet50 (SURVEY.md §0); the last two are the extensions with no
+# reference script (the fast cell, and the true PSPNet under the
+# 'pspnet' protocol).
 PRESETS: Dict[str, Config] = {
-    "unet": Config(image_size=64, batch_size=8, num_epochs=25,
-                   metrics_version=1),
-    "unet-channelattention": Config(image_size=128, batch_size=8,
-                                    num_epochs=25),
-    "unet-spatialattention": Config(image_size=64, batch_size=128,
-                                    num_epochs=25),
-    "deeplabv3": Config(image_size=64, batch_size=8, num_epochs=25,
-                        metrics_version=1),
-    "deeplabv3-channelattention": Config(image_size=64, batch_size=128,
-                                         num_epochs=25),
-    "deeplabv3-spatialattention": Config(image_size=64, batch_size=128,
-                                         num_epochs=25),
-    "pspnet": Config(image_size=64, batch_size=8, num_epochs=25),
-    "pspnet-channelattention": Config(image_size=64, batch_size=128,
-                                      num_epochs=100),
-    "pspnet-spatialattention": Config(image_size=64, batch_size=128,
-                                      num_epochs=100),
-    "unet-fast-ca": Config(image_size=128, batch_size=8, num_epochs=25),
-    "pspnet-true": Config(image_size=64, batch_size=8, num_epochs=25),
+    "unet": _p("unet", "none", 64, 8, 25, "unet_64", metrics_version=1),
+    "unet-channelattention": _p("unet", "channel", 128, 8, 25,
+                                "unet_ca_128"),
+    "unet-spatialattention": _p("unet", "spatial", 64, 128, 25,
+                                "unet_sa_64"),
+    "deeplabv3": _p("deeplabv3", "none", 64, 8, 25, "deeplabv3_64",
+                    metrics_version=1),
+    "deeplabv3-channelattention": _p("deeplabv3", "channel", 64, 128, 25,
+                                     "deeplabv3_ca_64"),
+    "deeplabv3-spatialattention": _p("deeplabv3", "spatial", 64, 128, 25,
+                                     "deeplabv3_sa_64"),
+    "pspnet": _p("fcn", "none", 64, 8, 25, "fcn_64"),
+    "pspnet-channelattention": _p("fcn", "channel", 64, 128, 100,
+                                  "fcn_se_64"),
+    "pspnet-spatialattention": _p("fcn", "spatial", 64, 128, 100,
+                                  "fcn_sa_64"),
+    "unet-fast-ca": _p("unet-fast", "channel", 128, 8, 25, "unet_fast_ca"),
+    "pspnet-true": _p("pspnet", "none", 64, 8, 25, "pspnet_true_64"),
 }
 
 

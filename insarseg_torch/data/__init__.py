@@ -1,1 +1,3 @@
-"""Scene tiling and stitching, on-device augmentation, synthetic batches."""
+"""The data path: the VOC reader and batch loader, the native host
+kernels and prefetching, scene tiling and stitching, on-device
+augmentation, synthetic data."""

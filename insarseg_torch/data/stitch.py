@@ -8,7 +8,10 @@
   with a 1e-3 floor, or uniform), accumulated tile by tile in plan order
   as the JAX ``lax.scan`` does, then divided by the summed weights;
 - ``sliding_window_inference``: tiles -> chunked forward (the tail chunk
-  zero-padded to the chunk size) -> stitch.
+  zero-padded to the chunk size) -> stitch;
+- ``sliding_window_inference_batched``: S same-shaped scenes through one
+  stream of fixed-size forward chunks over their shared tile plan, each
+  chunk added into the scenes' accumulator before the next is gathered.
 """
 
 from __future__ import annotations
@@ -122,3 +125,57 @@ def sliding_window_inference(
                               batch_size)
     out = stitch_tiles(logits, coords, (ph, pw), window)
     return out[:h, :w] if (pad_h or pad_w) else out
+
+
+def sliding_window_inference_batched(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    scenes,
+    tile: int = 512,
+    overlap: int = 64,
+    window: str = "hann",
+    batch_size: Optional[int] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Multi-scene sliding-window inference, ``(S, H, W, C_in) -> (S, H,
+    W, C_out)``, on ``device`` (``None`` means ``cuda``).
+
+    The scenes share one tile plan, so their S x N tiles form one stream
+    of ``batch_size``-tile forward chunks (scene-major, plan order): the
+    card stays filled whatever a scene's tile count. The tail chunk is
+    padded by repeating its last tile index, and the repeats are left out
+    of the overlap-add. Each chunk is added into the f32 accumulator
+    before the next is gathered, so the peak memory is the (S, H, W,
+    C_out) accumulator plus one chunk. Every scene's tiles are added in
+    plan order onto its own slice, so each result equals
+    :func:`sliding_window_inference` of that scene alone, bit for bit."""
+    scenes = torch.as_tensor(scenes, device=resolve_device(device))
+    s, h, w, _ = scenes.shape
+    pad_h, pad_w = max(0, tile - h), max(0, tile - w)
+    if pad_h or pad_w:
+        scenes = F.pad(scenes, (0, 0, 0, pad_w, 0, pad_h))
+    ph, pw = scenes.shape[1:3]
+    coords = plan_tiles(ph, pw, tile, overlap)
+    n = len(coords)
+    total = s * n
+    bs = batch_size or total
+    wnd = torch.as_tensor(_window(tile, window),
+                          device=scenes.device)[:, :, None]
+    flat = [(k // n,) + coords[k % n] for k in range(total)]
+    acc = den = out_dtype = None
+    for i in range(0, total, bs):
+        chunk = flat[i:i + bs]
+        valid = len(chunk)
+        chunk = chunk + [chunk[-1]] * (bs - valid)
+        logits = apply_fn(torch.stack(
+            [scenes[si, r:r + tile, c:c + tile] for si, r, c in chunk]))
+        if acc is None:
+            out_dtype = logits.dtype
+            acc = torch.zeros((s, ph, pw, logits.shape[-1]),
+                              dtype=torch.float32, device=scenes.device)
+            den = torch.zeros((s, ph, pw, 1), dtype=torch.float32,
+                              device=scenes.device)
+        for lg, (si, r, c) in zip(logits[:valid], chunk[:valid]):
+            acc[si, r:r + tile, c:c + tile] += lg.to(torch.float32) * wnd
+            den[si, r:r + tile, c:c + tile] += wnd
+    out = (acc / den).to(out_dtype)
+    return out[:, :h, :w] if (pad_h or pad_w) else out

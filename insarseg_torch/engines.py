@@ -35,6 +35,16 @@ MESH_TODO = ("insarseg_torch does not port multi-GPU serving (ROADMAP "
              "Queue 1 item 16) yet")
 
 
+def supported(model_name: str, attention: str, engine: str) -> bool:
+    """Whether (model, attention) runs on ``engine`` (the JAX package's
+    ``supported``): whether :func:`_check_cell` takes the cell."""
+    try:
+        _check_cell(model_name, attention, engine, None)
+    except ValueError:
+        return False
+    return True
+
+
 def _check_cell(model_name: str, attention: str, engine: str,
                 mesh: Any) -> str:
     model_name = model_name.lower().replace("_", "-")

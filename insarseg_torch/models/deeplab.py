@@ -10,9 +10,10 @@ quirk: ``classifier.1`` is a bare conv, with no ``classifier.2`` BN and no
 ReLU. The logits are bilinearly resized to the input size.
 
 ASPP: ``convs.0`` 1x1 + ``convs.1..3`` 3x3 atrous at rates 12/24/36
-(pad = rate) + ``convs.4`` image pooling (GAP -> 1x1 -> BN -> ReLU, then
-broadcast back), each 256 wide, concatenated (1280) -> ``project`` 1x1 ->
-BN -> ReLU -> Dropout(0.5).
+(pad = rate) + ``convs.4`` image pooling (GAP -> 1x1 -> BN with the JAX
+package's batch statistics, ``ops/layers.py::MomentBatchNorm2d`` -> ReLU,
+then broadcast back), each 256 wide, concatenated (1280) -> ``project``
+1x1 -> BN -> ReLU -> Dropout(0.5).
 """
 
 from __future__ import annotations
@@ -26,13 +27,15 @@ from insarseg_torch.ops.blocks import (
     ChannelAttentionModule,
     SpatialAttentionConv,
 )
+from insarseg_torch.ops.layers import MomentBatchNorm2d
 from insarseg_torch.ops.resize import resize_bilinear
 
 
-def _conv_bn_relu(cin: int, cout: int, k: int = 1, dilation: int = 1):
+def _conv_bn_relu(cin: int, cout: int, k: int = 1, dilation: int = 1,
+                  bn=nn.BatchNorm2d):
     return [nn.Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
                       dilation=dilation, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU(inplace=True)]
+            bn(cout), nn.ReLU(inplace=True)]
 
 
 ASPP_RATES = (12, 24, 36)
@@ -46,8 +49,10 @@ class ASPP(nn.Module):
         branches = [nn.Sequential(*_conv_bn_relu(in_channels, features))]
         branches += [nn.Sequential(*_conv_bn_relu(in_channels, features, 3, r))
                      for r in ASPP_RATES]
+        # the pooled branch has one value per channel at batch 1
         branches.append(nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), *_conv_bn_relu(in_channels, features)))
+            nn.AdaptiveAvgPool2d(1),
+            *_conv_bn_relu(in_channels, features, bn=MomentBatchNorm2d)))
         self.convs = nn.ModuleList(branches)
         self.project = nn.Sequential(
             *_conv_bn_relu(features * len(branches), features),

@@ -6,8 +6,10 @@
 output before the head. The head: for bins (1, 2, 3, 6), the backbone
 output adaptive-average-pooled to bin x bin (``ops/layers.py``, the JAX
 package's integral-image form) -> ``ppm.conv_bin{b}`` 1x1 (2048 -> 512,
-bias-free) -> ``ppm.bn_bin{b}`` -> ReLU -> bilinear resize back; the four
-concatenated after the input (4096 channels) -> ``bottleneck_conv`` 3x3
+bias-free) -> ``ppm.bn_bin{b}`` (the JAX package's batch statistics,
+which a 1x1 bin at batch 1 needs: ``ops/layers.py::MomentBatchNorm2d``)
+-> ReLU -> bilinear resize back; the four concatenated after the input
+(4096 channels) -> ``bottleneck_conv`` 3x3
 (4096 -> 512, bias-free) -> ``bottleneck_bn`` -> ReLU -> Dropout(0.1) ->
 ``classifier`` 1x1 -> bilinear resize to the input size.
 
@@ -25,7 +27,7 @@ from torch import nn
 
 from insarseg_torch.models.resnet import build_backbone
 from insarseg_torch.ops.blocks import SpatialAttentionConv
-from insarseg_torch.ops.layers import adaptive_avg_pools
+from insarseg_torch.ops.layers import MomentBatchNorm2d, adaptive_avg_pools
 from insarseg_torch.ops.resize import resize_bilinear
 
 BINS = (1, 2, 3, 6)
@@ -39,7 +41,8 @@ class PyramidPooling(nn.Module):
         for b in self.bins:
             setattr(self, f"conv_bin{b}",
                     nn.Conv2d(in_channels, branch_features, 1, bias=False))
-            setattr(self, f"bn_bin{b}", nn.BatchNorm2d(branch_features))
+            setattr(self, f"bn_bin{b}",
+                    MomentBatchNorm2d(branch_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = x.shape[-2:]

@@ -1,5 +1,6 @@
-"""Model registry (counterpart of ``insarseg/models/registry.py::build``):
-the port's ``nn.Module`` for a (model, attention) cell of the reference."""
+"""Model registry (counterpart of ``insarseg/models/registry.py``): the
+port's ``nn.Module`` for a (model, attention) cell of the reference, by
+name or from a ``config.Config``."""
 
 from __future__ import annotations
 
@@ -9,6 +10,20 @@ from insarseg_torch.models.deeplab import DeepLabV3
 from insarseg_torch.models.fcn import FCN
 from insarseg_torch.models.pspnet import PSPNet
 from insarseg_torch.models.unet import UNet
+
+
+REMAT_TODO = ("insarseg_torch does not rematerialize activations yet; "
+              "remat=True is ROADMAP Queue 1 item 19 "
+              "(torch.utils.checkpoint)")
+
+
+def build_model(cfg) -> nn.Module:
+    """The module a ``config.Config`` describes (f32 weights; the compute
+    dtype is the train step's, ``train/engine.py::fit``)."""
+    if cfg.remat:
+        raise NotImplementedError(REMAT_TODO)
+    return build(cfg.model, cfg.attention, num_classes=cfg.num_classes,
+                 backbone=cfg.backbone, in_channels=cfg.in_channels)
 
 
 def build(model: str, attention: str = "none", num_classes: int = 2,

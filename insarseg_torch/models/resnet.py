@@ -11,7 +11,11 @@
   d(2,4,4) (:func:`layer_schedule`);
 - the stride sits on the 3x3 ``conv2`` and on ``downsample.0``;
 - optional SE (``se_block``, :class:`~insarseg_torch.ops.blocks.SEBlock`)
-  after ``bn3``, before the residual add.
+  after ``bn3``, before the residual add;
+- torchvision's init, as the JAX package draws it
+  (``insarseg/models/resnet.py:39-43``): every backbone conv (not the SE
+  MLP) kaiming-normal with fan_out (:class:`KaimingConv2d`), BN gamma 1
+  and beta 0.
 
 ``forward`` returns ``{'out': layer4, 'aux': layer3}``.
 """
@@ -54,6 +58,19 @@ def layer_schedule(layers: Sequence[int],
     return sched
 
 
+class KaimingConv2d(nn.Conv2d):
+    """A bias-free ``nn.Conv2d`` drawn ``kaiming_normal_(mode='fan_out',
+    nonlinearity='relu')``, N(0, 2 / (cout kh kw)), from torch's default
+    generator."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, bias=False, **kwargs)
+
+    def reset_parameters(self) -> None:
+        nn.init.kaiming_normal_(self.weight, mode="fan_out",
+                                nonlinearity="relu")
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride, dilation) -> 1x1 (x4), optional SE before the
     residual add."""
@@ -62,20 +79,19 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, use_se: bool = False):
         super().__init__()
         out = planes * 4
-        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.conv1 = KaimingConv2d(in_planes, planes, 1)
         self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
+        self.conv2 = KaimingConv2d(planes, planes, 3, stride=stride,
+                                   padding=dilation, dilation=dilation)
         self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = KaimingConv2d(planes, out, 1)
         self.bn3 = nn.BatchNorm2d(out)
         self.relu = nn.ReLU(inplace=True)
         self.se_block = SEBlock(out) if use_se else None
         self.downsample = None
         if stride != 1 or in_planes != out:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, out, 1, stride=stride, bias=False),
+                KaimingConv2d(in_planes, out, 1, stride=stride),
                 nn.BatchNorm2d(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,8 +111,7 @@ class ResNet50(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  use_se: bool = False, in_channels: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = KaimingConv2d(in_channels, 64, 7, stride=2, padding=3)
         self.bn1 = nn.BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         in_planes = 64

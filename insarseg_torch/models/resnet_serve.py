@@ -29,6 +29,7 @@ from insarseg_torch.models.unet_s2d import _chan, _hwio, _optional
 from insarseg_torch.ops.fold import fold_bn
 from insarseg_torch.ops.layers import (
     adaptive_avg_pools,
+    gate_mlp,
     max_pool_2d,
     nchw_to_nhwc,
     nhwc_to_nchw,
@@ -172,8 +173,7 @@ def _ca(x: torch.Tensor, c: Mapping, stride: int = 1, dilation: int = 1,
 
 
 def _se_gate(blk: Mapping, pooled: torch.Tensor) -> torch.Tensor:
-    g = torch.relu(pooled @ blk["fc1"].to(pooled.dtype))
-    return torch.sigmoid(g @ blk["fc2"].to(g.dtype))
+    return torch.sigmoid(gate_mlp(blk, pooled))
 
 
 def _bottleneck(blk: Mapping, x: torch.Tensor) -> torch.Tensor:
@@ -181,8 +181,8 @@ def _bottleneck(blk: Mapping, x: torch.Tensor) -> torch.Tensor:
     y = _ca(y, blk["c2"], blk["stride"], blk["dilation"])
     y = _ca(y, blk["c3"], relu=False)
     if "fc1" in blk:  # SE before the residual add
-        g = torch.relu(y.mean(dim=(2, 3)) @ blk["fc1"].to(y.dtype))
-        g = torch.sigmoid((g @ blk["fc2"].to(g.dtype)).to(torch.float32))
+        g = torch.sigmoid(gate_mlp(blk, y.mean(dim=(2, 3)))
+                          .to(torch.float32))
         y = y * g.to(y.dtype)[:, :, None, None]
     identity = x if "ds" not in blk else _ca(x, blk["ds"], blk["stride"],
                                              relu=False)
@@ -231,12 +231,9 @@ def _attention_apply(att: Optional[Mapping], y: torch.Tensor) -> torch.Tensor:
     if att is None:
         return y
     if att["type"] == "channel":
-        def mlp(v):
-            h = torch.relu(v @ att["fc1"].to(v.dtype))
-            return h @ att["fc2"].to(h.dtype)
-
-        g = torch.sigmoid((mlp(y.mean(dim=(2, 3)))
-                           + mlp(y.amax(dim=(2, 3)))).to(torch.float32))
+        g = torch.sigmoid((gate_mlp(att, y.mean(dim=(2, 3)))
+                           + gate_mlp(att, y.amax(dim=(2, 3))))
+                          .to(torch.float32))
         return y * g.to(y.dtype)[:, :, None, None]
     m = torch.cat([y.mean(dim=1, keepdim=True), y.amax(dim=1, keepdim=True)],
                   dim=1)

@@ -33,7 +33,12 @@ from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.engines import check_hw
 from insarseg_torch.engines_io import to_torch_tree
 from insarseg_torch.ops.fold import fold_bn
-from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.ops.layers import (
+    gate_mlp,
+    max_pool_2d,
+    nchw_to_nhwc,
+    nhwc_to_nchw,
+)
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -275,9 +280,9 @@ def _s2d_argmax(logits2: torch.Tensor, nc: int) -> torch.Tensor:
 
 
 def _se_scales(pk: Mapping, pooled: torch.Tensor) -> torch.Tensor:
-    """The SE MLP: (B, C) pooled -> (B, C) f32 sigmoid gate."""
-    y = torch.relu(pooled @ pk["fc1"].to(pooled.dtype))
-    return torch.sigmoid((y @ pk["fc2"].to(y.dtype)).to(torch.float32))
+    """The SE MLP: (B, C) pooled -> (B, C) f32 sigmoid gate
+    (:func:`~insarseg_torch.ops.layers.gate_mlp`)."""
+    return torch.sigmoid(gate_mlp(pk, pooled).to(torch.float32))
 
 
 def _se_pool(y: torch.Tensor, s2d: bool) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Layer helpers for the port (counterpart of ``insarseg/ops/layers.py``).
 
 Conv, ConvTranspose and BatchNorm are ``nn.Conv2d``, ``nn.ConvTranspose2d``
-and ``nn.BatchNorm2d`` (eps 1e-5, eval mode) under the reference's names;
-what the packed graphs need beyond them lives here. Internally the float
+and ``nn.BatchNorm2d`` (eps 1e-5) under the reference's names, except
+where a train step can meet one value per channel
+(:class:`MomentBatchNorm2d`); what the packed graphs need beyond them
+lives here. Internally the float
 graphs run NCHW (cuDNN's native layout); the public functions convert at
 their NHWC boundary with :func:`nhwc_to_nchw` / :func:`nchw_to_nhwc`.
 """
@@ -13,6 +15,7 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -21,6 +24,36 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+class MomentBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode statistics are the JAX
+    package's (``insarseg/ops/layers.py::BatchNorm2d``): the batch mean
+    and the biased variance ``max(E[x^2] - E[x]^2, 0)`` in at least f32,
+    the running variance the unbiased ``n / max(n - 1, 1)`` estimate,
+    momentum 0.1. At one value per channel (a 1x1 pooled map at batch 1)
+    the variance is 0 and the output the bias, where ``nn.BatchNorm2d``
+    raises. Eval mode and the state_dict names are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = self.momentum
+            rm, rv = self.running_mean, self.running_var
+            rm.copy_((1.0 - m) * rm + m * mean.to(rm.dtype))
+            rv.copy_((1.0 - m) * rv + m * (var * (n / max(n - 1, 1)))
+                     .to(rv.dtype))
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xf - mean[:, None, None]) * inv[:, None, None] \
+            + self.bias.to(acc)[:, None, None]
+        return y.to(x.dtype)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,
@@ -38,6 +71,18 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
     """``AdaptiveMaxPool2d(1)`` over NCHW: (B, C, 1, 1)."""
     return x.amax(dim=(2, 3), keepdim=True)
+
+
+def gate_mlp(pk, v: torch.Tensor) -> torch.Tensor:
+    """An attention gate's bias-free MLP, ``relu(v @ fc1) @ fc2`` over
+    (B, C) ``v`` in ``v``'s dtype (``pk`` holds ``fc1`` and ``fc2``), each
+    product summed in float64 and rounded once. A GEMM's f32 sum order
+    depends on its row count on the card (cuBLAS picks its kernel by M),
+    so f32 products would give a tile other gates, and other codes, in
+    another batch; a float64 sum rounded once gives each row the same
+    gate at any batch."""
+    h = torch.relu((v.double() @ pk["fc1"].double()).to(v.dtype))
+    return (h.double() @ pk["fc2"].double()).to(v.dtype)
 
 
 def _bin_edges(n: int, o: int, device: torch.device):

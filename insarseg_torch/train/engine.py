@@ -48,10 +48,12 @@ class TrainState:
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Draw every parameter anew with the modules' own torch initializers
-    (the reference's), from the CPU generator seeded with ``seed``, so a
-    seed gives the same weights on any device; the caller's RNG state is
-    kept. BN statistics are reset."""
+    """Draw every parameter anew from the CPU generator seeded with
+    ``seed``, so a seed gives the same weights on any device; the caller's
+    RNG state is kept. BN statistics are reset. The distributions are the
+    JAX package's: each module's own initializer (the ResNet backbones'
+    convs kaiming-normal with fan_out, ``models/resnet.py::KaimingConv2d``;
+    the rest torch's, the reference's)."""
     dev = next(model.parameters()).device
     model.to("cpu")
     with torch.random.fork_rng(devices=[]):

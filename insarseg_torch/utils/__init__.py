@@ -1,1 +1,1 @@
-"""Training history files."""
+"""Training history files and debugging switches."""

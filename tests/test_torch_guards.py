@@ -1,7 +1,9 @@
-"""Guards of the port's boundaries: insarseg_torch (and chip_smoke.py and
-tools/)
-import nothing of JAX or of the JAX package, entry points default to CUDA
-and raise without a card, and chip_smoke.py refuses to run without one."""
+"""Guards of the port's boundaries: insarseg_torch (its CLI and data path
+included, and chip_smoke.py and tools/) import nothing of JAX or of the
+JAX package, the native loader builds the port's own
+``insarseg_torch/csrc/tileops.cpp``, entry points (the CLI among them)
+default to CUDA and raise without a card, and chip_smoke.py refuses to
+run without one."""
 
 import ast
 import os
@@ -146,3 +148,45 @@ def test_chip_smoke_fails_without_a_card():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_port_reads_its_own_native_source():
+    from insarseg_torch.data import native_loader
+
+    assert native_loader.SOURCE == PORT / "csrc" / "tileops.cpp"
+    assert native_loader.SOURCE.is_file()
+    assert native_loader.BUILD_ROOT == PORT / "_build"
+    for f in PORT.rglob("*.py"):
+        assert "insarseg/native" not in f.read_text(), f
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--voc-root", "voc"],
+    ["eval", "--voc-root", "voc"],
+    ["predict", "--input", "scene.png"],
+    ["export-torch", "--output", "x.pth"],
+])
+def test_cli_without_a_card_exits_with_the_no_cuda_error(argv, tmp_path,
+                                                         monkeypatch):
+    """Without --device cpu the CLI runs on cuda: without a card every
+    command stops before any work, with the port's error, and writes
+    nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from insarseg_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main([argv[0], "--preset", "unet", *argv[1:]])
+    assert not list(tmp_path.iterdir())
+
+
+def test_cli_module_without_a_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "-m", "insarseg_torch.cli",
+                        "export-torch", "--output", "never.pth"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not (ROOT / "never.pth").exists()

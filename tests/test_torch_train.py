@@ -474,10 +474,10 @@ def test_config_matches_the_jax_package():
     from insarseg.config import Config as JaxConfig
     from insarseg_torch.config import PRESETS, Config
 
-    # the port keeps the fields fit reads; each is the JAX package's, with
-    # its default and its value in every preset
+    # the port has the JAX package's fields, in its order, with its
+    # defaults and its value in every preset
     names = [f.name for f in dataclasses.fields(Config)]
-    assert set(names) <= {f.name for f in dataclasses.fields(JaxConfig)}
+    assert names == [f.name for f in dataclasses.fields(JaxConfig)]
     assert list(PRESETS) == list(JAX_PRESETS)
     for k, cfg in [("default", JaxConfig()), *JAX_PRESETS.items()]:
         ours = Config() if k == "default" else PRESETS[k]
