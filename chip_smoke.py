@@ -50,9 +50,9 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
    FCN int8 engines; after each path, 9 tiles' int8 logits alone against
    the same tiles as the first 9 of 18 (bit-equal: the batched
-   multi-scene ``predict`` runs chunks of other sizes than a scene alone;
-   PSPNet-CA, whose bf16 head conv is cuDNN's, by its argmax at
-   ``CLI_AGREE``), one warm int8 forward on a CUDA input
+   multi-scene ``predict`` and the stream run chunks of other sizes than
+   a scene alone; PSPNet-CA's bf16 head runs in calls of a fixed
+   number of tiles for this), one warm int8 forward on a CUDA input
    under ``torch.cuda.set_sync_debug_mode("error")`` (no call may
    synchronise the stream), the int8 forward timed in turns as it is, with
    its device scalars copied from host memory and with K6 / K7 replaced by
@@ -61,8 +61,10 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    may hold no transposed conv and no concat: K6 does both), and for a
    U-Net the int8 forward's argmax against the same forward with K6's
    plain version (bars ``K6_AGREE``), for PSPNet-CA its pyramid-pooling
-   head with the bins sharing one integral image against one a bin, in
-   turns; then
+   head with the bins sharing one integral image against one a bin, and
+   its int8 forward with the head in fixed chunks against the head on
+   the whole batch and one tile a call (and each one's count of
+   batch-dependent logits), in turns; then
    U-Net-CA's int8 engine in the standard
    layout (``pack_unet_int8(s2d=False)``), checked for syncs and timed in
    turns against the H-s2d one; then DeepLab-CA, DeepLab-SA, FCN, FCN-SA,
@@ -110,12 +112,31 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    K6 within its counted bar; ``checked_calls``), and each kernel checked
    at least as often as it launched; each command's wall seconds and the
    checks' share of them;
-7. prints the kernel table as one JSON line (each row with
+7. streams scenes larger than memory, the ``stream`` phase
+   (``chip_smoke.py::stream_path``): seeded smooth uint8 scenes in
+   ``.npy`` memory maps, int8 engines whose classifier bias is centred so
+   both classes come out (``balanced_model``); U-Net-CA (base 64, H-s2d)
+   through ``data/serve.py::stream_scene_inference`` (argmax on the card
+   into a memory-mapped writer) over 16384^2 and 8192x16384 at
+   batch_size 128 and 16384^2 at 32: seconds, tiles/s, the peak of
+   ``max_memory_allocated`` (the two heights' peaks within
+   ``STREAM_PEAK_BAR``) and, in a traced repeat, the device idle share;
+   the stream (logits and argmax, batch_size 32) against the in-memory
+   ``sliding_window_inference_batched`` on the same engine for U-Net-CA
+   (4096x6000), U-Net-SA and FCN-CA (2048x3000: a clamped last band), the
+   stream normalizing on the card, the in-memory path given
+   ``cli.normalize_scene`` (bars ``STREAM_LOGIT_BAR``, ``STREAM_AGREE``);
+   every kernel call of a U-Net-CA stream at batch_size 8 held against
+   its plain version (``checked_calls``); ``predict --stream`` of an
+   8192^2 ``.npy`` against the in-memory ``predict`` of it as a PNG, one
+   int8 artifact (``STREAM_AGREE`` of the pixels), each command's seconds;
+8. prints the kernel table as one JSON line (each row with
    ``cli_launches``, its launches in the cli phase's predicts, and
    ``cli_checked`` / ``cli_max_abs_err``, its calls checked in the cli
-   phase and their largest difference from the plain version), the
-   ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
-   "device": {...}}``.
+   phase and their largest difference from the plain version;
+   ``stream_launches``, its launches in the stream phase's streams, each
+   counted from 0, and ``stream_checked``), the ``nvidia-smi`` name and
+   power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -616,15 +637,24 @@ def record_calls(module, names, predict, images):
     return calls
 
 
+# the wrappers' arguments that carry the batch first (every other argument
+# is a weight, a scale or an option), and the tiles a plain version takes
+# at a time in ``checked_calls``: the f64 plain convs of a 111-tile call
+# would hold about 30 GB at once
+BATCHED_ARGS = ("x", "q", "y", "y3q", "idn", "skip", "gate", "g", "gain")
+CHECK_CHUNK = 16
+
+
 @contextlib.contextmanager
 def checked_calls(checked):
     """While open, every kernel call the int8 engines make is held against
-    the wrapper's plain version on the same arguments, as ``kernel_row``
-    holds the main paths' calls: equal, K6 within its counted bar
-    (``up_compare`` at ``UP_SHARE_MAIN``); the first that disagrees
-    raises. ``checked`` gathers per kernel name the calls, the largest
-    |delta|, the differing and all elements, and the seconds the checks
-    took."""
+    the wrapper's plain version on the same arguments (``CHECK_CHUNK``
+    tiles of the batch at a time), as ``kernel_row`` holds the main paths'
+    calls: equal, K6 within its counted bar (``up_compare`` at
+    ``UP_SHARE_MAIN``, in each chunk); the first that disagrees raises.
+    ``checked`` gathers per kernel name the calls, the engine batches
+    they came at, the largest |delta|, the differing and all elements,
+    and the seconds the checks took."""
     from insarseg_torch import kernels as K
     from insarseg_torch.models import resnet_int8, unet_int8
 
@@ -634,16 +664,25 @@ def checked_calls(checked):
         t0 = time.perf_counter()
         cmp = (up_compare(K.UP_SHARE_MAIN, a["skip"].shape[-1])
                if n == "up_concat_i8" else compare)
-        try:
-            e, nd, nall = cmp(out, getattr(K, n + "_plain")(**a))
-        except AssertionError as err:
-            shapes = {k: tuple(v.shape) for k, v in a.items()
-                      if hasattr(v, "shape")}
-            raise AssertionError(f"{n} on {shapes}: {err}") from None
+        plain = getattr(K, n + "_plain")
+        e = nd = nall = 0
+        for i in range(0, out.shape[0], CHECK_CHUNK):
+            part = {k: v[i:i + CHECK_CHUNK]
+                    if k in BATCHED_ARGS and hasattr(v, "shape") else v
+                    for k, v in a.items()}
+            try:
+                ce, cnd, cn = cmp(out[i:i + CHECK_CHUNK], plain(**part))
+            except AssertionError as err:
+                shapes = {k: tuple(v.shape) for k, v in a.items()
+                          if hasattr(v, "shape")}
+                raise AssertionError(f"{n} on {shapes}, tiles {i}+: "
+                                     f"{err}") from None
+            e, nd, nall = max(e, ce), nd + cnd, nall + cn
         c = checked.setdefault(kernel_of[n], {
-            "calls": 0, "max_abs_err": 0.0, "differing": 0, "elements": 0,
-            "seconds": 0.0})
+            "calls": 0, "batches": set(), "max_abs_err": 0.0,
+            "differing": 0, "elements": 0, "seconds": 0.0})
         c["calls"] += 1
+        c["batches"].add(out.shape[0])
         c["max_abs_err"] = max(c["max_abs_err"], e)
         c["differing"] += nd
         c["elements"] += nall
@@ -1211,11 +1250,9 @@ def k6_agreement(predict, images, label, bar) -> float:
     return agree
 
 
-def batch_invariance(predict, dev, label, exact: bool = True) -> None:
-    """9 tiles' int8 logits alone and as the first 9 of 18 (512^2), since
-    the batched multi-scene ``predict`` runs chunks of other sizes than a
-    scene alone: bit-equal with ``exact``, else their argmax agreeing on
-    ``CLI_AGREE`` of the pixels. Raises otherwise."""
+def batch_difference(predict, dev):
+    """9 tiles' int8 logits (512^2) alone and as the first 9 of 18: the
+    count of logits that differ, of all, and the argmax agreement."""
     import torch
 
     x = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 9), 18,
@@ -1223,13 +1260,40 @@ def batch_invariance(predict, dev, label, exact: bool = True) -> None:
     with torch.inference_mode():
         among = predict(x)[:9]
         alone = predict(x[:9])
-    n = int((among != alone).sum())
     agree = float((among.argmax(-1) == alone.argmax(-1)).double().mean())
+    return int((among != alone).sum()), alone.numel(), agree
+
+
+def batch_invariance(predict, dev, label) -> None:
+    """9 tiles' int8 logits alone and as the first 9 of 18 (512^2), since
+    the batched multi-scene ``predict`` and the stream run chunks of other
+    sizes than a scene alone: bit-equal, or it raises."""
+    n, total, agree = batch_difference(predict, dev)
     log(f"{label}: int8 logits of 9 tiles among 18 vs alone, {n} of "
-        f"{alone.numel()} differ, argmax agreement {agree:.6f}")
-    if (exact and n) or agree < CLI_AGREE:
+        f"{total} differ, argmax agreement {agree:.6f}")
+    if n:
         raise AssertionError(f"{label}: a tile's int8 logits depend on the "
                              "batch")
+
+
+def psp_batched_head_count(predict, dev, label) -> None:
+    """The fault ``resnet_int8.pspnet_head_i8`` repairs: with PSPNet-CA's
+    bf16 head on the whole batch in one call, as it ran before, how many
+    of 9 tiles' int8 logits among 18 differ from alone (cuDNN picks the
+    bottleneck conv's kernel by the batch). ``batch_invariance`` holds the
+    head as it ships."""
+    from insarseg_torch.models import resnet_int8
+
+    chunked = resnet_int8.pspnet_head_i8
+    resnet_int8.pspnet_head_i8 = lambda packed, h: resnet_int8.pspnet_head(
+        packed, h.permute(0, 3, 1, 2))
+    try:
+        n, total, agree = batch_difference(predict, dev)
+    finally:
+        resnet_int8.pspnet_head_i8 = chunked
+    log(f"{label}: with the bf16 head on the whole batch, {n} of {total} "
+        f"int8 logits of 9 tiles among 18 differ from alone, argmax "
+        f"agreement {agree:.6f}")
 
 
 def check_no_sync(predict, x, label) -> None:
@@ -1250,6 +1314,26 @@ def check_no_sync(predict, x, label) -> None:
         "nothing (set_sync_debug_mode 'error')")
 
 
+def device_idle_share(prof):
+    """The share of a profiler window (first device activity to last) in
+    which the device runs nothing; None where it traced no device
+    activity."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return 1.0 - busy / (spans[-1][1] - spans[0][0])
+
+
 def profile_window(predict, x, reps: int = 3):
     """A short torch.profiler window of ``reps`` int8 forwards: the share of
     the window (first device activity to last) in which the device runs
@@ -1265,20 +1349,9 @@ def profile_window(predict, x, reps: int = 3):
         for _ in range(reps):
             predict(x)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if not spans:
+    idle = device_idle_share(prof)
+    if idle is None:
         return None, [], set()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1286,9 +1359,8 @@ def profile_window(predict, x, reps: int = 3):
 
     averages = prof.key_averages()
     top = sorted(averages, key=dev_us, reverse=True)[:10]
-    return 1.0 - busy / window, [(e.key, dev_us(e) / reps / 1e3)
-                                 for e in top if dev_us(e) > 0], \
-        {e.key for e in averages}
+    return idle, [(e.key, dev_us(e) / reps / 1e3)
+                  for e in top if dev_us(e) > 0], {e.key for e in averages}
 
 
 def forward_turns(predict, x, label, power_line, reps: int = 5,
@@ -1342,7 +1414,8 @@ def forward_turns(predict, x, label, power_line, reps: int = 5,
 
 
 def ppm_turns(predict, x, power_line, reps: int = 5) -> None:
-    """PSPNet's pyramid-pooling head on the tensors of one int8 forward:
+    """PSPNet's pyramid-pooling head on the tensors of one int8 forward
+    (its first call's: the head runs in calls of ``HEAD_CHUNK`` tiles):
     the bins sharing one integral image (``resnet_serve._ppm_apply``, as
     it ships) against each bin building its own (the head before), equal
     bit for bit, then the device ms of each (``device_ms``, ``reps`` calls)
@@ -1768,12 +1841,13 @@ CLI_FCN_KERNELS = ("int8_conv_epilogue", "se_residual_i8", "se_squeeze_i8",
 CLI_AGREE = 0.9999  # batched against single-scene predict, on the card
 
 
-def cli(argv, timings, checked, label=None):
+def cli(argv, timings, checked, label=None, check=True):
     """One CLI command in this process (its own exit code must be 0), every
     kernel call in it held against its plain version (``checked_calls``,
-    into ``checked``); returns what it printed. Its wall seconds, checks
-    included, and the checks' seconds go into ``timings``. Fails unless
-    each kernel was checked at least as often as it launched."""
+    into ``checked``; none with ``check=False``); returns what it printed.
+    Its wall seconds, checks included, and the checks' seconds go into
+    ``timings``. Fails unless each kernel was checked at least as often as
+    it launched."""
     import io
     from contextlib import redirect_stdout
 
@@ -1785,7 +1859,8 @@ def cli(argv, timings, checked, label=None):
     before = dict(K.LAUNCHES)
     mine = {}
     t0 = time.perf_counter()
-    with redirect_stdout(buf), checked_calls(mine):
+    with redirect_stdout(buf), \
+            (checked_calls(mine) if check else contextlib.nullcontext()):
         rc = main(argv)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
@@ -1799,6 +1874,8 @@ def cli(argv, timings, checked, label=None):
         log("    " + line)
     if rc != 0:
         raise AssertionError(f"cli {argv[0]} exited with {rc}:\n{out}")
+    if not check:
+        return out
     for k, n in K.LAUNCHES.items():
         done = mine.get(k, {"calls": 0})["calls"]
         if n - before[k] > done:
@@ -1810,6 +1887,7 @@ def cli(argv, timings, checked, label=None):
             continue
         for f in ("calls", "differing", "elements", "seconds"):
             checked[k][f] += c[f]
+        checked[k]["batches"] |= c["batches"]
         checked[k]["max_abs_err"] = max(checked[k]["max_abs_err"],
                                         c["max_abs_err"])
     return out
@@ -1975,7 +2053,7 @@ def cli_path(power_line: str) -> dict:
     log("cli command seconds (checks included, checks): " + json.dumps(
         {k: [round(v, 3), round(c, 3)] for k, v, c in timings}))
     log("cli kernel calls checked against their plain versions: "
-        + json.dumps(checked))
+        + json.dumps(checked, default=sorted))
     for k in set(CLI_UNET_KERNELS) | set(CLI_FCN_KERNELS):
         if not checked.get(k, {}).get("calls"):
             raise AssertionError(f"{k}: no call checked in the cli phase")
@@ -1984,6 +2062,324 @@ def cli_path(power_line: str) -> dict:
         for k, n in per.items():
             total[k] = total.get(k, 0) + n
     return total, checked
+
+
+# ---------------------------------------------------------------------------
+# 7. the stream phase
+# ---------------------------------------------------------------------------
+
+STREAM_TILE, STREAM_OVERLAP = HW, HW // 8  # the CLI's defaults, 512 / 64
+STREAM_AGREE = 0.99999  # argmax, stream against the in-memory path
+STREAM_LOGIT_BAR = 1e-5  # x max|logit|, stream against the in-memory path
+STREAM_PEAK_BAR = 0.02  # the peaks at H = 8192 and 16384, relative
+
+
+def scene_file(path, h, w, seed, dev):
+    """A seeded smooth (H, W) uint8 scene (``smooth_batch``'s coarse noise,
+    bilinear upsampled on the card, mapped as ``write_scene`` maps it),
+    written to a ``.npy`` file; returns its memory map."""
+    import torch
+    import torch.nn.functional as F
+
+    coarse = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, 1, h // 8, w // 8)).astype(np.float32)).to(dev)
+    x = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                      align_corners=False)[0, 0]
+    u8 = ((x * 0.5 + 0.5) * 255).clamp_(0, 255).to(torch.uint8).cpu()
+    del x
+    mm = np.lib.format.open_memmap(path, "w+", np.uint8, (h, w))
+    mm[:] = u8.numpy()
+    mm.flush()
+    del mm
+    return np.load(path, mmap_mode="r")
+
+
+def balanced_model(name, attention, dev):
+    """``build_model``'s seeded weights with the classifier's class-1 bias
+    lowered by the median logit margin (class 1 less class 0) of the
+    module on a smooth 512^2 batch: random weights favour one class, and
+    the stream's checks want both about evenly."""
+    import torch
+
+    model = build_model(name, attention).to(dev)
+    x = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 5), 2,
+                                      HW, HW)).permute(0, 3, 1, 2).to(dev)
+    with torch.inference_mode():
+        y = model(x)
+        bias = [v for k, v in model.state_dict().items()
+                if k.endswith("bias") and tuple(v.shape) == (2,)][-1]
+        bias[1] -= (y[:, 1] - y[:, 0]).median()
+    return model.cpu()
+
+
+class StreamRuns:
+    """The phase's streams: each one's kernel launches counted from 0 just
+    before it and read just after, summed into ``launches``; ``batches``
+    holds per kernel the engine batches of the streams that launched it,
+    ``last`` those of the latest stream."""
+
+    def __init__(self):
+        self.launches = {}
+        self.batches = {}
+        self.last = set()
+
+    def add(self, batches=()):
+        from insarseg_torch import kernels as K
+
+        for k, n in K.LAUNCHES.items():
+            self.launches[k] = self.launches.get(k, 0) + n
+            if n:
+                self.batches.setdefault(k, set()).update(batches)
+
+    def __call__(self, predict, scene, batch_size, emit="argmax",
+                 writer=None):
+        from insarseg_torch import kernels as K
+        from insarseg_torch.data.serve import stream_scene_inference
+
+        seen = set()
+
+        def forward(x):
+            seen.add(x.shape[0])
+            return predict(x)
+
+        h, w = scene.shape
+        K.reset_launches()
+        out = stream_scene_inference(
+            forward, scene, (h, w), 2, tile=STREAM_TILE,
+            overlap=STREAM_OVERLAP, batch_size=batch_size, writer=writer,
+            emit=emit)
+        self.add(seen)
+        self.last = seen
+        return out
+
+
+def stream_at_scale(runs, predict, scene, batch_size, path, label,
+                    power_line, traced=False):
+    """One stream of ``scene`` into a uint8 ``.npy`` memory map (argmax on
+    the card) at ``batch_size``: seconds, tiles/s, the peak of
+    ``max_memory_allocated`` (reset before), and with ``traced`` the
+    device idle share of a ``torch.profiler`` window over the whole
+    stream. Both classes must come out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch.data.stitch import plan_tiles
+
+    h, w = scene.shape
+    n_tiles = len(plan_tiles(h, w, STREAM_TILE, STREAM_OVERLAP))
+    out = np.lib.format.open_memmap(path, "w+", np.uint8, (h, w))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    idle = None
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if traced else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        runs(predict, scene, batch_size, writer=out)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if traced:
+        idle = device_idle_share(prof)
+    counts = np.bincount(np.asarray(out).ravel(), minlength=2)
+    del out
+    log(f"  {label}: {h}x{w} uint8 memmap, {n_tiles} tiles, batch_size "
+        f"{batch_size} (engine batch {sorted(runs.last)}): {sec:.3f} s, "
+        f"{n_tiles / sec:.1f} tiles/s, peak allocated {peak / 2**30:.4f} "
+        f"GiB ({peak} B)"
+        + ("" if not traced else ", device idle share under the profiler "
+           + ("not measured" if idle is None else f"{100 * idle:.2f}%"))
+        + f"; classes {counts.tolist()}; on {power_line}")
+    if len(counts) != 2 or not counts.all():
+        raise AssertionError(f"{label}: the stream's classes are {counts}")
+    return sec, peak
+
+
+def checked_strip(runs, checked, predict, scene, batch_size, label):
+    """The top rows of ``scene`` that ``batch_size`` puts in one call (its
+    ``G`` row bands, full width) streamed with every kernel call held
+    against its plain version (``checked_calls``): the engine batch that
+    ``scene``'s own stream at ``batch_size`` runs, checked."""
+    from insarseg_torch.data.serve import bands_per_call
+    from insarseg_torch.data.stitch import tile_starts
+
+    h, w = scene.shape
+    stride = STREAM_TILE - STREAM_OVERLAP
+    g = bands_per_call(len(tile_starts(h, STREAM_TILE, stride)),
+                       len(tile_starts(w, STREAM_TILE, stride)), batch_size)
+    rows = STREAM_TILE + (g - 1) * stride
+    t0 = time.perf_counter()
+    with checked_calls(checked):
+        runs(predict, scene[:rows], batch_size)
+    log(f"  {label}: {rows}x{w} strip at batch_size {batch_size} (engine "
+        f"batch {sorted(runs.last)}), every kernel call checked against "
+        f"its plain version, in {time.perf_counter() - t0:.1f} s")
+
+
+def stream_agreement(runs, dev, label, predict, scene):
+    """The stream (``emit="logits"`` and ``"argmax"``, batch_size 32) of a
+    uint8 scene, normalized on the card, against
+    ``sliding_window_inference_batched`` on the same engine with the
+    host's ``normalize_scene`` of it: logits within ``STREAM_LOGIT_BAR``
+    x max|logit|, argmax equal on ``STREAM_AGREE`` of the pixels."""
+    import torch
+    from insarseg_torch.cli import normalize_scene
+    from insarseg_torch.config import Config
+    from insarseg_torch.data.stitch import sliding_window_inference_batched
+
+    h, w = scene.shape
+    x = normalize_scene(np.asarray(scene), Config())
+    with torch.inference_mode():
+        ref = sliding_window_inference_batched(
+            lambda t: predict(t).to(torch.float32), x[None],
+            tile=STREAM_TILE, overlap=STREAM_OVERLAP, batch_size=32,
+            device=dev)[0].cpu().numpy()
+    logits = runs(predict, scene, 32, emit="logits")
+    classes = runs(predict, scene, 32, emit="argmax")
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(logits - ref).max())
+    n_logits = int((logits != ref).sum())
+    n_px = int((classes != ref.argmax(-1)).sum())
+    agree = 1 - n_px / classes.size
+    log(f"  {label} {h}x{w}: stream vs in-memory, logits max |delta| "
+        f"{err:.3g} = {err / scale:.3g} x max|logit| ({scale:.4g}; bar "
+        f"{STREAM_LOGIT_BAR}), {n_logits} of {ref.size} logits differ; "
+        f"argmax {n_px} of {classes.size} pixels differ (agreement "
+        f"{agree:.7f}, bar {STREAM_AGREE}); classes "
+        f"{np.bincount(classes.ravel(), minlength=2).tolist()}")
+    if not (logits.shape == ref.shape and err <= STREAM_LOGIT_BAR * scale
+            and agree >= STREAM_AGREE):
+        raise AssertionError(f"{label}: the stream disagrees with the "
+                             "in-memory path")
+
+
+def stream_path(dev, power_line: str):
+    """The ``stream`` phase: ``data/serve.py::stream_scene_inference`` and
+    ``predict --stream`` on the card, on seeded smooth uint8 scenes in
+    ``.npy`` memory maps in a temporary directory. Every engine batch a
+    stream of the phase runs is held against the plain versions in a
+    checked stream at that batch. Returns the kernel launches of its
+    streams (counters from 0 around each) and, per kernel, the calls
+    checked against their plain versions."""
+    import os
+    import tempfile
+
+    import torch
+    from PIL import Image
+    from insarseg_torch import kernels as K
+    from insarseg_torch.cli import stream_calib
+    from insarseg_torch.config import Config
+    from insarseg_torch.engines import make_engine, pack_engine
+    from insarseg_torch.engines_io import save_artifact
+
+    log(f"stream phase on {power_line}")
+    runs = StreamRuns()
+    checked = {}
+    t_start = time.perf_counter()
+    engines = {}
+    for name, attention in (("unet", "channel"), ("unet", "spatial"),
+                            ("fcn", "channel")):
+        rng = np.random.default_rng(SEED + 1)
+        calib = [smooth_batch(rng, 4, HW, HW) for _ in range(2)]
+        engines[(name, attention)] = make_engine(
+            name, attention, balanced_model(name, attention, dev), None,
+            "int8", calib_batches=calib, device=dev)
+    unet = engines[("unet", "channel")]
+    label = f"U-Net-CA base {BASE} int8"
+    with tempfile.TemporaryDirectory() as d:
+        # 1. at scale: U-Net-CA int8 (H-s2d), argmax into a memory map, at
+        # batch_size 128 and 32 on scenes 16384 and 8192 wide
+        big = scene_file(f"{d}/big.npy", 16384, 16384, SEED + 60, dev)
+        half = scene_file(f"{d}/half.npy", 8192, 16384, SEED + 61, dev)
+        narrow = half[:, :half.shape[1] // 2]
+        log(f"  engines built and scenes written in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        out = f"{d}/out.npy"
+        stream_at_scale(runs, unet, half, 128, out, f"{label} (warm-up)",
+                        power_line)
+        _, peak_big = stream_at_scale(runs, unet, big, 128, out, label,
+                                      power_line)
+        _, peak_half = stream_at_scale(runs, unet, half, 128, out, label,
+                                       power_line)
+        stream_at_scale(runs, unet, big, 32, out, label, power_line)
+        for bs in (128, 32, 32, 128):
+            stream_at_scale(runs, unet, narrow, bs, out, label, power_line)
+        stream_at_scale(runs, unet, big, 128, out, f"{label} (traced)",
+                        power_line, traced=True)
+        rel = abs(peak_big - peak_half) / max(peak_big, peak_half)
+        log(f"  peak allocated at H 16384 and 8192: {peak_big} and "
+            f"{peak_half} B, {100 * rel:.3f}% apart (bar "
+            f"{100 * STREAM_PEAK_BAR}%)")
+        if rel > STREAM_PEAK_BAR:
+            raise AssertionError("the stream's device memory grows with H")
+        # (the CLI's checked stream below runs 8192 wide at 128)
+        for scene, bs in ((big, 128), (big, 32), (narrow, 32)):
+            checked_strip(runs, checked, unet, scene, bs, label)
+        del big, half, narrow
+        for f in ("big.npy", "half.npy", "out.npy"):
+            os.remove(f"{d}/{f}")
+
+        # 2. against the in-memory path on the same engines; the three
+        # launch every kernel. U-Net-CA's engine batch is checked on a
+        # strip; the two others' streams run checked whole
+        ragged = scene_file(f"{d}/a.npy", 4096, 6000, SEED + 62, dev)
+        stream_agreement(runs, dev, label, unet, ragged)
+        checked_strip(runs, checked, unet, ragged, 32, label)
+        del ragged
+        for key, lab in ((("unet", "spatial"), f"U-Net-SA base {BASE} int8"),
+                         (("fcn", "channel"), "FCN-ResNet50-CA int8")):
+            with checked_calls(checked):
+                stream_agreement(runs, dev, lab, engines[key],
+                                 scene_file(f"{d}/b.npy", 2048, 3000,
+                                            SEED + 63, dev))
+        del engines
+        torch.cuda.empty_cache()
+
+        # 3. the CLI: predict --stream of the .npy, every kernel call
+        # checked, against the in-memory predict of the same scene as a
+        # PNG, from one int8 artifact
+        scene = scene_file(f"{d}/s.npy", 8192, 8192, SEED + 65, dev)
+        Image.fromarray(np.asarray(scene), "L").save(f"{d}/s.png")
+        art = pack_engine("unet", "channel",
+                          balanced_model("unet", "channel", dev), None,
+                          "int8",
+                          calib_batches=stream_calib(
+                              scene, STREAM_TILE, STREAM_OVERLAP, 4,
+                              Config()), device=dev)
+        save_artifact(f"{d}/A.npz", art)
+        del art, unet
+        timings = []
+        pred = ["predict", *CLI_UNET, "--engine-artifact", f"{d}/A.npz"]
+        K.reset_launches()
+        cli([*pred, "--input", f"{d}/s.npy", "--stream", "--output",
+             f"{d}/st.png"], timings, checked, "predict --stream")
+        runs.add()
+        cli([*pred, "--input", f"{d}/s.png", "--output", f"{d}/mem.png"],
+            timings, checked, "predict (in memory)", check=False)
+        a = np.asarray(Image.open(f"{d}/st.png"))
+        b = np.asarray(Image.open(f"{d}/mem.png"))
+        n_px = int((a != b).sum())
+        agree = 1 - n_px / b.size
+        log(f"  {scene.shape[0]}x{scene.shape[1]} predict --stream vs "
+            f"in-memory predict: {n_px} of "
+            f"{b.size} pixels differ (agreement {agree:.7f}, bar "
+            f"{STREAM_AGREE}); classes {np.unique(a).tolist()}; seconds "
+            "(the stream's with its checks) "
+            + json.dumps({k: round(v, 3) for k, v, _ in timings}))
+        if a.shape != scene.shape or agree < STREAM_AGREE:
+            raise AssertionError("predict --stream disagrees with predict")
+    log(f"  stream launches: {runs.launches}; engine batches "
+        + json.dumps(runs.batches, default=sorted))
+    log("  kernel calls checked against their plain versions: "
+        + json.dumps(checked, default=sorted))
+    for k in KERNELS:
+        if not runs.launches.get(k):
+            raise AssertionError(f"{k} never launched in the stream phase")
+        missing = runs.batches.get(k, set()) - checked.get(
+            k, {"batches": set()})["batches"]
+        if missing:
+            raise AssertionError(f"stream: {k} launched at engine batches "
+                                 f"{sorted(missing)}, never checked there")
+    torch.cuda.empty_cache()
+    return runs.launches, checked
 
 
 def run(dev, power_line: str, phase) -> list:
@@ -2026,15 +2422,14 @@ def run(dev, power_line: str, phase) -> list:
             engines, images, dev, corr_bar, want, label, power_line,
             scene=scene if with_scene else None)
         phase(f"{label}: main path")
-        # the PSPNet's bf16 head convolves 4096 -> 512 channels in cuDNN,
-        # which picks its kernel, and its sum order, by the batch
-        batch_invariance(engines["int8"], dev, label, exact=name != "pspnet")
+        batch_invariance(engines["int8"], dev, label)
         x_dev = torch.from_numpy(images).to(dev)
         check_no_sync(engines["int8"], x_dev, label)
         forward_turns(engines["int8"], x_dev, label, power_line,
                       absent=UNET_ABSENT if is_unet else ())
         if name == "pspnet":
             ppm_turns(engines["int8"], x_dev, power_line)
+            psp_batched_head_count(engines["int8"], dev, label)
         del x_dev
         phase(f"{label}: int8 forward batch-invariant, without syncs, in "
               "turns with them")
@@ -2129,6 +2524,12 @@ def main() -> int:
         row["cli_checked"] = c.get("calls", 0)
         row["cli_max_abs_err"] = c.get("max_abs_err")
     phase("cli: train, eval, predict, export-torch")
+    stream_launches, stream_checked = stream_path(dev, power_line)
+    for row in table:
+        row["stream_launches"] = stream_launches.get(row["name"], 0)
+        row["stream_checked"] = stream_checked.get(row["name"], {}).get(
+            "calls", 0)
+    phase("stream: scenes larger than memory, predict --stream")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(power_line, flush=True)

@@ -16,11 +16,16 @@ weights are a fresh init drawn from ``--seed``. JAX Orbax directories
 cross through the JAX package's ``export-torch`` and
 ``--torch-checkpoint``.
 
+``predict --stream`` streams each scene band by band through
+``data/serve.py::stream_scene_inference`` (the device stitch, argmax on
+the device): ``.npy`` scenes open memory-mapped, so a strip larger than
+host memory never loads whole.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item: ``predict --stream`` (Queue 1 item 15), ``--compute-dtype
-bfloat16`` (item 18), ``--mesh-data`` / ``--mesh-spatial`` above 1 (item
-16), ``--remat true`` (item 19). The JAX package's other mesh behaviour
-(every chip on the data axis) is one device here.
+item: ``--compute-dtype bfloat16`` (Queue 1 item 18), ``--mesh-data`` /
+``--mesh-spatial`` above 1 (item 16), ``--remat true`` (item 19). The
+JAX package's other mesh behaviour (every chip on the data axis) is one
+device here.
 """
 
 from __future__ import annotations
@@ -33,10 +38,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-STREAM_TODO = ("insarseg_torch does not stream scenes yet; predict "
-               "--stream is ROADMAP Queue 1 item 15 (drop --stream)")
-
 
 def _add_config_overrides(p: argparse.ArgumentParser) -> None:
     from insarseg_torch.config import Config
@@ -361,7 +362,7 @@ def cmd_predict(args) -> int:
     cfg = _build_cfg(args)
     explicit_calib = _resolve_calib_flags(args)
     if getattr(args, "stream", False):
-        raise NotImplementedError(STREAM_TODO)
+        return predict_stream(args, cfg, explicit_calib, dev)
     model = build_model(cfg)
     scenes = [normalize_scene(read_scene(p), cfg) for p in args.input]
     engine_name = getattr(args, "engine", "module") or "module"
@@ -392,27 +393,113 @@ def cmd_predict(args) -> int:
     return 0
 
 
-def scene_calib(scene: np.ndarray, tile: int, overlap: int,
-                calib_batches: int) -> List[np.ndarray]:
-    """int8 calibration batches from one (H, W, 1) scene: groups of 4
-    tiles spread over the whole plan (not just the top-left corner),
-    ``calib_batches`` groups at most; the groups stay 4 tiles (no ragged
-    last group). The JAX package's tiles, in its order."""
+def _calib_groups(h: int, w: int, tile: int, overlap: int,
+                  calib_batches: int) -> List[List[tuple]]:
+    """The tile origins of the int8 calibration batches of an (h, w)
+    scene: groups of 4 spread over the whole plan (not just the top-left
+    corner), ``calib_batches`` groups at most; the groups stay 4 tiles (no
+    ragged last group). The JAX package's tiles, in its order."""
     from insarseg_torch.data.stitch import plan_tiles
 
-    h, w = scene.shape[:2]
     pos = plan_tiles(max(h, tile), max(w, tile), tile, overlap)
     n = min(len(pos), 4 * max(calib_batches, 1))
     if n > 4:
         n -= n % 4
     stride = max(len(pos) // n, 1)
     pos = pos[::stride][:n]
+    group = min(4, len(pos))
+    return [pos[i:i + group] for i in range(0, len(pos) - group + 1, group)]
+
+
+def scene_calib(scene: np.ndarray, tile: int, overlap: int,
+                calib_batches: int) -> List[np.ndarray]:
+    """int8 calibration batches from one normalized (H, W, 1) scene
+    (:func:`_calib_groups`' tiles)."""
+    h, w = scene.shape[:2]
     padded = np.pad(scene, ((0, max(0, tile - h)), (0, max(0, tile - w)),
                             (0, 0)))
-    group = min(4, len(pos))
-    return [np.stack([padded[r:r + tile, c:c + tile]
-                      for r, c in pos[i:i + group]])
-            for i in range(0, len(pos) - group + 1, group)]
+    return [np.stack([padded[r:r + tile, c:c + tile] for r, c in g])
+            for g in _calib_groups(h, w, tile, overlap, calib_batches)]
+
+
+def stream_calib(scene: np.ndarray, tile: int, overlap: int,
+                 calib_batches: int, cfg) -> List[np.ndarray]:
+    """:func:`scene_calib` of a ``--stream`` scene, an (H, W) uint8 or
+    pre-normalized f32 array (a memory map), reading only the calibration
+    tiles; uint8 tiles are normalized on the host (``normalize_scene``)."""
+    def one(t):
+        if t.dtype == np.uint8:
+            return normalize_scene(t, cfg)
+        return np.asarray(t, np.float32)[..., None]
+
+    h, w = scene.shape
+    return [np.stack([one(scene[r:r + tile, c:c + tile]) for r, c in g])
+            for g in _calib_groups(h, w, tile, overlap, calib_batches)]
+
+
+def open_stream_scene(path: str) -> np.ndarray:
+    """A ``--stream`` scene: a ``.npy`` file memory-mapped (a trailing
+    channel of 1 dropped), which must be 2D uint8 or pre-normalized f32, or
+    an image file read as (H, W) uint8 grayscale."""
+    if not path.endswith(".npy"):
+        return read_scene(path)
+    arr = np.load(path, mmap_mode="r")
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    if arr.ndim != 2 or arr.dtype not in (np.uint8, np.float32):
+        raise SystemExit(
+            f"--stream .npy scene must be 2D uint8 or f32 "
+            f"(pre-normalized), got {arr.shape} {arr.dtype}: {path}")
+    return arr
+
+
+def predict_stream(args, cfg, explicit_calib: bool,
+                   dev: torch.device) -> int:
+    """``predict --stream``: each scene streams band by band through
+    ``data/serve.py::stream_scene_inference`` on ``dev``, its class rows
+    argmaxed on the device and written into an (H, W) uint8 prediction.
+    Memory on the device is one call of tiles and one band's accumulator,
+    never the (H, W, C) f32 logits of the in-memory path; uint8 scenes are
+    normalized on the device. int8 calibrates on tiles of the first scene,
+    read alone."""
+    from insarseg_torch.data.serve import stream_scene_inference
+    from insarseg_torch.models.registry import build_model
+
+    engine_name = getattr(args, "engine", "module") or "module"
+    _check_supported(cfg, engine_name)
+    scenes = {p: open_stream_scene(p) for p in args.input}
+    for p, arr in scenes.items():
+        if min(arr.shape) < args.tile:
+            raise SystemExit(
+                f"--stream needs scenes >= tile ({args.tile}); {p} is "
+                f"{arr.shape} — drop --stream or lower --tile")
+    norm = (cfg.normalize_mean, cfg.normalize_std)
+    if getattr(args, "engine_artifact", None):
+        eng = _artifact_engine(args, cfg, explicit_calib, dev)
+    else:
+        model = build_model(cfg)
+        _load_weights(args, cfg, model)
+        if getattr(args, "save_engine", None) and engine_name == "module":
+            raise SystemExit(SAVE_MODULE)
+        calib = (stream_calib(next(iter(scenes.values())), args.tile,
+                              args.overlap, args.calib_batches, cfg)
+                 if engine_name == "int8" else None)
+        eng = _build_engine_maybe_save(args, cfg, model, engine_name, calib,
+                                       dev)
+    if args.output and len(args.input) > 1:
+        os.makedirs(args.output, exist_ok=True)
+    out_paths = _output_paths(args)
+    for path, arr in scenes.items():
+        h, w = arr.shape
+        pred = np.empty((h, w), np.uint8)
+        stream_scene_inference(
+            eng, arr, (h, w), cfg.num_classes, tile=args.tile,
+            overlap=args.overlap, batch_size=args.tile_batch or 128,
+            normalize=norm if arr.dtype == np.uint8 else None, writer=pred,
+            emit="argmax", device=dev)
+        write_prediction(out_paths[path], pred, cfg.num_classes)
+        print(f"prediction written to {out_paths[path]}")
+    return 0
 
 
 def predict_scenes(eng, scenes: List[np.ndarray], tile: int, overlap: int,
@@ -575,8 +662,10 @@ def main(argv=None) -> int:
             p.add_argument("--overlap", type=int, default=64)
             p.add_argument("--tile-batch", type=int, default=None)
             p.add_argument("--stream", action="store_true",
-                           help="bounded-memory streaming inference "
-                                "(ROADMAP item 15; raises)")
+                           help="bounded-memory streaming inference for "
+                                "scenes larger than memory (.npy scenes "
+                                "open memory-mapped; the prediction is "
+                                "argmaxed on the device)")
             p.add_argument("--engine", default="module",
                            choices=["module", "serve", "int8"],
                            help="inference engine: 'module' (the nn.Module "

@@ -20,8 +20,9 @@ The graph is the JAX package's:
   stem's max-pool and the requant to NHWC codes are one pass (kernel K7);
 - the PSPNet's backbone is int8 as above; its last codes are dequantized
   to bf16, and the attention, the pyramid-pooling head and the folded
-  bottleneck conv run bf16 (nothing past the backbone is int8, so the
-  calibration records nothing there);
+  bottleneck conv run bf16, in calls of a fixed number of tiles so that
+  a tile's logits do not depend on its batch (nothing past the backbone
+  is int8, so the calibration records nothing there);
 - activation scales come from an f32 replay of the folded graph on
   calibration batches.
 
@@ -293,6 +294,38 @@ def _block_i8(blk: Mapping, xq: torch.Tensor) -> torch.Tensor:
                    out_s=blk["out_s"], idn=idn, in_s=in_s)
 
 
+def pspnet_head(packed: Mapping[str, Any], h: torch.Tensor) -> torch.Tensor:
+    """The PSPNet's bf16 head on the dequantized backbone output (NCHW):
+    attention, pyramid pooling, the folded 3x3 bottleneck conv."""
+    h = _attention_apply(packed["attention"], h)
+    return _ca(_ppm_apply(packed["ppm"], h), packed["head"])
+
+
+# the tiles a call of the PSPNet's bf16 head takes (the main path's batch)
+HEAD_CHUNK = 8
+
+
+def pspnet_head_i8(packed: Mapping[str, Any],
+                   x: torch.Tensor) -> torch.Tensor:
+    """:func:`pspnet_head` of NHWC bf16 ``x`` in calls of ``HEAD_CHUNK``
+    tiles, the last padded with zero tiles. cuDNN picks the bottleneck
+    conv's kernel (4096 -> 512 channels), and with it the sum order, by
+    the batch: at one shape a tile gets the same logits in any batch, as
+    the int8 engines' other layers give it. One tile a call would do as
+    much, but cuDNN's batch-1 kernel made the forward several times slower
+    on the H100 (PERF.md)."""
+    b = x.shape[0]
+    pad = -b % HEAD_CHUNK
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    # an NCHW view of the NHWC values: the bf16 head runs channels-last
+    # (cuDNN's NHWC convs, and the pyramid pool's integral image wants
+    # channels innermost), with no transposing copy
+    outs = [pspnet_head(packed, c)
+            for c in x.permute(0, 3, 1, 2).split(HEAD_CHUNK)]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:b]
+
+
 def resnet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
                       argmax: bool = False) -> torch.Tensor:
     """int8 eval-mode forward over a :func:`prepare_resnet_int8` tree.
@@ -319,12 +352,7 @@ def resnet_int8_apply(packed: Mapping[str, Any], x: torch.Tensor,
         h = nhwc_to_nchw(_conv_i8(proj, packed["head"], bf16=True))
         h = _attention_apply(packed["attention"], h)
     elif packed["kind"] == "pspnet":
-        # an NCHW view of the NHWC values: the bf16 head runs channels-last
-        # (cuDNN's NHWC convs, and the pyramid pool's integral image wants
-        # channels innermost), with no transposing copy
-        h = dequant(yq, last_s).to(torch.bfloat16).permute(0, 3, 1, 2)
-        h = _attention_apply(packed["attention"], h)
-        h = _ca(_ppm_apply(packed["ppm"], h), packed["head"])
+        h = pspnet_head_i8(packed, dequant(yq, last_s).to(torch.bfloat16))
     else:
         if packed["attention"] is not None:  # FCN-SA, f32 gate
             yf = _attention_apply(packed["attention"],

@@ -1,7 +1,7 @@
 """The port's CLI (``python -m insarseg_torch.cli``, in process, ``--device
-cpu``) on the cases of the JAX package's ``tests/test_cli.py`` (all but
-``--stream``, which raises here: ROADMAP item 15), at 32^2 tiles and 48^2
-scenes, plus the ResNet families' training, and across the two packages.
+cpu``) on the cases of the JAX package's ``tests/test_cli.py``, at 32^2
+tiles and 48^2 scenes (``predict --stream``: a 96x130 ``.npy`` scene),
+plus the ResNet families' training, and across the two packages.
 The port-only cases build their U-Nets at base 16 (level 1 16 for the
 fast cell) through the model registry; the cases that cross to the JAX
 package keep the published widths (``wide``), which the JAX CLI builds:
@@ -17,7 +17,11 @@ package keep the published widths (``wide``), which the JAX CLI builds:
 - the port's ``export-torch`` scored by the JAX package's ``eval
   --torch-checkpoint`` gives the port's metrics within 1e-5;
 - several ``--input`` scenes (two shapes) through the batched stitch write
-  the PNGs of single-scene runs, equal.
+  the PNGs of single-scene runs, equal;
+- ``predict --stream`` of a uint8 ``.npy`` scene writes the PNG of the
+  in-memory ``predict`` of that scene, and the JAX package's ``predict
+  --stream`` on the same weights writes it too; its two errors are the
+  JAX CLI's.
 """
 
 import ast
@@ -339,7 +343,6 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["predict", "--input", "scene.png", "--stream"], "item 15"),
     (["eval", "--compute-dtype", "bfloat16"], "item 18"),
     (["predict", "--input", "scene.png", "--mesh-data", "2"], "item 16"),
     (["train", "--remat", "true", "--voc-root", "voc"], "item 19"),
@@ -347,6 +350,63 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
 def test_cli_unported_flags_raise(cwd, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port(*flags, *BASE)
+
+
+@pytest.fixture(scope="module")
+def stream_scene(workdir):
+    """A 96x130 uint8 scene as ``stream.npy`` and as ``stream.png``."""
+    u8 = (np.random.default_rng(13).random((96, 130)) * 255).astype(np.uint8)
+    np.save(workdir / "stream.npy", u8)
+    _save_png(str(workdir / "stream.png"), u8)
+    return u8
+
+
+STREAM = ["--tile", "32", "--overlap", "8"]
+
+
+@pytest.mark.parametrize("engine", ["module", "int8"])
+def test_cli_predict_stream_matches_in_memory(cwd, stream_scene, engine):
+    """``predict --stream`` of the ``.npy`` scene (memory-mapped, streamed
+    band by band, normalized and argmaxed on the device) writes the PNG of
+    the in-memory ``predict`` of the same scene as a PNG; int8 calibrates
+    on the same tiles of it."""
+    args = [*BASE, *STREAM, "--engine", engine]
+    assert port("predict", *args, "--input", "stream.npy", "--stream",
+                "--output", f"st_{engine}.png") == 0
+    assert port("predict", *args, "--input", "stream.png", "--output",
+                f"mem_{engine}.png") == 0
+    got = _png(f"st_{engine}.png")
+    assert got.shape == (96, 130) and set(np.unique(got)) <= {0, 255}
+    np.testing.assert_array_equal(got, _png(f"mem_{engine}.png"))
+
+
+def test_cli_predict_stream_matches_jax(cwd, wide, exported, stream_scene):
+    """The JAX package's ``predict --stream`` and the port's, on the same
+    exported weights and ``.npy`` scene, write the same PNG."""
+    pred = ["predict", *BASE, *STREAM, "--tile-batch", "8",
+            "--torch-checkpoint", exported, "--engine", "serve", "--input",
+            "stream.npy", "--stream"]
+    assert jax_main([*pred, "--output", "jax_stream.png"]) == 0
+    assert port(*pred, "--output", "port_stream.png") == 0
+    np.testing.assert_array_equal(_png("port_stream.png"),
+                                  _png("jax_stream.png"))
+
+
+@pytest.mark.parametrize("scene,shape,dtype", [
+    ("bad_dtype.npy", (64, 64, 2), np.float32),
+    ("small.npy", (24, 64), np.uint8),
+])
+def test_cli_predict_stream_errors_match_jax(cwd, scene, shape, dtype):
+    """A ``--stream`` scene that is not 2D uint8 / f32, or smaller than the
+    tile, ends both CLIs with one message."""
+    np.save(scene, np.zeros(shape, dtype))
+    argv = ["predict", *BASE, *STREAM, "--input", scene, "--stream"]
+    with pytest.raises(SystemExit) as jax_err:
+        jax_main(argv)
+    with pytest.raises(SystemExit) as port_err:
+        port(*argv)
+    assert str(port_err.value) == str(jax_err.value)
+    assert "--stream" in str(port_err.value)
 
 
 def test_cli_serves_jax_export_equal(cwd, wide, exported):
@@ -386,11 +446,12 @@ def test_scene_calib_picks_the_jax_tiles(hw, calib_batches):
     """predict's int8 calibration takes the JAX package's tiles of the first
     scene, in its groups of 4 and its order (``insarseg/cli.py``'s
     ``_stream_calib`` shares ``_scene_calib``'s pick), so the int8 scales
-    are the JAX CLI's."""
+    are the JAX CLI's; ``predict --stream``'s ``stream_calib`` reads the
+    same tiles from a uint8 or pre-normalized f32 scene."""
     import types
 
     from insarseg.cli import _stream_calib
-    from insarseg_torch.cli import normalize_scene, scene_calib
+    from insarseg_torch.cli import normalize_scene, scene_calib, stream_calib
     from insarseg_torch.config import Config
 
     u8 = np.random.default_rng(3).integers(0, 256, hw, dtype=np.uint8)
@@ -398,10 +459,16 @@ def test_scene_calib_picks_the_jax_tiles(hw, calib_batches):
     args = types.SimpleNamespace(tile=64, overlap=8,
                                  calib_batches=calib_batches)
     want = _stream_calib(u8, args, (0.3, 0.2))
-    got = scene_calib(normalize_scene(u8, cfg), 64, 8, calib_batches)
-    assert len(got) == len(want) >= 1
-    for g, w in zip(got, want):
-        assert g.dtype == np.float32 and g.shape == w.shape
+    f32 = normalize_scene(u8, cfg)[..., 0]
+    for got in (scene_calib(normalize_scene(u8, cfg), 64, 8, calib_batches),
+                stream_calib(u8, 64, 8, calib_batches, cfg),
+                stream_calib(f32, 64, 8, calib_batches, cfg)):
+        assert len(got) == len(want) >= 1
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32 and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    for g, w in zip(stream_calib(f32, 64, 8, calib_batches, cfg),
+                    _stream_calib(f32, args, (0.3, 0.2))):
         np.testing.assert_array_equal(g, w)
 
 

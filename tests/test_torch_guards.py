@@ -1,9 +1,9 @@
-"""Guards of the port's boundaries: insarseg_torch (its CLI and data path
-included, and chip_smoke.py and tools/) import nothing of JAX or of the
-JAX package, the native loader builds the port's own
-``insarseg_torch/csrc/tileops.cpp``, entry points (the CLI among them)
-default to CUDA and raise without a card, and chip_smoke.py refuses to
-run without one."""
+"""Guards of the port's boundaries: insarseg_torch (its CLI and data path,
+the streaming module among them, included, and chip_smoke.py and tools/)
+import nothing of JAX or of the JAX package, the native loader builds the
+port's own ``insarseg_torch/csrc/tileops.cpp``, entry points (the CLI
+among them) default to CUDA and raise without a card, and chip_smoke.py
+refuses to run without one."""
 
 import ast
 import os
@@ -32,6 +32,8 @@ def _imports(path: Path):
 def test_no_jax_or_insarseg_imports_in_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
         + sorted((ROOT / "tools").glob("*.py"))
+    for module in ("cli.py", "data/serve.py", "data/stitch.py"):
+        assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -60,6 +62,7 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
     from insarseg_torch.config import Config
+    from insarseg_torch.data.serve import stream_scene_inference
     from insarseg_torch.data.stitch import sliding_window_inference
     from insarseg_torch.data.synthetic import synthetic_batch
     from insarseg_torch.engines import make_engine
@@ -109,6 +112,11 @@ def test_entry_points_default_to_cuda():
         make_predict_fn(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sliding_window_inference(lambda t: t, np.zeros((32, 32, 1)), 32, 0)
+    for device_stitch in (True, False):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stream_scene_inference(lambda t: t, np.zeros((32, 32)),
+                                   (32, 32), 1, 32, 0,
+                                   device_stitch=device_stitch)
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -164,6 +172,7 @@ def test_port_reads_its_own_native_source():
     ["train", "--voc-root", "voc"],
     ["eval", "--voc-root", "voc"],
     ["predict", "--input", "scene.png"],
+    ["predict", "--input", "scene.npy", "--stream"],
     ["export-torch", "--output", "x.pth"],
 ])
 def test_cli_without_a_card_exits_with_the_no_cuda_error(argv, tmp_path,

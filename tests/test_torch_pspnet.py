@@ -20,7 +20,10 @@ from a seed in the JAX package's parameter tree:
   package's op-by-op ``resnet_int8_apply``, argmax agreement >= 99.5%
   (the bf16 head rounds at other places in the two frameworks);
 - format-1 serve and int8 artifacts written by the JAX package serve in
-  the port (``engine_from_artifact``) within the same bars.
+  the port (``engine_from_artifact``) within the same bars;
+- the int8 engine's bf16 head (``pspnet_head_i8``, calls of a fixed
+  number of tiles), at a narrow width, gives three tiles alone the
+  logits it gives them among seven and among ten, bit for bit.
 """
 
 import jax
@@ -258,3 +261,45 @@ def test_jax_artifact_serves(tmp_path, int8_cell, engine):
     else:
         assert rel <= 2e-2, rel
         assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.995
+
+
+def _narrow_head(attention, c=32, cout=16, seed=0):
+    """A folded PSPNet head tree at ``c`` backbone channels: the four bins'
+    1x1 convs (c -> c / 4), the 3x3 bottleneck conv (2c -> cout), and the
+    attention (channel: an MLP c -> c / 16 -> c; spatial: a 7x7 conv)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(k, cin, co):
+        return {"k": torch.randn(k, k, cin, co, generator=g) / (k * cin) ** .5,
+                "s": torch.rand(co, generator=g) + 0.5,
+                "b": torch.randn(co, generator=g) * 0.1}
+
+    ppm = {"bins": (1, 2, 3, 6)}
+    for b in ppm["bins"]:
+        ppm[f"bin{b}"] = conv(1, c, c // 4)
+    att = None
+    if attention == "channel":
+        att = {"type": "channel",
+               "fc1": torch.randn(c, c // 16, generator=g) / c ** .5,
+               "fc2": torch.randn(c // 16, c, generator=g)}
+    elif attention == "spatial":
+        att = {"type": "spatial", "k": conv(7, 2, 1)["k"]}
+    return {"ppm": ppm, "head": conv(3, 2 * c, cout), "attention": att}
+
+
+@pytest.mark.parametrize("attention", ATTENTIONS)
+def test_int8_head_is_batch_invariant(attention):
+    """The int8 engine runs the bf16 head in calls of ``HEAD_CHUNK`` tiles
+    (8): three tiles alone, among seven (one padded call) and among ten
+    (two calls) get the same logits, bit for bit."""
+    packed = _narrow_head(attention)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (10, 12, 12, 32)).astype(np.float32)).to(torch.bfloat16)
+    with torch.inference_mode():
+        alone = T.pspnet_head_i8(packed, x[:3])
+        among7 = T.pspnet_head_i8(packed, x[:7])
+        among10 = T.pspnet_head_i8(packed, x)
+    assert among10.shape == (10, 16, 12, 12)
+    assert among10.dtype == torch.bfloat16
+    assert torch.equal(among7[:3], alone)
+    assert torch.equal(among10[:3], alone)
