@@ -43,16 +43,18 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    input), FCN-ResNet50-CA, DeepLabV3-ResNet50 and the true
    PSPNet-ResNet50-CA (its int8 backbone on K5a / K5b / K2's squeeze / K7,
    its pyramid-pooling head bf16), 1 -> 2 classes, through
-   ``make_engine`` 'module'
-   (f32), 'serve' (f32 and bf16 input) and 'int8' (calibrated on two seeded
-   512^2 batches; the U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's
-   the standard layout), each serving batches of eight 512^2 tiles, plus a
+   ``make_engine`` 'module' (f32 and bf16), 'serve' (f32 and bf16
+   input) and 'int8' (calibrated on two seeded 512^2 batches; the
+   U-Net-CA int8 engine is the H-s2d graph, U-Net-SA's the standard
+   layout), each serving batches of eight 512^2 tiles, plus a
    1024^2 scene through ``sliding_window_inference`` on the U-Net-CA and
    FCN int8 engines; after each path, 9 tiles' int8 logits alone against
    the same tiles as the first 9 of 18 (bit-equal: the batched
    multi-scene ``predict`` and the stream run chunks of other sizes than
    a scene alone; PSPNet-CA's bf16 head runs in calls of a fixed
-   number of tiles for this), one warm int8 forward on a CUDA input
+   number of tiles for this), the same comparison on the module and serve
+   engines in f32 and bf16, counted and printed (no bar: cuDNN picks its
+   kernels by the batch), one warm int8 forward on a CUDA input
    under ``torch.cuda.set_sync_debug_mode("error")`` (no call may
    synchronise the stream), the int8 forward timed in turns as it is, with
    its device scalars copied from host memory and with K6 / K7 replaced by
@@ -89,8 +91,18 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    state bit for bit, the best loads on the CPU, a resume trains epoch 3),
    then times the train step (CUDA events, 3 repeats of 5 warm steps at
    128^2 b8, of 2 at 512^2 b8) beside its bound, with one warm step under
-   ``set_sync_debug_mode("error")`` and a 3-step profiler window, and
-   holds two steps on the card to the CPU's at 64^2 b2;
+   ``set_sync_debug_mode("error")``, the peak of ``max_memory_allocated``
+   and a 3-step profiler window, and holds two steps on the card to the
+   CPU's at 64^2 b2; then the same in bf16 (``compute_dtype``: bf16 convs
+   and matmuls over f32 parameters, Adam state and BN statistics; bound
+   at the dense bf16 peak), its loss finite and falling over 5 steps on
+   one batch and its parameters and Adam state f32, its two steps on the
+   card against the CPU's (``BF16_CARD_VS_CPU``), ``fit`` for 2 epochs in
+   bf16 (seconds); the step with ``remat`` (each DoubleConv recomputed in
+   the backward pass) at 512^2 b8 in f32 and bf16 beside the step without
+   it (ms and peak memory), and remat against no remat on the card under
+   ``cudnn.deterministic`` (held to the difference two identical steps
+   without remat show, 0 if they agree bit for bit);
 6. runs the commands users run (``insarseg_torch.cli``, on the card) on
    files, the ``cli`` phase: a synthetic VOC tree (``make_synthetic_voc``)
    in a temporary directory; ``train --preset unet-channelattention``
@@ -107,7 +119,9 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    64^2 b128, 136 train tiles) for 1 epoch, an int8 ``predict`` of one
    1024^2 scene, ``export-torch`` and the exported file's ``predict``
    (the same PNG bit for bit); one train step of ``--preset pspnet-true``
-   at batch 1; every kernel call of every command held against its plain
+   at batch 1; ``train --compute-dtype bfloat16`` and ``train --remat
+   true`` of U-Net-CA for one epoch each and a bf16 ``eval`` of the
+   bf16 checkpoint; every kernel call of every command held against its plain
    version on the same arguments, as the main paths' calls are (equal,
    K6 within its counted bar; ``checked_calls``), and each kernel checked
    at least as often as it launched; each command's wall seconds and the
@@ -993,7 +1007,7 @@ def build_model(name: str, attention: str, seed: int = SEED):
 
 def build_engines(dev, name, attention, model, calib, full=True):
     """The cell's engines: int8 and serve f32, and with ``full`` module f32
-    and serve with bf16 input."""
+    and bf16 and serve with bf16 input."""
     import torch
     from insarseg_torch.engines import make_engine
 
@@ -1001,6 +1015,9 @@ def build_engines(dev, name, attention, model, calib, full=True):
     if full:
         engines["module f32"] = make_engine(name, attention, model, None,
                                             "module", device=dev)
+        engines["module bf16"] = make_engine(name, attention, model, None,
+                                             "module", device=dev,
+                                             input_dtype=torch.bfloat16)
     engines["serve f32"] = make_engine(name, attention, model, None, "serve",
                                        device=dev)
     if full:
@@ -1044,10 +1061,11 @@ def serve_and_check(engines, images, dev, corr_bar: float,
             f"{err / scale:.3g} x max|logit| ({scale:.4g})")
         if err > 1e-3 * scale:
             raise AssertionError("serve f32 differs from module f32")
-    if "serve bf16-input" in out:
-        agree = float(np.mean(out["serve bf16-input"].argmax(-1)
-                              == out["serve f32"].argmax(-1)))
-        log(f"  serve bf16-input vs serve f32: argmax agreement {agree:.5f}")
+    for name in ("serve bf16-input", "module bf16"):
+        if name in out:
+            agree = float(np.mean(out[name].argmax(-1)
+                                  == out["serve f32"].argmax(-1)))
+            log(f"  {name} vs serve f32: argmax agreement {agree:.5f}")
     corr = float(np.corrcoef(out["int8"].ravel(),
                              out["serve f32"].ravel())[0, 1])
     agree8 = float(np.mean(out["int8"].argmax(-1)
@@ -1274,6 +1292,24 @@ def batch_invariance(predict, dev, label) -> None:
     if n:
         raise AssertionError(f"{label}: a tile's int8 logits depend on the "
                              "batch")
+
+
+FLOAT_ENGINES = ("module f32", "module bf16", "serve f32",
+                 "serve bf16-input")
+
+
+def float_batch_counts(engines, dev, label) -> dict:
+    """``batch_difference`` on the module and serve engines in f32 and bf16:
+    how many of 9 tiles' logits among 18 differ from alone. Printed, not
+    held to a bar: every float conv runs in cuDNN, which picks its kernel
+    by the batch."""
+    counts = {}
+    for name in FLOAT_ENGINES:
+        n, total, agree = batch_difference(engines[name], dev)
+        counts[name] = [n, total, agree]
+        log(f"{label}: {name} logits of 9 tiles among 18 vs alone, {n} of "
+            f"{total} differ, argmax agreement {agree:.6f}")
+    return counts
 
 
 def psp_batched_head_count(predict, dev, label) -> None:
@@ -1590,6 +1626,7 @@ def unet_standard_layout(dev, model, calib, images, s2d_predict,
 TRAIN_PRESET = "unet-channelattention"  # 128^2, b8, the reference script's
 TRAIN_STEPS, VAL_STEPS = 4, 2  # batches an epoch
 PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores (TF32 off)
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 
 
 def unet_flops(size: int, batch: int) -> float:
@@ -1717,35 +1754,62 @@ def train_fit(dev) -> None:
         "run trains epoch 3")
 
 
-def train_step_timing(dev, size, batch, power_line, steps: int) -> None:
-    """The U-Net-CA train step at ``size``^2 b``batch``: one warm step on
-    CUDA tensors under ``set_sync_debug_mode("error")``, then CUDA-event
-    ms of ``steps`` warm steps, 3 repeats (median and spread), tiles/s, the
-    bound (3 x the forward's FLOPs at the f32 peak), and the device idle
-    share and top operations of a 3-step profiler window; the host seconds
-    of each part."""
+def _dtype(name: str):
+    from insarseg_torch.config import COMPUTE_DTYPES
+
+    return COMPUTE_DTYPES[name]
+
+
+def syncs(fn) -> str:
+    """'' if ``fn()`` synchronises nothing under
+    ``set_sync_debug_mode("error")``, else the error it raised."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return ""
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def train_step_timing(dev, size, batch, power_line, steps: int,
+                      dtype: str = "float32", remat: bool = False,
+                      profile: bool = True) -> dict:
+    """The U-Net-CA train step at ``size``^2 b``batch`` in ``dtype``, with
+    or without ``remat``: one warm step on CUDA tensors under
+    ``set_sync_debug_mode("error")`` (it must synchronise nothing; with
+    remat the reading is printed), then CUDA-event ms of ``steps`` warm
+    steps, 3 repeats (median and spread), the peak of
+    ``max_memory_allocated`` over them (reset before), tiles/s, the bound
+    (3 x the forward's FLOPs at the f32 or the dense bf16 peak), and with
+    ``profile`` the device idle share and top operations of a 3-step
+    profiler window; the host seconds of each part. Returns the median ms
+    and the peak GiB."""
     import torch
     from insarseg_torch.data.synthetic import synthetic_batch
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.train.engine import create_state, make_train_step
 
     marks = [("start", time.perf_counter())]
-    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    model = UNet(num_classes=2, base_features=BASE, use_se=True, remat=remat)
     state = create_state(model, seed=SEED, device=dev)
-    step = make_train_step(model, 2)
+    step = make_train_step(model, 2, compute_dtype=_dtype(dtype))
     data = synthetic_batch(batch, size, seed=SEED + 30)
     x = torch.from_numpy(data["image"]).to(dev)
     m = torch.from_numpy(data["mask"]).to(dev)
     marks.append(("init", time.perf_counter()))
     step(state, x, m)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        step(state, x, m)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    synced = syncs(lambda: step(state, x, m))
+    if synced and not remat:
+        raise AssertionError(f"a warm {dtype} train step synchronises: "
+                             f"{synced}")
     marks.append(("warm", time.perf_counter()))
+    torch.cuda.reset_peak_memory_stats(dev)
     ms = []
     for _ in range(3):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1755,31 +1819,49 @@ def train_step_timing(dev, size, batch, power_line, steps: int) -> None:
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1) / steps)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     marks.append(("timed", time.perf_counter()))
     med = float(np.median(ms))
-    bound_ms = 3 * unet_flops(size, batch) / PEAK_F32 * 1e3
-    idle, top, _ = profile_window(lambda t: step(state, t, m), x)
-    marks.append(("profiler", time.perf_counter()))
-    share = "not measured" if idle is None else f"{100 * idle:.1f}%"
+    flops = unet_flops(size, batch)
+    peak_rate = PEAK_BF16 if dtype == "bfloat16" else PEAK_F32
+    bound_ms = 3 * flops / peak_rate * 1e3
+    share = "not measured"
+    top = []
+    if profile:
+        idle, top, _ = profile_window(lambda t: step(state, t, m), x)
+        marks.append(("profiler", time.perf_counter()))
+        if idle is not None:
+            share = f"{100 * idle:.1f}%"
     parts = ", ".join(f"{b[0]} {b[1] - a[1]:.2f}"
                       for a, b in zip(marks, marks[1:]))
-    log(f"train step U-Net-CA base {BASE}, {size}^2 b{batch}, f32 (TF32 "
-        f"off): {med:.3f} ms median of {' / '.join(f'{v:.3f}' for v in ms)}"
-        f" ({steps} steps a repeat, spread {max(ms) - min(ms):.3f}), "
-        f"{batch / med * 1e3:.2f} tiles/s, bound {bound_ms:.3f} ms (3 x the "
-        f"forward's {unet_flops(size, batch) / 1e12:.4f} TFLOP at "
-        f"{PEAK_F32 / 1e12:.0f} TFLOP/s), device idle {share} under the "
-        f"profiler; warm step synchronises nothing; host s: {parts}; on "
-        f"{power_line}")
+    what = "f32 (TF32 off)" if dtype == "float32" else "bf16"
+    log(f"train step U-Net-CA base {BASE}, {size}^2 b{batch}, {what}"
+        f"{', remat' if remat else ''}: {med:.3f} ms median of "
+        f"{' / '.join(f'{v:.3f}' for v in ms)} ({steps} steps a repeat, "
+        f"spread {max(ms) - min(ms):.3f}), {batch / med * 1e3:.2f} tiles/s, "
+        f"peak memory {peak:.4f} GiB, bound {bound_ms:.3f} ms (3 x the "
+        f"forward's {flops / 1e12:.4f} TFLOP at {peak_rate / 1e12:.0f} "
+        f"TFLOP/s), device idle {share} under the profiler; warm step "
+        f"{'synchronises: ' + synced if synced else 'synchronises nothing'}"
+        f"; host s: {parts}; on {power_line}")
     for key, dms in top:
         log(f"    profiler, device ms per step: {dms:.4f} {key}")
+    return {"ms": med, "peak_gib": peak}
 
 
-def train_card_vs_cpu(dev) -> None:
+# the bf16 step on the card against the CPU's (relative loss, steps 1 and
+# 2; the share of pixels whose class differs in step 1): two bf16 graphs
+# that round at other places
+BF16_CARD_VS_CPU = (2e-3, 2e-3, 1e-2)
+
+
+def train_card_vs_cpu(dev, dtype: str = "float32") -> None:
     """Two U-Net-CA (base ``BASE``) train steps at 64^2 b2 on the card and
-    on the CPU from the same weights and batches: step 1's loss within
-    rtol 1e-4 and its counts equal, step 2's loss within rtol 5e-4 (the f32
-    loss bar of the JAX package's training-parity test)."""
+    on the CPU from the same weights and batches. f32: step 1's loss
+    within rtol 1e-4 and its counts equal, step 2's loss within rtol 5e-4
+    (the f32 loss bar of the JAX package's training-parity test). bf16:
+    the losses within ``BF16_CARD_VS_CPU`` and at most its share of step
+    1's pixels counted correct on one side only."""
     import torch
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.train.engine import create_state, make_train_step
@@ -1793,7 +1875,7 @@ def train_card_vs_cpu(dev) -> None:
     for where in ("cpu", dev):
         model = UNet(num_classes=2, base_features=BASE, use_se=True)
         state = create_state(model, seed=SEED, device=where)
-        step = make_train_step(model, 2)
+        step = make_train_step(model, 2, compute_dtype=_dtype(dtype))
         outs[str(where)] = [{k: v.cpu() for k, v in
                              step(state, x.to(where), y.to(where)).items()}
                             for x, y in batches]
@@ -1802,15 +1884,149 @@ def train_card_vs_cpu(dev) -> None:
            / abs(float(cpu[i]["loss"])) for i in range(2)]
     same = all(torch.equal(card[0][k], cpu[0][k])
                for k in ("tp", "fp", "fn", "correct", "valid"))
-    log(f"train step card vs CPU (U-Net-CA base {BASE}, 64^2 b2, the same "
-        f"weights and batches): losses {float(card[0]['loss']):.7f} / "
-        f"{float(cpu[0]['loss']):.7f} (rel {rel[0]:.3g}, bar 1e-4), "
-        f"{float(card[1]['loss']):.7f} / {float(cpu[1]['loss']):.7f} (rel "
-        f"{rel[1]:.3g}, bar 5e-4); step 1 counts "
-        f"{'equal' if same else 'differ'}")
-    if not (rel[0] <= 1e-4 and rel[1] <= 5e-4 and same):
-        raise AssertionError("the train step on the card disagrees with "
-                             "the CPU")
+    moved = float((card[0]["correct"] - cpu[0]["correct"]).abs().sum()
+                  / cpu[0]["valid"].sum())
+    bars = (1e-4, 5e-4, 0.0) if dtype == "float32" else BF16_CARD_VS_CPU
+    log(f"train step card vs CPU (U-Net-CA base {BASE}, 64^2 b2, {dtype}, "
+        f"the same weights and batches): losses "
+        f"{float(card[0]['loss']):.7f} / {float(cpu[0]['loss']):.7f} (rel "
+        f"{rel[0]:.3g}, bar {bars[0]}), {float(card[1]['loss']):.7f} / "
+        f"{float(cpu[1]['loss']):.7f} (rel {rel[1]:.3g}, bar {bars[1]}); "
+        f"step 1 counts {'equal' if same else 'differ'}, correct pixels "
+        f"moved {moved:.3g} (bar {bars[2]})")
+    if not (rel[0] <= bars[0] and rel[1] <= bars[1] and moved <= bars[2]
+            and (same or dtype != "float32")):
+        raise AssertionError(f"the {dtype} train step on the card disagrees "
+                             "with the CPU")
+
+
+def train_bf16_checks(dev) -> None:
+    """U-Net-CA (base ``BASE``) at its preset shape in bf16: 5 steps on one
+    batch give finite losses, the last below the first; the parameters,
+    their gradients and Adam's state stay f32."""
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    state = create_state(model, seed=SEED, device=dev)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16)
+    data = synthetic_batch(BATCH, 128, seed=SEED + 31)
+    x = torch.from_numpy(data["image"]).to(dev)
+    m = torch.from_numpy(data["mask"]).to(dev)
+    losses = [float(step(state, x, m)["loss"]) for _ in range(5)]
+    dtypes = {p.dtype for p in model.parameters()} \
+        | {p.grad.dtype for p in model.parameters() if p.grad is not None} \
+        | {v.dtype for st in state.optimizer.state.values()
+           for k, v in st.items() if k != "step"}
+    log(f"bf16 train step U-Net-CA base {BASE}, 128^2 b{BATCH}, one batch 5 "
+        f"times: losses {[round(v, 6) for v in losses]}; parameters, "
+        f"gradients and Adam state {sorted(str(d) for d in dtypes)}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 losses {losses}")
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"bf16 training state dtypes {dtypes}")
+
+
+def fit_bf16(dev) -> None:
+    """``fit`` of U-Net-CA for 2 epochs in bf16 on ``train_fit``'s data:
+    seconds, finite losses, the train loss falling, f32 weights."""
+    import torch
+    from insarseg_torch.config import get_preset
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, fit
+
+    cfg = get_preset(TRAIN_PRESET, num_epochs=2, log_every_steps=100,
+                     compute_dtype="bfloat16")
+    size, b = cfg.image_size, cfg.batch_size
+    train = [synthetic_batch(b, size, seed=SEED + 10 + i)
+             for i in range(TRAIN_STEPS)]
+    val = [synthetic_batch(b, size, seed=SEED + 20 + i)
+           for i in range(VAL_STEPS)]
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    state = create_state(model, cfg.learning_rate, seed=cfg.seed, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = fit(model, cfg, train, val, state=state, verbose=False,
+               device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
+    log(f"fit bf16: {TRAIN_PRESET} (U-Net-CA base {BASE}, {size}^2 b{b}, "
+        f"{TRAIN_STEPS} steps and {VAL_STEPS} validation batches an epoch), "
+        f"2 epochs in {sec:.3f} s (host clock, the first steps' cuDNN "
+        f"set-up included); history {json.dumps(hist)}")
+    if not np.all(np.isfinite(losses)) or \
+            not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise AssertionError(f"fit bf16: losses {losses}")
+    if {t.dtype for t in model.state_dict().values()} \
+            - {torch.float32, torch.int64}:
+        raise AssertionError("fit bf16 left non-f32 weights")
+
+
+def _max_diff(a, b) -> float:
+    """The largest |a - b| over two state_dicts' float tensors."""
+    import torch
+
+    worst = 0.0
+    for k, v in a.items():
+        if torch.is_floating_point(v):
+            worst = max(worst, float((v.double() - b[k].double()).abs()
+                                     .max()))
+        elif not torch.equal(v, b[k]):
+            return float("inf")
+    return worst
+
+
+def remat_on_card(dev) -> None:
+    """Remat against no remat on the card, under
+    ``cudnn.deterministic``: U-Net-CA (base ``BASE``), 2 steps at 128^2 b8
+    from one seeded init, in f32 and bf16, three runs each (no remat
+    twice, remat once). The weights, BN statistics and Adam state after
+    remat may differ from no remat by at most what the two runs without it
+    differ by (0 when those agree bit for bit)."""
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    batches = [synthetic_batch(BATCH, 128, seed=SEED + 60 + i)
+               for i in range(2)]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in ("float32", "bfloat16"):
+            runs = []
+            for remat in (False, False, True):
+                model = UNet(num_classes=2, base_features=BASE, use_se=True,
+                             remat=remat)
+                state = create_state(model, seed=SEED, device=dev)
+                step = make_train_step(model, 2, compute_dtype=_dtype(dtype))
+                for b in batches:
+                    out = step(state, torch.from_numpy(b["image"]).to(dev),
+                               torch.from_numpy(b["mask"]).to(dev))
+                adam = {f"{i}/{k}": v for i, st in
+                        state.optimizer.state.items() for k, v in st.items()}
+                runs.append(({k: v.detach().cpu() for k, v in
+                              model.state_dict().items()},
+                             {k: v.detach().cpu() for k, v in adam.items()},
+                             float(out["loss"])))
+            base = _max_diff(runs[0][0], runs[1][0]), \
+                _max_diff(runs[0][1], runs[1][1])
+            got = _max_diff(runs[0][0], runs[2][0]), \
+                _max_diff(runs[0][1], runs[2][1])
+            log(f"remat on the card ({dtype}, cudnn.deterministic, 2 steps "
+                f"at 128^2 b{BATCH}): no remat vs no remat, weights and "
+                f"statistics {base[0]:.3g}, Adam state {base[1]:.3g}; remat "
+                f"vs no remat {got[0]:.3g}, {got[1]:.3g}; last losses "
+                f"{[r[2] for r in runs]}")
+            if got[0] > base[0] or got[1] > base[1]:
+                raise AssertionError(f"remat ({dtype}) differs from no remat "
+                                     "by more than two steps without it")
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def train_path(dev, power_line: str, phase) -> None:
@@ -1820,12 +2036,29 @@ def train_path(dev, power_line: str, phase) -> None:
     phase("training: fit, checkpoints, resume")
     # 5 steps a repeat at 128^2, 2 at 512^2 (a step there is ~310 ms and
     # its repeats agree within 0.1%)
-    for size, steps in ((128, 5), (HW, 2)):
-        train_step_timing(dev, size, BATCH, power_line, steps)
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        for size, n in ((128, 5), (HW, 2)):
+            steps[(dtype, size, False)] = train_step_timing(
+                dev, size, BATCH, power_line, n, dtype)
+            torch.cuda.empty_cache()
+        steps[(dtype, HW, True)] = train_step_timing(
+            dev, HW, BATCH, power_line, 2, dtype, remat=True, profile=False)
         torch.cuda.empty_cache()
-    phase("training: the train step timed, without syncs")
+    log(f"train step U-Net-CA base {BASE} (dtype, size, remat): ms and "
+        "peak GiB "
+        + json.dumps({f"{d} {s} {'remat' if r else 'plain'}": v
+                      for (d, s, r), v in steps.items()}))
+    phase("training: the train step timed (f32, bf16, remat), without "
+          "syncs")
     train_card_vs_cpu(dev)
-    phase("training: card vs CPU")
+    train_card_vs_cpu(dev, "bfloat16")
+    phase("training: card vs CPU (f32, bf16)")
+    train_bf16_checks(dev)
+    fit_bf16(dev)
+    phase("training: bf16 steps and fit")
+    remat_on_card(dev)
+    phase("training: remat against no remat on the card")
 
 
 # The CLI phase: the commands users run, on files, through
@@ -1965,6 +2198,27 @@ def cli_path(power_line: str) -> dict:
             log(f"  U-Net-CA losses: train "
                 f"{[round(h['train_loss'], 5) for h in hist]}, val "
                 f"{[round(h['val_loss'], 5) for h in hist]}")
+
+            # one epoch in bf16 and one with remat; the bf16 checkpoint
+            # scored in bf16
+            for flags, stem in ((["--compute-dtype", "bfloat16"], "bf16"),
+                                (["--remat", "true"], "remat")):
+                cli(["train", *CLI_UNET, "--voc-root", "voc_unet", *flags,
+                     "--num-epochs", "1", "--model-save-path",
+                     f"ck_{stem}/m", "--metrics-save-path", f"{stem}.json"],
+                    timings, checked, f"train {' '.join(flags)}")
+                h = json.load(open(f"{stem}.json"))[0]
+                if not (np.isfinite(h["train_loss"])
+                        and np.isfinite(h["val_loss"])):
+                    raise AssertionError(f"train {flags}: {h}")
+                log(f"  U-Net-CA {stem}: train loss {h['train_loss']:.5f}, "
+                    f"val loss {h['val_loss']:.5f}")
+            m_b16 = cli_metrics(cli(
+                ["eval", *CLI_UNET, "--voc-root", "voc_unet", "--checkpoint",
+                 "ck_bf16/m", "--compute-dtype", "bfloat16"], timings,
+                checked, "eval module bf16"))
+            log(f"  U-Net-CA bf16 checkpoint, bf16 eval: val mIoU "
+                f"{m_b16['val_miou']:.5f}")
 
             # scored on the module and the int8 engine (calibrated on the
             # train split), the int8 engine saved as an artifact
@@ -2396,7 +2650,7 @@ def run(dev, power_line: str, phase) -> list:
     scene = smooth_batch(np.random.default_rng(SEED + 3), 1, 2 * HW,
                          2 * HW)[0]
     cases = {wrapper: [] for wrapper, _, _ in KERNELS.values()}
-    launches = {}
+    launches, float_counts = {}, {}
     for name, attention, label, corr_bar, want in PATHS:
         # 3a. the engines at full width (packing launches no kernel)
         model = build_model(name, attention)
@@ -2423,6 +2677,7 @@ def run(dev, power_line: str, phase) -> list:
             scene=scene if with_scene else None)
         phase(f"{label}: main path")
         batch_invariance(engines["int8"], dev, label)
+        float_counts[label] = float_batch_counts(engines, dev, label)
         x_dev = torch.from_numpy(images).to(dev)
         check_no_sync(engines["int8"], x_dev, label)
         forward_turns(engines["int8"], x_dev, label, power_line,
@@ -2458,6 +2713,8 @@ def run(dev, power_line: str, phase) -> list:
                                  "paths")
         table.append(row)
     torch.cuda.empty_cache()
+    log("float engines, logits of 9 tiles among 18 that differ from alone "
+        "(count, of, argmax agreement): " + json.dumps(float_counts))
     phase("kernel timing")
 
     # 4. the other ResNet cells, once each through int8 (512^2, b2)

@@ -21,11 +21,18 @@ cross through the JAX package's ``export-torch`` and
 the device): ``.npy`` scenes open memory-mapped, so a strip larger than
 host memory never loads whole.
 
+``--compute-dtype bfloat16`` computes in bf16 as the JAX CLI's bf16
+model does: ``train``, the module engine of ``eval`` and ``predict``
+(with ``--stream`` too) run the graph in bf16 over f32 parameters; the
+serve and int8 engines pack the f32 weights and run as they do without
+it, as the JAX package's engines ignore the model's dtype.
+``--remat true`` rematerializes the U-Net families' DoubleConvs in
+``train``; the other families raise the JAX package's ``ValueError``.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item: ``--compute-dtype bfloat16`` (Queue 1 item 18), ``--mesh-data`` /
-``--mesh-spatial`` above 1 (item 16), ``--remat true`` (item 19). The
-JAX package's other mesh behaviour (every chip on the data axis) is one
-device here.
+item: ``--mesh-data`` / ``--mesh-spatial`` above 1 (Queue 1 item 16).
+The JAX package's other mesh behaviour (every chip on the data axis) is
+one device here.
 """
 
 from __future__ import annotations
@@ -53,8 +60,8 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
 
 
 def _build_cfg(args):
-    from insarseg_torch.config import Config, get_preset
-    from insarseg_torch.train.engine import BF16_TODO, MESH_TODO
+    from insarseg_torch.config import Config, compute_dtype, get_preset
+    from insarseg_torch.train.engine import MESH_TODO
 
     overrides = {}
     for f in dataclasses.fields(Config):
@@ -63,8 +70,7 @@ def _build_cfg(args):
             overrides[f.name] = v
     cfg = (get_preset(args.preset, **overrides) if args.preset
            else Config(**overrides))
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(BF16_TODO)
+    compute_dtype(cfg)  # an unknown dtype ends the command here
     if cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
         raise NotImplementedError(MESH_TODO)
     return cfg
@@ -215,18 +221,31 @@ def _artifact_engine(args, cfg, explicit_calib: bool, dev: torch.device):
     return engine_from_artifact(art, device=dev)
 
 
+# the families whose --torch-checkpoint import grafts an RGB stem (the
+# JAX package's ``_resnet_backbone``)
+RESNET_MODELS = ("deeplabv3", "fcn", "pspnet")
+
+
 def _load_weights(args, cfg, model: torch.nn.Module) -> None:
     """Fill ``model`` (on the CPU) from --torch-checkpoint, --checkpoint
-    or, without either, a fresh init drawn from ``cfg.seed``."""
+    or, without either, a fresh init drawn from ``cfg.seed``. A
+    --torch-checkpoint of a ResNet family with an RGB stem (a pretrained
+    torchvision file) has its ``backbone.conv1`` averaged to one channel
+    first, as the JAX package's import does; a U-Net file is not
+    grafted."""
     if getattr(args, "torch_checkpoint", None):
         from insarseg_torch.compat import (
+            graft_grayscale_stem,
             load_torch_state_dict,
             state_dict_to_torch,
         )
 
-        model.load_state_dict(
-            state_dict_to_torch(load_torch_state_dict(args.torch_checkpoint)),
-            strict=True)
+        sd = load_torch_state_dict(args.torch_checkpoint)
+        stem = sd.get("backbone.conv1.weight")
+        if cfg.model in RESNET_MODELS and stem is not None \
+                and stem.shape[1] == 3:
+            sd["backbone.conv1.weight"] = graft_grayscale_stem(stem)
+        model.load_state_dict(state_dict_to_torch(sd), strict=True)
     elif getattr(args, "checkpoint", None):
         from insarseg_torch.train.checkpoint import Checkpointer
 
@@ -240,7 +259,9 @@ def _load_weights(args, cfg, model: torch.nn.Module) -> None:
 def _build_engine_maybe_save(args, cfg, model, engine_name: str, calib,
                              dev: torch.device):
     """The save-engine flow shared by eval and predict: pack (and save the
-    artifact when --save-engine is set) or build the live engine."""
+    artifact when --save-engine is set) or build the live engine (the
+    module engine in ``cfg.compute_dtype``)."""
+    from insarseg_torch.config import compute_dtype
     from insarseg_torch.engines import make_engine
 
     if getattr(args, "save_engine", None):
@@ -255,7 +276,9 @@ def _build_engine_maybe_save(args, cfg, model, engine_name: str, calib,
         return engine_from_artifact(art, device=dev)
     return make_engine(cfg.model, cfg.attention, model, None, engine_name,
                        calib_batches=calib, calib_stat=args.calib_stat,
-                       device=dev)
+                       device=dev,
+                       input_dtype=(compute_dtype(cfg)
+                                    if engine_name == "module" else None))
 
 
 def _check_supported(cfg, engine_name: str, hint: str = "") -> None:
@@ -272,6 +295,7 @@ SAVE_MODULE = ("--save-engine needs a packed engine: pass --engine serve or "
 
 
 def cmd_eval(args) -> int:
+    from insarseg_torch.config import compute_dtype
     from insarseg_torch.data.voc import BatchLoader
     from insarseg_torch.models.registry import build_model
     from insarseg_torch.train import engine
@@ -320,7 +344,8 @@ def cmd_eval(args) -> int:
             raise SystemExit(SAVE_MODULE)
         _load_weights(args, cfg, model)
         eval_step = engine.make_eval_step(model.to(dev), cfg.num_classes,
-                                          cfg.ignore_index, normalize=norm)
+                                          cfg.ignore_index, normalize=norm,
+                                          compute_dtype=compute_dtype(cfg))
     res = engine.evaluate(eval_step, loader, cfg.metrics_version,
                           cfg.metrics_mode)
     print(res)

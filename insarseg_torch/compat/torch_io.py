@@ -9,7 +9,9 @@ reference twin. Input: the JAX variables as numpy
 arrays (or anything ``np.asarray`` takes). Output: numpy arrays under the
 reference's state_dict names (``inc.double_conv.0``, ``down{i}.1.…``,
 ``….double_conv.6.fc.0/2``, ``up{i}``, ``outc``), which
-``insarseg_torch.models.unet.UNet.load_state_dict(strict=True)`` accepts.
+``insarseg_torch.models.unet.UNet.load_state_dict(strict=True)`` accepts;
+and :func:`graft_grayscale_stem`, which the CLI's ``--torch-checkpoint``
+applies to a ResNet family's RGB stem.
 
 Layout maps (NHWC/HWIO jax -> NCHW/OIHW torch):
 
@@ -46,6 +48,24 @@ def state_dict_to_torch(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """numpy state_dict -> torch tensors (for ``load_state_dict``)."""
     return {k: torch.as_tensor(np.ascontiguousarray(_np(v)))
             for k, v in sd.items()}
+
+
+def graft_grayscale_stem(kernel: Any) -> np.ndarray:
+    """An RGB stem conv kernel averaged over its 3 input channels to one,
+    the reference's adaptation of pretrained weights
+    (``original_conv1.weight.mean(dim=1, keepdim=True)``; own copy of
+    ``insarseg/compat/torch_io.py::graft_grayscale_stem``). Either layout:
+    HWIO (kh, kw, 3, cout) -> (kh, kw, 1, cout), or torch OIHW (cout, 3,
+    kh, kw) -> (cout, 1, kh, kw)."""
+    k = _np(kernel)
+    if k.ndim != 4:
+        raise ValueError(f"expected a 4D conv kernel, got shape {k.shape}")
+    if k.shape[2] == 3:  # HWIO
+        return k.mean(axis=2, keepdims=True)
+    if k.shape[1] == 3:  # OIHW
+        return k.mean(axis=1, keepdims=True)
+    raise ValueError(
+        f"no 3-channel input axis found in kernel shape {k.shape}")
 
 
 def unet_variables_to_torch(

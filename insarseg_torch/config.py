@@ -7,16 +7,21 @@ training script; the per-script differences (tile 64 or 128, batch 8 or
 is one frozen dataclass with one preset per reference script, named after
 the script, plus the two extensions; the CLI overrides any field.
 
-What the port does not run yet raises where it is read:
-``compute_dtype='bfloat16'`` (ROADMAP Queue 1 item 18) and ``mesh_data``
-/ ``mesh_spatial`` above 1 (item 16) in ``train/engine.py::fit``;
-``remat=True`` (item 19) in ``models/registry.py::build_model``.
+``compute_dtype`` ('float32' or 'bfloat16', :func:`compute_dtype`) is
+the dtype the train and eval steps and the module engine compute in
+(``train/engine.py``, ``ops/layers.py``); ``remat`` rematerializes the
+U-Net families' DoubleConvs (``models/registry.py::build_model``). What
+the port does not run yet raises where it is read: ``mesh_data`` /
+``mesh_spatial`` above 1 (ROADMAP Queue 1 item 16) in
+``train/engine.py::fit`` and the CLI.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +55,8 @@ class Config:
     # drop the last partial train batch; by default it is zero-padded to
     # the batch size and the padded images enter BN's batch statistics
     drop_last: bool = False
-    # activation checkpointing of the U-Net blocks: ROADMAP item 19
+    # recompute each U-Net DoubleConv in the backward pass
+    # (torch.utils.checkpoint); the U-Net families only
     remat: bool = False
     log_every_steps: int = 100
     # 1: (acc, miou) of the reference's Unet.py; 2: {acc, miou, mpa, mf1}
@@ -68,6 +74,17 @@ class Config:
     compute_dtype: str = "float32"  # float32 | bfloat16
     mesh_data: int = -1  # -1 = all devices on the data axis
     mesh_spatial: int = 1  # spatial partitioning of H
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype``."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
+                         f"expected one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 def _p(model: str, attention: str, image_size: int, batch_size: int,

@@ -27,14 +27,14 @@ from insarseg_torch.ops.blocks import (
     ChannelAttentionModule,
     SpatialAttentionConv,
 )
-from insarseg_torch.ops.layers import MomentBatchNorm2d
+from insarseg_torch.ops.layers import Conv2d, MomentBatchNorm2d
 from insarseg_torch.ops.resize import resize_bilinear
 
 
 def _conv_bn_relu(cin: int, cout: int, k: int = 1, dilation: int = 1,
                   bn=nn.BatchNorm2d):
-    return [nn.Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
-                      dilation=dilation, bias=False),
+    return [Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
+                   dilation=dilation, bias=False),
             bn(cout), nn.ReLU(inplace=True)]
 
 
@@ -74,10 +74,10 @@ class DeepLabV3(nn.Module):
         self.attention = attention
         self.backbone = build_backbone(backbone, False, in_channels)
         head = [("0", ASPP()),
-                ("1", nn.Conv2d(256, 256, 3, padding=1, bias=False))]
+                ("1", Conv2d(256, 256, 3, padding=1, bias=False))]
         if attention != "spatial":
             head += [("2", nn.BatchNorm2d(256)), ("3", nn.ReLU(inplace=True))]
-        head.append(("4", nn.Conv2d(256, num_classes, 1)))
+        head.append(("4", Conv2d(256, num_classes, 1)))
         self.classifier = nn.Sequential(OrderedDict(head))
         if attention == "channel":
             self.attention_module = ChannelAttentionModule(256)

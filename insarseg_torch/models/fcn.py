@@ -16,6 +16,7 @@ from torch import nn
 
 from insarseg_torch.models.resnet import build_backbone
 from insarseg_torch.ops.blocks import SpatialAttentionConv
+from insarseg_torch.ops.layers import Conv2d
 from insarseg_torch.ops.resize import resize_bilinear
 
 
@@ -23,11 +24,11 @@ class FCNHead(nn.Sequential):
     def __init__(self, in_channels: int, num_classes: int):
         inter = in_channels // 4
         super().__init__(
-            nn.Conv2d(in_channels, inter, 3, padding=1, bias=False),
+            Conv2d(in_channels, inter, 3, padding=1, bias=False),
             nn.BatchNorm2d(inter),
             nn.ReLU(inplace=True),
             nn.Dropout(0.1),
-            nn.Conv2d(inter, num_classes, 1),
+            Conv2d(inter, num_classes, 1),
         )
 
 

@@ -27,7 +27,11 @@ from torch import nn
 
 from insarseg_torch.models.resnet import build_backbone
 from insarseg_torch.ops.blocks import SpatialAttentionConv
-from insarseg_torch.ops.layers import MomentBatchNorm2d, adaptive_avg_pools
+from insarseg_torch.ops.layers import (
+    Conv2d,
+    MomentBatchNorm2d,
+    adaptive_avg_pools,
+)
 from insarseg_torch.ops.resize import resize_bilinear
 
 BINS = (1, 2, 3, 6)
@@ -40,7 +44,7 @@ class PyramidPooling(nn.Module):
         self.bins = tuple(bins)
         for b in self.bins:
             setattr(self, f"conv_bin{b}",
-                    nn.Conv2d(in_channels, branch_features, 1, bias=False))
+                    Conv2d(in_channels, branch_features, 1, bias=False))
             setattr(self, f"bn_bin{b}",
                     MomentBatchNorm2d(branch_features))
 
@@ -67,10 +71,10 @@ class PSPNet(nn.Module):
         if attention == "spatial":
             self.spatial_attention = SpatialAttentionConv(7)
         self.ppm = PyramidPooling(2048)
-        self.bottleneck_conv = nn.Conv2d(4096, 512, 3, padding=1, bias=False)
+        self.bottleneck_conv = Conv2d(4096, 512, 3, padding=1, bias=False)
         self.bottleneck_bn = nn.BatchNorm2d(512)
         self.dropout = nn.Dropout(0.1)
-        self.classifier = nn.Conv2d(512, num_classes, 1)
+        self.classifier = Conv2d(512, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.backbone(x)["out"]

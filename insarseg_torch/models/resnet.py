@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import SEBlock
-from insarseg_torch.ops.layers import max_pool_2d
+from insarseg_torch.ops.layers import Conv2d, max_pool_2d
 
 WIDTHS = (64, 128, 256, 512)
 BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
@@ -58,10 +58,10 @@ def layer_schedule(layers: Sequence[int],
     return sched
 
 
-class KaimingConv2d(nn.Conv2d):
-    """A bias-free ``nn.Conv2d`` drawn ``kaiming_normal_(mode='fan_out',
-    nonlinearity='relu')``, N(0, 2 / (cout kh kw)), from torch's default
-    generator."""
+class KaimingConv2d(Conv2d):
+    """A bias-free ``ops/layers.py::Conv2d`` drawn
+    ``kaiming_normal_(mode='fan_out', nonlinearity='relu')``,
+    N(0, 2 / (cout kh kw)), from torch's default generator."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, bias=False, **kwargs)

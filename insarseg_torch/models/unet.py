@@ -13,7 +13,12 @@ upsampled tensor to the skip's size before the concat when they differ
 With ``use_sa`` a ``SpatialAttentionDC`` named ``sa{i}`` gates each
 decoder concat before ``conv{i}``. ``features_plan`` replaces the channel
 plan ``(f, 2f, 4f, 8f, 16f)`` of levels 1-5, as the JAX module's does (the
-fast cell's inner UNet, ``models/unet_stem.py``).
+fast cell's inner UNet, ``models/unet_stem.py``). ``remat`` recomputes
+the encoder and decoder DoubleConvs (``inc``, ``down{i}[1]``,
+``conv{i}``) in the backward pass of a train step, where the JAX module
+puts ``nn.remat`` (``insarseg/models/unet.py:74-75``); the SA gates'
+``compress_and_map`` is not rematerialized there either. The module
+computes in its input's dtype (``ops/layers.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import DoubleConv, SpatialAttentionDC
+from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d
 from insarseg_torch.ops.resize import resize_bilinear
 
 
@@ -31,7 +37,8 @@ class UNet(nn.Module):
     def __init__(self, num_classes: int = 2, base_features: int = 64,
                  use_se: bool = False, shape_fix: Optional[bool] = None,
                  in_channels: int = 1, use_sa: bool = False,
-                 features_plan: Optional[Sequence[int]] = None):
+                 features_plan: Optional[Sequence[int]] = None,
+                 remat: bool = False):
         super().__init__()
         f = base_features
         plan = (f, 2 * f, 4 * f, 8 * f, 16 * f) if features_plan is None \
@@ -41,17 +48,19 @@ class UNet(nn.Module):
         self.num_classes = num_classes
         self.use_se, self.use_sa = use_se, use_sa
         self.shape_fix = use_se if shape_fix is None else shape_fix
-        self.inc = DoubleConv(in_channels, plan[0], use_se)
+        self.inc = DoubleConv(in_channels, plan[0], use_se, remat)
         for i in range(1, 5):
             setattr(self, f"down{i}", nn.Sequential(
-                nn.MaxPool2d(2), DoubleConv(plan[i - 1], plan[i], use_se)))
+                nn.MaxPool2d(2),
+                DoubleConv(plan[i - 1], plan[i], use_se, remat)))
         for i in range(1, 5):
             cin, cout = plan[5 - i], plan[4 - i]
-            setattr(self, f"up{i}", nn.ConvTranspose2d(cin, cout, 2, stride=2))
-            setattr(self, f"conv{i}", DoubleConv(2 * cout, cout, use_se))
+            setattr(self, f"up{i}", ConvTranspose2d(cin, cout, 2, stride=2))
+            setattr(self, f"conv{i}", DoubleConv(2 * cout, cout, use_se,
+                                                 remat))
             if use_sa:
                 setattr(self, f"sa{i}", SpatialAttentionDC())
-        self.outc = nn.Conv2d(plan[0], num_classes, 1)
+        self.outc = Conv2d(plan[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.inc(x)

@@ -12,7 +12,8 @@ Its engines run the inner UNet's graphs with the stem and its inverse at
 the rim: serve is the deferred-SE graph (``models/unet_serve.py``), int8
 the standard-layout int8 graph (``models/unet_int8.py``, ``s2d=False``),
 so the int8 forward runs kernels K1-K3 and K6 (and K4 for the SA cell) at
-the inner UNet's widths and needs no kernel of its own.
+the inner UNet's widths and needs no kernel of its own. ``remat``
+rematerializes the inner UNet's DoubleConvs, as the JAX module's does.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ class UNetFastS2D(nn.Module):
 
     def __init__(self, num_classes: int = 2, level1_features: int = 128,
                  use_se: bool = False, use_sa: bool = False, factor: int = 2,
-                 in_channels: int = 1):
+                 in_channels: int = 1, remat: bool = False):
         super().__init__()
         f, l1 = factor, level1_features
         self.num_classes, self.factor = num_classes, factor
@@ -57,7 +58,8 @@ class UNetFastS2D(nn.Module):
         self.unet = UNet(num_classes=num_classes * f * f,
                          in_channels=in_channels * f * f, use_se=use_se,
                          use_sa=use_sa, shape_fix=False,
-                         features_plan=(l1, l1, 2 * l1, 4 * l1, 8 * l1))
+                         features_plan=(l1, l1, 2 * l1, 4 * l1, 8 * l1),
+                         remat=remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.factor

@@ -4,7 +4,9 @@
   reproduce the reference state_dict names ``double_conv.{0,1,3,4,6}``
   (conv, BN, ReLU, conv, BN, ReLU, SE) and ``fc.{0,2}`` (Linear, ReLU,
   Linear; no bias, reduction 16); in train mode the two convs' biases get
-  no gradient (:class:`BNFedConv2d`);
+  no gradient (:class:`BNFedConv2d`), and with ``remat`` the block's
+  activations are recomputed in the backward pass
+  (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
 - :class:`SEBlock` (FCN-CA bottlenecks): the same squeeze-excite with a
   bias-free 1x1-conv MLP, ``fc.{0,2}``;
 - :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
@@ -14,14 +16,23 @@
   ``compress_and_map`` = DoubleConv(2 -> 1) -> sigmoid -> per-pixel rescale;
 - :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA, CBAM spatial):
   channel mean and max -> ``conv`` (2 -> 1, k x k, no bias) -> sigmoid.
+
+Convs and linears are ``ops/layers.py``'s, in their input's dtype.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from insarseg_torch.ops.layers import global_avg_pool, global_max_pool
+from insarseg_torch.ops.layers import (
+    Conv2d,
+    Linear,
+    follow,
+    global_avg_pool,
+    global_max_pool,
+)
 
 
 class SELayer(nn.Module):
@@ -31,9 +42,9 @@ class SELayer(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Linear(channels, channels // reduction, bias=False),
+            Linear(channels, channels // reduction, bias=False),
             nn.ReLU(inplace=True),
-            nn.Linear(channels // reduction, channels, bias=False),
+            Linear(channels // reduction, channels, bias=False),
             nn.Sigmoid(),
         )
 
@@ -42,7 +53,7 @@ class SELayer(nn.Module):
         return x * y[:, :, None, None]
 
 
-class BNFedConv2d(nn.Conv2d):
+class BNFedConv2d(Conv2d):
     """A conv whose output feeds a BatchNorm directly (the JAX package's
     ``Conv2d(stop_bias_grad=train)``, ``insarseg/ops/layers.py:80-89``). In
     train mode BN subtracts the batch mean, so a per-channel shift cancels
@@ -55,15 +66,24 @@ class BNFedConv2d(nn.Conv2d):
         bias = self.bias
         if self.training and bias is not None:
             bias = bias.detach()
-        return self._conv_forward(x, self.weight, bias)
+        return self._conv_forward(x, follow(x, self.weight), follow(x, bias))
 
 
 class DoubleConv(nn.Module):
-    """(Conv3x3 same-pad -> BN -> ReLU) x2, optional SE tail."""
+    """(Conv3x3 same-pad -> BN -> ReLU) x2, optional SE tail.
+
+    With ``remat`` a train-mode forward under autograd runs in
+    ``torch.utils.checkpoint`` (``use_reentrant=False``): its activations
+    are not kept and the block runs again in the backward pass. The
+    second run uses the same batch statistics and computes the same
+    values; its BN running statistics and ``num_batches_tracked`` are put
+    back as the first run left them (the JAX recompute updates no
+    state). Eval mode never checkpoints."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 use_se: bool = False):
+                 use_se: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         layers = [
             BNFedConv2d(in_channels, out_channels, 3, padding=1),
             nn.BatchNorm2d(out_channels),
@@ -77,7 +97,25 @@ class DoubleConv(nn.Module):
         self.double_conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.double_conv(x)
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self.double_conv(x)
+        first = [True]
+
+        def run(t: torch.Tensor) -> torch.Tensor:
+            if first[0]:
+                first[0] = False
+                return self.double_conv(t)
+            # the recompute may stop early (it raises once the tensors the
+            # backward needs are back), so the statistics go back in any case
+            kept = {k: v.clone() for k, v in self.named_buffers()}
+            try:
+                return self.double_conv(t)
+            finally:
+                with torch.no_grad():
+                    for k, v in self.named_buffers():
+                        v.copy_(kept[k])
+
+        return checkpoint(run, x, use_reentrant=False)
 
 
 class SEBlock(nn.Module):
@@ -87,9 +125,9 @@ class SEBlock(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Conv2d(channels, channels // reduction, 1, bias=False),
+            Conv2d(channels, channels // reduction, 1, bias=False),
             nn.ReLU(inplace=True),
-            nn.Conv2d(channels // reduction, channels, 1, bias=False),
+            Conv2d(channels // reduction, channels, 1, bias=False),
             nn.Sigmoid(),
         )
 
@@ -103,9 +141,9 @@ class ChannelAttentionModule(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         self.mlp = nn.Sequential(
-            nn.Conv2d(channels, channels // reduction, 1, bias=False),
+            Conv2d(channels, channels // reduction, 1, bias=False),
             nn.ReLU(inplace=True),
-            nn.Conv2d(channels // reduction, channels, 1, bias=False),
+            Conv2d(channels // reduction, channels, 1, bias=False),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,8 +175,8 @@ class SpatialAttentionConv(nn.Module):
         super().__init__()
         if kernel_size not in (3, 7):
             raise ValueError("kernel size must be 3 or 7")
-        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
-                              bias=False)
+        self.conv = Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                           bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.sigmoid(self.conv(_mean_max(x)))

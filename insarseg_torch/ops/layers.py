@@ -1,21 +1,72 @@
 """Layer helpers for the port (counterpart of ``insarseg/ops/layers.py``).
 
-Conv, ConvTranspose and BatchNorm are ``nn.Conv2d``, ``nn.ConvTranspose2d``
-and ``nn.BatchNorm2d`` (eps 1e-5) under the reference's names, except
-where a train step can meet one value per channel
-(:class:`MomentBatchNorm2d`); what the packed graphs need beyond them
-lives here. Internally the float
+Conv, ConvTranspose and Linear are :class:`Conv2d`, :class:`ConvTranspose2d`
+and :class:`Linear`, ``nn.Conv2d`` / ``nn.ConvTranspose2d`` / ``nn.Linear``
+that compute in their input's dtype; BatchNorm is ``nn.BatchNorm2d`` (eps
+1e-5), except where a train step can meet one value per channel
+(:class:`MomentBatchNorm2d`); all under the reference's names. What the
+packed graphs need beyond them lives here. Internally the float
 graphs run NCHW (cuDNN's native layout); the public functions convert at
 their NHWC boundary with :func:`nhwc_to_nchw` / :func:`nchw_to_nhwc`.
+
+The compute dtype (``Config.compute_dtype``, bf16 or f32) is the dtype
+of the input a model is given, and every layer follows it, as the JAX
+package's layers do with ``dtype=None`` and its ``dtype=bfloat16``
+models do after their first conv (``insarseg/ops/layers.py:55-63``):
+
+- a conv, transposed conv or linear layer casts its f32 parameters to
+  the input's dtype on each call, so the parameters, their gradients and
+  Adam's state stay f32 and the gradient reaches them through the cast;
+- BatchNorm takes a bf16 input with f32 parameters and statistics, keeps
+  the statistics f32 and returns bf16 (``nn.BatchNorm2d`` does this on
+  the CPU and on cuDNN; :class:`MomentBatchNorm2d` sums in at least f32);
+- ReLU, pooling, the attention gates, resizes and concats follow their
+  input; the integral image sums in f32 and casts back
+  (:func:`integral_image`); the loss promotes the logits to f32.
+
+``torch.autocast`` is not used: its op lists differ between the CPU and
+CUDA (CUDA runs ``cumsum``, ``sum`` and ``rsqrt`` in f32, the CPU keeps
+``cumsum`` in bf16), so the CPU tests and the card would run other
+rules, and neither list is the JAX package's "follow the input".
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def follow(x: torch.Tensor, p: Optional[torch.Tensor]
+           ) -> Optional[torch.Tensor]:
+    """Parameter ``p`` in ``x``'s dtype (itself when they agree)."""
+    return p if p is None or p.dtype == x.dtype else p.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (f32 parameters cast per call)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, follow(x, self.weight),
+                                  follow(x, self.bias))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, follow(x, self.weight), follow(x, self.bias), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, follow(x, self.weight), follow(x, self.bias))
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

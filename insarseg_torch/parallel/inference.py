@@ -4,7 +4,6 @@ mesh-sharded form is ROADMAP Queue 1 item 16)."""
 
 from __future__ import annotations
 
-import copy
 from typing import Callable, Optional
 
 import torch
@@ -23,16 +22,13 @@ def make_predict_fn(
     """``predict(images)``: NHWC images in, NHWC logits (or the int32
     argmax map (B, H, W)) out, on ``device`` (``None`` means ``cuda``).
 
-    With ``input_dtype`` (e.g. ``torch.bfloat16``) the images and the conv /
-    linear weights run in that dtype while BatchNorm keeps f32 parameters
-    and statistics, as the JAX module does for a bf16 input."""
+    With ``input_dtype`` (e.g. ``torch.bfloat16``, the CLI's
+    ``--compute-dtype``) the images enter in that dtype and the graph
+    follows it (``ops/layers.py``): the convs and linears cast their f32
+    weights per call, BatchNorm keeps f32 parameters and statistics, as
+    the JAX module does for a bf16 input; the logits come out in it."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    if input_dtype is not None and input_dtype != torch.float32:
-        model = copy.deepcopy(model)
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                m.to(input_dtype)
 
     @torch.inference_mode()
     def predict(images):

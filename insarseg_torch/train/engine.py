@@ -8,10 +8,14 @@ D4 augment run on the device inside the step, the confusion counts stay on
 the device until an epoch ends (a step never synchronises the stream),
 and the latest state with its optimizer is saved each epoch for resume.
 
-The step is f32: TF32 stays off for its convolutions and matmuls.
-``compute_dtype='bfloat16'`` is ROADMAP Queue 1 item 18 and multi-GPU
-training (``mesh_data`` / ``mesh_spatial`` above 1) item 16; ``fit``
-raises for both.
+The steps compute in ``compute_dtype`` (``fit``: ``cfg.compute_dtype``),
+the dtype the image is cast to before the model, which every layer then
+follows (``ops/layers.py``): in bf16 the convs and matmuls run in bf16
+while the parameters, their gradients, Adam's state and the BN running
+statistics stay f32, and the loss is f32. In f32, TF32 stays off for the
+convolutions and matmuls. Multi-GPU training (``mesh_data`` /
+``mesh_spatial`` above 1) is ROADMAP Queue 1 item 16; ``fit`` raises for
+it.
 """
 
 from __future__ import annotations
@@ -25,14 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from insarseg_torch.config import compute_dtype as cfg_dtype
 from insarseg_torch.data.augment import normalize_u8, random_dihedral
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.ops.layers import nhwc_to_nchw
 from insarseg_torch.train import metrics as M
 from insarseg_torch.train.losses import cross_entropy_loss
 
-BF16_TODO = ("insarseg_torch trains in float32 only; compute_dtype="
-             "'bfloat16' is ROADMAP Queue 1 item 18")
 MESH_TODO = ("insarseg_torch trains on one device; multi-GPU training "
              "(mesh_data / mesh_spatial > 1) is ROADMAP Queue 1 item 16")
 
@@ -105,6 +108,11 @@ def _to_float(image: torch.Tensor, normalize: Optional[Tuple[float, float]]
     return normalize_u8(image, *normalize)
 
 
+def _cast(image: torch.Tensor, dtype: Optional[torch.dtype]
+          ) -> torch.Tensor:
+    return image if dtype is None else image.to(dtype)
+
+
 def step_seeds(seed: int, step: int) -> Tuple[int, int]:
     """(augment seed, dropout seed) of step ``step`` of a run with base
     ``seed``: a resumed run redraws the stream the first run drew."""
@@ -132,13 +140,16 @@ def _scores(logits: torch.Tensor, mask: torch.Tensor, num_classes: int,
 
 def make_train_step(model: nn.Module, num_classes: int,
                     ignore_index: int = 255, augment: bool = False,
-                    normalize: Optional[Tuple[float, float]] = (0.5, 0.5)
+                    normalize: Optional[Tuple[float, float]] = (0.5, 0.5),
+                    compute_dtype: Optional[torch.dtype] = None
                     ) -> Callable:
     """``step(state, image, mask, seed=0) -> {loss, tp, fp, fn, correct,
     valid}``: one Adam step of ``model`` (``state.model``) on an NHWC batch
     (uint8 images are normalized on the device), in train mode (BN batch
     statistics, running statistics updated, dropout live), then the
-    confusion counts of that forward. ``seed`` is the run's base seed: the
+    confusion counts of that forward. The image enters the model in
+    ``compute_dtype`` (``None``: the float dtype it comes in, f32 for
+    uint8). ``seed`` is the run's base seed: the
     augment's D4 flags and dropout are drawn from generators seeded with
     ``step_seeds(seed, state.step)``. Returns device tensors and never
     synchronises the stream."""
@@ -156,7 +167,8 @@ def make_train_step(model: nn.Module, num_classes: int,
         with _f32(), torch.random.fork_rng(
                 devices=[dev] if dev.type == "cuda" else []):
             _default_generator(dev).manual_seed(drop_seed)
-            logits = model(nhwc_to_nchw(image)).permute(0, 2, 3, 1)
+            logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
+                .permute(0, 2, 3, 1)
             loss = cross_entropy_loss(logits, mask, ignore_index)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -170,10 +182,13 @@ def make_train_step(model: nn.Module, num_classes: int,
 
 def make_eval_step(model: nn.Module, num_classes: int,
                    ignore_index: int = 255,
-                   normalize: Optional[Tuple[float, float]] = (0.5, 0.5)
+                   normalize: Optional[Tuple[float, float]] = (0.5, 0.5),
+                   compute_dtype: Optional[torch.dtype] = None
                    ) -> Callable:
     """``step(image, mask) -> {loss, counts}`` of ``model`` in eval mode
-    (BN running statistics, no dropout), on the model's device."""
+    (BN running statistics, no dropout), on the model's device, the image
+    entering the model in ``compute_dtype`` (as in
+    :func:`make_train_step`)."""
 
     @torch.no_grad()
     def step(image, mask):
@@ -182,7 +197,8 @@ def make_eval_step(model: nn.Module, num_classes: int,
         mask = torch.as_tensor(mask, device=dev)
         model.eval()
         with _f32():
-            logits = model(nhwc_to_nchw(image)).permute(0, 2, 3, 1)
+            logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
+                .permute(0, 2, 3, 1)
         return _scores(logits, mask, num_classes, ignore_index)
 
     return step
@@ -283,8 +299,9 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
         checkpointer=None, verbose: bool = True, resume: bool = False,
         device: DeviceLike = None) -> List[Dict[str, Any]]:
     """A training run of ``cfg.num_epochs`` epochs on ``device`` (``None``
-    means ``cuda``). Returns the history, the reference's JSON keys:
-    epoch, train_loss / acc / miou (/ mpa / mf1), and the val_* twins.
+    means ``cuda``), its steps in ``cfg.compute_dtype``. Returns the
+    history, the reference's JSON keys: epoch, train_loss / acc / miou
+    (/ mpa / mf1), and the val_* twins.
 
     Loaders yield dicts with 'image' (NHWC, f32 or uint8), 'mask' and
     'n_valid', and must be re-iterable (each epoch iterates afresh;
@@ -299,8 +316,7 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     epoch ``step // len(train_loader)`` (the history then covers the
     resumed epochs only)."""
     dev = resolve_device(device)
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(BF16_TODO)
+    dtype = cfg_dtype(cfg)
     if cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
         raise NotImplementedError(MESH_TODO)
     if iter(train_loader) is train_loader:
@@ -321,9 +337,10 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     norm = (cfg.normalize_mean, cfg.normalize_std)
     train_step = make_train_step(state.model, cfg.num_classes,
                                  cfg.ignore_index, augment=cfg.augment,
-                                 normalize=norm)
+                                 normalize=norm, compute_dtype=dtype)
     eval_step = make_eval_step(state.model, cfg.num_classes,
-                               cfg.ignore_index, normalize=norm)
+                               cfg.ignore_index, normalize=norm,
+                               compute_dtype=dtype)
     place = _placer(dev)
 
     history: List[Dict[str, Any]] = []

@@ -1,1 +1,2 @@
-"""Training history files and debugging switches."""
+"""Training history files, step timers, the profiler trace and debugging
+switches."""

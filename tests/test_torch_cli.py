@@ -343,13 +343,116 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["eval", "--compute-dtype", "bfloat16"], "item 18"),
     (["predict", "--input", "scene.png", "--mesh-data", "2"], "item 16"),
-    (["train", "--remat", "true", "--voc-root", "voc"], "item 19"),
 ])
 def test_cli_unported_flags_raise(cwd, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port(*flags, *BASE)
+
+
+BF16 = ["--compute-dtype", "bfloat16"]
+
+
+@pytest.mark.parametrize("flags", [BF16, ["--remat", "true"],
+                                   [*BF16, "--remat", "true"]],
+                         ids=["bf16", "remat", "bf16-remat"])
+def test_cli_train_bf16_and_remat(cwd, flags):
+    """``train`` in bf16, with remat, and with both: a finite history and
+    f32 weights in the checkpoint, which ``eval`` scores in the same
+    compute dtype."""
+    stem = "t_" + "_".join(f.strip("-") for f in flags)
+    assert port("train", *BASE, *flags, "--voc-root", "voc", "--num-epochs",
+                "1", "--model-save-path", f"{stem}/m", "--metrics-save-path",
+                f"{stem}.json") == 0
+    hist = json.load(open(f"{stem}.json"))
+    assert np.isfinite(hist[0]["train_loss"])
+    assert np.isfinite(hist[0]["val_loss"])
+    best = torch.load(f"{stem}/m/best.pt", weights_only=True)
+    assert all(t.dtype in (torch.float32, torch.int64) for t in best.values())
+    adam = torch.load(f"{stem}/m/latest.pt", weights_only=True)["optimizer"]
+    assert all(st[k].dtype == torch.float32 for st in adam["state"].values()
+               for k in ("exp_avg", "exp_avg_sq"))
+    res = _metrics(port_main, ["eval", *BASE, *flags, "--voc-root", "voc",
+                               "--checkpoint", f"{stem}/m", "--device",
+                               "cpu"])
+    assert np.isfinite(res["val_loss"])
+
+
+def test_cli_eval_and_predict_bf16(cwd):
+    """The module engine of ``eval`` and ``predict`` (and ``predict
+    --stream``) computes in bf16: its loss within 2e-2 of the f32 eval's
+    (relative), its class map on >= 0.99 of the f32 one's pixels, the
+    stream's PNG the in-memory bf16 one; the serve and int8 engines pack
+    the f32 weights whatever the compute dtype, as the JAX package's do,
+    and score the same."""
+    ev = ["eval", *BASE, "--voc-root", "voc", "--split", "val", "--device",
+          "cpu"]
+    f32, b16 = _metrics(port_main, ev), _metrics(port_main, [*ev, *BF16])
+    assert b16["val_loss"] != f32["val_loss"]
+    assert abs(b16["val_loss"] - f32["val_loss"]) <= 2e-2 * f32["val_loss"]
+    for engine in ("serve", "int8"):
+        args = [*ev, "--engine", engine, "--calib-batches", "1"]
+        assert _metrics(port_main, [*args, *BF16]) == _metrics(port_main,
+                                                               args)
+    pred = ["predict", *BASE, "--tile", "32", "--overlap", "8"]
+    assert port(*pred, "--input", "scene.png", "--output", "p32.png") == 0
+    assert port(*pred, *BF16, "--input", "scene.png", "--output",
+                "p16.png") == 0
+    assert np.mean(_png("p16.png") == _png("p32.png")) >= 0.99
+    np.save("bf16_scene.npy", _png("scene.png"))
+    assert port(*pred, *BF16, "--input", "bf16_scene.npy", "--stream",
+                "--output", "p16_stream.png") == 0
+    np.testing.assert_array_equal(_png("p16_stream.png"), _png("p16.png"))
+
+
+def test_cli_grafts_an_rgb_stem(cwd):
+    """A ResNet file with an RGB stem (a pretrained torchvision
+    ``backbone.conv1``, here FCN-CA's state_dict with a 3-channel conv1
+    drawn from a numpy seed) loads through ``--torch-checkpoint`` with the
+    stem averaged to one channel, as the JAX package's import grafts it:
+    the two packages' logits within 1e-4 x max|logit|, and ``eval`` of the
+    file exits 0. A U-Net file is never grafted: its 3-channel ``inc``
+    conv does not load."""
+    import argparse
+
+    import jax
+    import jax.numpy as jnp
+
+    from insarseg.compat.torch_io import segmentation_variables_from_torch
+    from insarseg.models.registry import build as jax_build
+    from insarseg_torch.cli import _load_weights
+    from insarseg_torch.config import get_preset
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.models.unet import UNet
+    from tests.test_torch_common import resnet_numpy_state_dict, smooth
+
+    model = build("fcn", "channel")
+    sd = resnet_numpy_state_dict(
+        {k: tuple(v.shape) for k, v in model.state_dict().items()}, seed=2)
+    rng = np.random.default_rng(3)
+    sd["backbone.conv1.weight"] = rng.normal(
+        0, (1 / (3 * 49)) ** 0.5, (64, 3, 7, 7)).astype(np.float32)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, "rgb.pth")
+    _load_weights(argparse.Namespace(torch_checkpoint="rgb.pth"),
+                  get_preset("pspnet-channelattention"), model)
+    x = smooth(rng, (2, 32, 32, 1))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    got = got.permute(0, 2, 3, 1).numpy()
+    v = segmentation_variables_from_torch(sd, "fcn", "channel")
+    jm = jax_build("fcn", "channel")
+    want = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        v, jnp.asarray(x)))
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    assert rel <= 1e-4, rel
+    assert port("eval", "--preset", "pspnet-channelattention",
+                "--image-size", "32", "--batch-size", "2", "--voc-root",
+                "voc", "--torch-checkpoint", "rgb.pth") == 0
+    unet = UNet(base_features=NARROW, in_channels=3).state_dict()
+    torch.save(unet, "rgb_unet.pth")
+    with pytest.raises(RuntimeError, match="inc.double_conv.0.weight"):
+        port("eval", *BASE, "--voc-root", "voc", "--torch-checkpoint",
+             "rgb_unet.pth")
 
 
 @pytest.fixture(scope="module")

@@ -163,6 +163,28 @@ def test_bridge_matches_jax_package(use_se, use_sa):
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
+def test_graft_grayscale_stem_matches_jax_package():
+    """The RGB-stem graft of ``--torch-checkpoint``, both layouts, and its
+    error, as the JAX package's."""
+    from insarseg.compat.torch_io import graft_grayscale_stem as jax_graft
+    from insarseg_torch.compat import graft_grayscale_stem
+
+    rng = np.random.default_rng(0)
+    for shape in ((64, 3, 7, 7), (7, 7, 3, 64)):  # OIHW, HWIO
+        k = rng.standard_normal(shape).astype(np.float32)
+        got, want = graft_grayscale_stem(k), jax_graft(k)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    ours = graft_grayscale_stem(torch.from_numpy(k))
+    np.testing.assert_array_equal(ours, jax_graft(k))
+    for bad in (np.zeros((64, 1, 7, 7)), np.zeros((3, 7, 7))):
+        with pytest.raises(ValueError) as e_want:
+            jax_graft(bad)
+        with pytest.raises(ValueError) as e_got:
+            graft_grayscale_stem(bad)
+        assert str(e_got.value) == str(e_want.value)
+
+
 @pytest.mark.parametrize("use_se,use_sa", [(True, False), (False, True)])
 def test_bridge_loads_strict_into_port_unet(use_se, use_sa):
     _, v, tm = make_pair(use_se=use_se, use_sa=use_sa)
