@@ -2,8 +2,9 @@
 """Smoke run of the insarseg_torch port on one NVIDIA GPU (an H100 SXM).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA device and exits non-zero, printing no result, without
-one. It imports the port only (no JAX, nothing of ``insarseg``) and:
+It needs one CUDA device (the mesh phase uses more where present) and
+exits non-zero, printing no result, without one. It imports the port
+only (no JAX, nothing of ``insarseg``) and:
 
 1. builds the hand-written kernels from ``insarseg_torch/csrc`` (nvcc for
    sm_90a, one process per source, into ``insarseg_torch/_build/``),
@@ -144,13 +145,41 @@ one. It imports the port only (no JAX, nothing of ``insarseg``) and:
    its plain version (``checked_calls``); ``predict --stream`` of an
    8192^2 ``.npy`` against the in-memory ``predict`` of it as a PNG, one
    int8 artifact (``STREAM_AGREE`` of the pixels), each command's seconds;
-8. prints the kernel table as one JSON line (each row with
+8. runs the data mesh (``insarseg_torch/parallel/mesh.py``), the
+   ``mesh`` phase (``chip_smoke.py::mesh_path``): serving over two
+   replicas on one card (``make_mesh(devices=[cuda:0, cuda:0])``),
+   U-Net-CA and FCN-ResNet50-CA at 512^2, global b16: the int8 logits
+   bit-equal to one device, every kernel call of the mesh forwards
+   checked against its plain version and counted, the module and serve
+   engines within 1e-5 x max|logit| in f32 (their differing logits
+   counted, and in bf16 with no bar); then ``parallel.launch`` on the
+   card: world 1 on NCCL and world 2 on gloo (both ranks on one card),
+   two SGD 0.1 f32 steps of U-Net-CA (base 64, 128^2, global b8) under
+   ``cudnn.deterministic`` held to the same steps in one process at the
+   JAX package's mesh bars (``MESH_BARS``: loss rtol 1e-5, counts equal,
+   parameters 1e-4, BN statistics 1e-5), three bf16 steps on 2 ranks
+   finite and falling, a 2-rank ``fit`` of 2 epochs with a
+   ``Checkpointer`` and a resume to epoch 3 (rank 0's files, the ranks'
+   histories and states equal); on a machine with more cards, also
+   (``mesh_cards``): the train step on every card (NCCL; U-Net-CA bf16
+   at 512^2, 8 tiles a card) timed with CUDA events against the same
+   tiles a card on one card, the gradient all-reduce and the other
+   collectives apart, the f32 steps held to one process's; U-Net-CA
+   int8 over the cards at 128 tiles a card bit-equal to one card, with
+   tiles/s and each card's idle share; the 16384^2 stream over the cards
+   against one card (seconds, equal class maps).
+   ``python3 chip_smoke.py --only mesh`` builds the kernels and runs
+   this phase alone;
+9. prints the kernel table as one JSON line (each row with
    ``cli_launches``, its launches in the cli phase's predicts, and
    ``cli_checked`` / ``cli_max_abs_err``, its calls checked in the cli
    phase and their largest difference from the plain version;
    ``stream_launches``, its launches in the stream phase's streams, each
-   counted from 0, and ``stream_checked``), the ``nvidia-smi`` name and
-   power-limit line, and last ``{"ok": true, "device": {...}}``.
+   counted from 0, and ``stream_checked``; ``mesh_launches``, its
+   launches in the mesh phase's int8 forwards), the ``nvidia-smi`` name
+   and power-limit line, and last ``{"ok": true, "device": {...}}``
+   (with ``--only mesh``: the mesh launches as one JSON line in place of
+   the kernel table).
 """
 
 from __future__ import annotations
@@ -2636,6 +2665,543 @@ def stream_path(dev, power_line: str):
     return runs.launches, checked
 
 
+# ---------------------------------------------------------------------------
+# 8. the mesh phase: the data mesh of ``insarseg_torch/parallel/mesh.py``
+# ---------------------------------------------------------------------------
+
+MESH_BATCH = 16  # the serving check's global batch: 8 tiles a replica
+MESH_TRAIN = (128, 8)  # U-Net-CA's train checks: 128^2, global b8
+MESH_LR = 0.1  # SGD: the update is linear in the summed gradient
+# the JAX package's own mesh bars (tests/test_parallel.py:67-79): the
+# loss's rtol, the parameters' and the BN statistics' atol; counts equal
+MESH_BARS = (1e-5, 1e-4, 1e-5)
+MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
+MESH_CARD_TILES = 128  # tiles a card: the serving timing's engine batch
+MESH_STEP_TILES = 8  # tiles a card: the multi-card train step's batch
+
+
+def mesh_serving(dev, checked) -> dict:
+    """Two replicas on one card (``make_mesh(devices=[cuda:0, cuda:0])``)
+    against the one-device engines, U-Net-CA (base ``BASE``, H-s2d) and
+    FCN-ResNet50-CA at ``HW``^2, global b``MESH_BATCH``: the int8 logits
+    bit-equal (the int8 engines are batch-invariant), the mesh forward's
+    every kernel call held against its plain version (``checked_calls``),
+    its launches counted from 0; the module and serve engines' f32 logits
+    within ``MESH_FLOAT_BAR`` x max|logit|, and in bf16 the differing
+    logits counted (no bar: cuDNN picks its kernels by the batch).
+    Returns the int8 mesh forwards' launches."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.engines import (
+        engine_from_artifact,
+        make_engine,
+        pack_engine,
+    )
+    from insarseg_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev, dev])
+    rng = np.random.default_rng(SEED + 70)
+    x = torch.from_numpy(smooth_batch(rng, MESH_BATCH, HW, HW)).to(dev)
+    launches = {}
+    for name, attention, label in (
+            ("unet", "channel", f"U-Net-CA base {BASE}"),
+            ("fcn", "channel", "FCN-ResNet50-CA")):
+        model = build_model(name, attention)
+        calib = [smooth_batch(rng, 4, HW, HW) for _ in range(2)]
+        art = pack_engine(name, attention, model, None, "int8",
+                          calib_batches=calib, device=dev)
+        one = engine_from_artifact(art, device=dev)(x)
+        two = engine_from_artifact(art, mesh=mesh)
+        K.reset_launches()
+        with checked_calls(checked):
+            got = two(x)
+        torch.cuda.synchronize()
+        ran = {k: n for k, n in K.LAUNCHES.items() if n}
+        for k, n in ran.items():
+            launches[k] = launches.get(k, 0) + n
+        same = torch.equal(one, got)
+        log(f"  {label} int8, {HW}^2 b{MESH_BATCH} over two replicas on one "
+            f"card vs one device: {'bit-equal' if same else 'DIFFERENT'}; "
+            f"launches {ran}")
+        if not same:
+            raise AssertionError(f"{label}: the int8 mesh differs from one "
+                                 "device")
+        for engine, dtype in (("module", None), ("module", torch.bfloat16),
+                              ("serve", None), ("serve", torch.bfloat16)):
+            a = make_engine(name, attention, model, None, engine, device=dev,
+                            input_dtype=dtype)(x).float()
+            b = make_engine(name, attention, model, None, engine, mesh=mesh,
+                            input_dtype=dtype)(x).float()
+            scale = float(a.abs().max())
+            err = float((a - b).abs().max())
+            n_diff = int((a != b).sum())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            what = f"{engine} {'bf16' if dtype else 'f32'}"
+            log(f"  {label} {what}: mesh vs one device {n_diff} of "
+                f"{a.numel()} logits differ, max {err:.3g} ({err / scale:.3g}"
+                f" x max|logit|{'' if dtype else f', bar {MESH_FLOAT_BAR}'}),"
+                f" argmax agreement {agree:.6f}")
+            if dtype is None and err > MESH_FLOAT_BAR * scale:
+                raise AssertionError(f"{label} {what}: the mesh differs from "
+                                     "one device")
+        del model, art, two, one, got
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _deterministic():
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _cpu_tree(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tree(v) for v in tree)
+    return tree
+
+
+def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR):
+    """One rank (or, without a group, one process) of U-Net-CA (``base``
+    features, the seeded init) on ``device`` taking one SGD step on each
+    global batch in turn, in f32 under ``cudnn.deterministic``: each
+    step's outputs and the state_dict after the last."""
+    import torch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    _deterministic()
+    model = UNet(num_classes=2, base_features=base, use_se=True)
+    state = create_state(model, seed=SEED, device=device)
+    state.optimizer = torch.optim.SGD(model.parameters(), lr=lr)
+    step = make_train_step(model, 2)
+    outs = [step(state, torch.from_numpy(b["image"]),
+                 torch.from_numpy(b["mask"])) for b in batches]
+    return _cpu_tree(outs), _cpu_tree(model.state_dict())
+
+
+def mesh_bf16_rank(batch, base, device, steps: int = 3):
+    """``steps`` bf16 Adam steps of U-Net-CA on one global batch: the
+    losses."""
+    import torch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    model = UNet(num_classes=2, base_features=base, use_se=True)
+    state = create_state(model, seed=SEED, device=device)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16)
+    x, m = torch.from_numpy(batch["image"]), torch.from_numpy(batch["mask"])
+    return [float(step(state, x, m)["loss"]) for _ in range(steps)]
+
+
+def mesh_fit_rank(train, val, directory, base, device):
+    """``fit`` of U-Net-CA for 2 epochs at ``TRAIN_PRESET``'s settings on
+    ``train`` / ``val`` with a ``Checkpointer`` in ``directory``, then a
+    resume to epoch 3: the two histories, the steps and the state after
+    the resume."""
+    import dataclasses
+
+    from insarseg_torch.config import get_preset
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.parallel import rank
+    from insarseg_torch.train.checkpoint import Checkpointer
+    from insarseg_torch.train.engine import create_state, fit
+
+    cfg = get_preset(TRAIN_PRESET, num_epochs=2, log_every_steps=2)
+    out = {"rank": rank()}
+    for epochs, resume in ((2, False), (3, True)):
+        model = UNet(num_classes=2, base_features=base, use_se=True)
+        state = create_state(model, cfg.learning_rate, seed=cfg.seed,
+                             device=device)
+        hist = fit(model, dataclasses.replace(cfg, num_epochs=epochs), train,
+                   val, state=state, checkpointer=Checkpointer(directory),
+                   resume=resume, verbose=False, device=device)
+        out[epochs] = (hist, state.step)
+    out["state"] = _cpu_tree(model.state_dict())
+    return out
+
+
+def mesh_gloo_rank(batches, fit_data, directory, base, device):
+    """The two-rank checks in one process a rank: the f32 SGD steps, the
+    bf16 steps and the ``fit`` with its resume."""
+    return {"sgd": mesh_sgd_rank(batches, base, device),
+            "bf16": mesh_bf16_rank(batches[0], base, device),
+            "fit": mesh_fit_rank(*fit_data, directory, base, device)}
+
+
+def mesh_hold(got, want, label) -> None:
+    """A mesh's SGD steps (``mesh_sgd_rank``) against one process's at
+    ``MESH_BARS``: every step's loss, its counts equal, the parameters and
+    the BN statistics after the last."""
+    import torch
+
+    (g_outs, g_sd), (w_outs, w_sd) = got, want
+    loss_rel = max(abs(float(g["loss"]) - float(w["loss"]))
+                   / abs(float(w["loss"])) for g, w in zip(g_outs, w_outs))
+    counts = all(torch.equal(g[k], w[k]) for g, w in zip(g_outs, w_outs)
+                 for k in ("tp", "fp", "fn", "correct", "valid"))
+    stats = ("running_mean", "running_var")
+    p_err = max(float((g_sd[k] - w_sd[k]).abs().max()) for k in w_sd
+                if w_sd[k].is_floating_point() and not k.endswith(stats))
+    s_err = max(float((g_sd[k] - w_sd[k]).abs().max()) for k in w_sd
+                if k.endswith(stats))
+    tracked = all(torch.equal(g_sd[k], w_sd[k]) for k in w_sd
+                  if k.endswith("num_batches_tracked"))
+    log(f"  {label} vs one process (U-Net-CA base {BASE}, "
+        f"{MESH_TRAIN[0]}^2 global b{MESH_TRAIN[1]}, {len(w_outs)} SGD "
+        f"{MESH_LR} f32 steps, cudnn.deterministic, TF32 off): loss rel "
+        f"{loss_rel:.3g} (bar {MESH_BARS[0]}), counts "
+        f"{'equal' if counts else 'DIFFER'}, parameters {p_err:.3g} (bar "
+        f"{MESH_BARS[1]}), BN statistics {s_err:.3g} (bar {MESH_BARS[2]})")
+    if not (loss_rel <= MESH_BARS[0] and counts and p_err <= MESH_BARS[1]
+            and s_err <= MESH_BARS[2] and tracked):
+        raise AssertionError(f"{label}: the mesh's steps differ from one "
+                             "process's")
+
+
+def mesh_training(dev) -> None:
+    """``launch`` on one card: world 1 on NCCL and world 2 on gloo (both
+    ranks on ``cuda:0``), each held to the same SGD steps without a group
+    (``mesh_hold``); the 2-rank bf16 steps finite and falling; a 2-rank
+    ``fit`` with a ``Checkpointer`` and a resume (finite, the ranks'
+    histories and states equal, rank 0's files)."""
+    import os
+    import tempfile
+
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.parallel import launch
+    from insarseg_torch.parallel.mesh import default_backend
+
+    size, b = MESH_TRAIN
+    batches = [synthetic_batch(b, size, seed=SEED + 80 + i) for i in range(2)]
+    # 2 steps and 1 validation batch an epoch: gloo moves the gradients
+    # through host memory
+    fit_data = ([synthetic_batch(b, size, seed=SEED + 10 + i)
+                 for i in range(2)],
+                [synthetic_batch(b, size, seed=SEED + 20)])
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    want = mesh_sgd_rank(batches, BASE, dev)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    backend = default_backend([dev])
+    t0 = time.perf_counter()
+    (alone,) = launch(mesh_sgd_rank, 1, [dev], args=(batches, BASE, dev))
+    log(f"  launch world 1 ({backend}): {time.perf_counter() - t0:.1f} s")
+    mesh_hold(alone, want, f"world 1 on {backend}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = launch(mesh_gloo_rank, 2, [dev, dev],
+                       args=(batches, fit_data, d, BASE, dev))
+        log(f"  launch world 2 (gloo, both ranks on one card): "
+            f"{time.perf_counter() - t0:.1f} s")
+        files = sorted(os.listdir(d))
+    for r in ranks:
+        mesh_hold(r["sgd"], want, f"world 2 on gloo, rank {r['fit']['rank']}")
+    losses = [r["bf16"] for r in ranks]
+    log(f"  world 2 bf16 Adam steps on one global batch: losses {losses}")
+    if losses[0] != losses[1] or not (np.all(np.isfinite(losses[0]))
+                                      and losses[0][-1] < losses[0][0]):
+        raise AssertionError(f"2-rank bf16 losses {losses}")
+    fits = [r["fit"] for r in ranks]
+    hist2, step2 = fits[0][2]
+    hist3, step3 = fits[0][3]
+    log(f"  world 2 fit: 2 epochs (step {step2}), resumed to epoch "
+        f"{[h['epoch'] for h in hist3]} (step {step3}); files {files}; "
+        "history " + json.dumps(hist2 + hist3))
+    losses = [h[k] for h in hist2 + hist3 for k in ("train_loss", "val_loss")]
+    if not (np.all(np.isfinite(losses)) and step2 == 4 and step3 == 6
+            and [h["epoch"] for h in hist3]
+            == [3] and files == ["best.pt", "best_miou.json", "latest.pt"]):
+        raise AssertionError("the 2-rank fit or its resume went wrong")
+    if fits[1][2] != fits[0][2] or fits[1][3] != fits[0][3]:
+        raise AssertionError("the ranks' fit histories differ")
+    _same_state(fits[0]["state"], fits[1]["state"], "the ranks' states")
+
+
+def mesh_step_rank(dtype_name, per_card, steps, reps, hold_batches,
+                   synced=True):
+    """One rank of the multi-card step (or, without a group, one card's):
+    the f32 SGD steps of ``mesh_sgd_rank`` on ``hold_batches``, then
+    U-Net-CA's train step in ``dtype_name`` at ``HW``^2 with ``per_card``
+    tiles a rank, its BatchNorms the mesh's (``sync_batchnorm``; without a
+    group the same layers with nothing to sum) or, without ``synced``,
+    ``nn.BatchNorm2d``'s, timed with CUDA events (``reps`` repeats of
+    ``steps`` warm steps), the gradient all-reduce alone timed the same
+    way, and on rank 0 a 3-step profiler window: the NCCL kernels' device
+    ms a step (the longest of a step is the gradient all-reduce, the rest
+    the BN moments, the loss's count and the scores), the device idle
+    share and the top operations' device ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.parallel import (
+        all_reduce_grads,
+        rank,
+        sync_batchnorm,
+        world,
+    )
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    held = mesh_sgd_rank(hold_batches, BASE, "cuda") if hold_batches \
+        else None
+    torch.backends.cudnn.deterministic = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    if synced:
+        sync_batchnorm(model)
+    state = create_state(model, seed=SEED)
+    step = make_train_step(model, 2, compute_dtype=_dtype(dtype_name))
+    data = synthetic_batch(per_card * world(), HW, seed=SEED + 90)
+    x = torch.from_numpy(data["image"]).to(dev)
+    m = torch.from_numpy(data["mask"]).to(dev)
+    for _ in range(2):
+        step(state, x, m)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            step(state, x, m)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / steps)
+    grad_ms = None
+    if world() > 1:
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            all_reduce_grads(model.parameters())
+        b.record()
+        torch.cuda.synchronize()
+        grad_ms = a.elapsed_time(b) / steps
+    out = {"held": held, "ms": times, "grad_allreduce_ms": grad_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank() == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(state, x, m)
+            torch.cuda.synchronize()
+        nccl = [e.time_range.end - e.time_range.start for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and "nccl" in e.name.lower()]
+        nccl.sort(reverse=True)
+        out["nccl_kernels_a_step"] = len(nccl) / 3
+        out["nccl_grad_ms"] = sum(nccl[:3]) / 3 / 1e3
+        out["nccl_other_ms"] = sum(nccl[3:]) / 3 / 1e3
+        out["idle"] = device_idle_share(prof)
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
+        out["top"] = [(e.key[:60], round(dev_us(e) / 3 / 1e3, 3))
+                      for e in top]
+    else:
+        for _ in range(3):
+            step(state, x, m)
+        torch.cuda.synchronize()
+    return out
+
+
+def idle_by_device(prof) -> dict:
+    """``device_idle_share`` of each device of a profiler window."""
+    spans = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            spans.setdefault(getattr(e, "device_index", 0), []).append(
+                (e.time_range.start, e.time_range.end))
+    out = {}
+    for d, s in sorted(spans.items()):
+        s.sort()
+        busy, cs, ce = 0.0, s[0][0], s[0][1]
+        for a, b in s[1:]:
+            if a > ce:
+                busy += ce - cs
+                cs, ce = a, b
+            else:
+                ce = max(ce, b)
+        busy += ce - cs
+        out[d] = 1.0 - busy / (s[-1][1] - s[0][0])
+    return out
+
+
+def mesh_cards(power_line, checked) -> dict:
+    """On every card of the machine (more than one): the 4-card NCCL train
+    step (U-Net-CA bf16 at ``HW``^2, ``MESH_STEP_TILES`` tiles a card)
+    timed against the same tiles-a-card step on one card, the gradient
+    all-reduce and the other collectives apart, and the f32 SGD steps held
+    to one process's (``mesh_hold``); U-Net-CA int8 over the cards at
+    ``MESH_CARD_TILES`` tiles a card, bit-equal to one card, tiles/s
+    against one card and each card's idle share, one forward's kernel
+    calls checked; the 16384^2 stream over the cards against one card
+    (seconds, the same class map). Returns the launches of its int8
+    forwards."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch import kernels as K
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.engines import engine_from_artifact, pack_engine
+    from insarseg_torch.parallel import launch, make_mesh
+    from insarseg_torch.parallel.mesh import default_backend
+
+    mesh = make_mesh()
+    n = mesh.size
+    first = mesh.devices[0]
+    backend = default_backend(mesh.devices)
+    size, b = MESH_TRAIN
+    hold = [synthetic_batch(b, size, seed=SEED + 80 + i) for i in range(2)]
+    want = mesh_sgd_rank(hold, BASE, first)
+    one = mesh_step_rank("bfloat16", MESH_STEP_TILES, 5, 3, None,
+                         synced=False)
+    one_synced = mesh_step_rank("bfloat16", MESH_STEP_TILES, 5, 3, None)
+    t0 = time.perf_counter()
+    ranks = launch(mesh_step_rank, n, args=("bfloat16", MESH_STEP_TILES, 5,
+                                            3, hold))
+    log(f"  launch world {n} ({backend}): {time.perf_counter() - t0:.1f} s")
+    for i, r in enumerate(ranks):
+        mesh_hold(r["held"], want, f"world {n} on {backend}, rank {i}")
+    r0 = ranks[0]
+    ms1, msn = float(np.median(one["ms"])), float(np.median(r0["ms"]))
+    ms1s = float(np.median(one_synced["ms"]))
+    log(f"  U-Net-CA bf16 train step, {HW}^2, {MESH_STEP_TILES} tiles a "
+        f"card: one card {ms1:.3f} ms ({one['ms']}; top {one['top']}), "
+        f"one card with the mesh's BatchNorms {ms1s:.3f} ms "
+        f"({one_synced['ms']}; top {one_synced['top']}), {n} cards "
+        f"{msn:.3f} ms ({r0['ms']}, global b{MESH_STEP_TILES * n}; top "
+        f"{r0['top']}); {MESH_STEP_TILES / ms1 * 1e3:.1f} vs "
+        f"{MESH_STEP_TILES * n / msn * 1e3:.1f} tiles/s, scaling "
+        f"{ms1 / msn:.4f} ({ms1s / msn:.4f} against the same layers on one "
+        "card); the gradient all-reduce alone "
+        f"{r0['grad_allreduce_ms']:.3f} ms; in a profiler window "
+        f"{r0['nccl_kernels_a_step']:.1f} NCCL kernels a step, the longest "
+        f"(the gradients) {r0['nccl_grad_ms']:.3f} ms, the others "
+        f"{r0['nccl_other_ms']:.3f} ms; rank 0 idle share "
+        + ("not measured" if r0["idle"] is None
+           else f"{100 * r0['idle']:.2f}%")
+        + f"; peak {r0['peak_gib']:.3f} GiB a card; on {power_line}")
+
+    rng = np.random.default_rng(SEED + 1)
+    calib = [smooth_batch(rng, 4, HW, HW) for _ in range(2)]
+    art = pack_engine("unet", "channel",
+                      balanced_model("unet", "channel", first), None, "int8",
+                      calib_batches=calib, device=first)
+    alone = engine_from_artifact(art, device=first)
+    cards = engine_from_artifact(art, mesh=mesh)
+    xs = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 71),
+                                       MESH_CARD_TILES * n, HW, HW)).to(first)
+    K.reset_launches()
+    with checked_calls(checked):
+        cards(xs[:MESH_BATCH * n // 2])
+    ref = torch.cat([alone(c) for c in xs.split(MESH_CARD_TILES)])
+    got = cards(xs)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    same = torch.equal(ref, got)
+    del ref, got
+
+    def rate(fn, x, reps=3):
+        fn(x)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        return reps * x.shape[0] / (time.perf_counter() - t0)
+
+    r1 = rate(alone, xs[:MESH_CARD_TILES])
+    rn = rate(cards, xs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cards(xs)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+    idle = idle_by_device(prof)
+    log(f"  U-Net-CA int8 over {n} cards, {MESH_CARD_TILES * n} tiles "
+        f"({MESH_CARD_TILES} a card): {'bit-equal' if same else 'DIFFERENT'}"
+        f" to one card; {rn:.1f} tiles/s against one card's {r1:.1f} "
+        f"(b{MESH_CARD_TILES}), x{rn / r1:.3f}; idle share by card "
+        + json.dumps({d: round(100 * v, 2) for d, v in idle.items()})
+        + f" %; on {power_line}")
+    if not same:
+        raise AssertionError("the int8 engine over the cards differs from "
+                             "one card")
+    del xs
+    torch.cuda.empty_cache()
+
+    runs = StreamRuns()
+    with tempfile.TemporaryDirectory() as d:
+        big = scene_file(f"{d}/big.npy", 16384, 16384, SEED + 60, first)
+        maps = {}
+        for label, fn, bs in (("one card", alone, 128),
+                              (f"{n} cards", cards, 128 * n)):
+            path = f"{d}/{bs}.npy"
+            stream_at_scale(runs, fn, big, bs, path, f"16384^2 on {label}",
+                            power_line)
+            stream_at_scale(runs, fn, big, bs, path, f"16384^2 on {label}",
+                            power_line)
+            maps[label] = np.load(path, mmap_mode="r")
+        same = np.array_equal(*maps.values())
+        log(f"  the 16384^2 class maps on one card and on {n}: "
+            f"{'equal' if same else 'DIFFERENT'}")
+        del maps, big
+        if not same:
+            raise AssertionError("the stream over the cards differs")
+        for f in os.listdir(d):
+            os.remove(f"{d}/{f}")
+    return launches
+
+
+def mesh_path(dev, power_line: str, phase) -> dict:
+    """The ``mesh`` phase: serving over two replicas on one card, the
+    training launches on one card, and on a machine with more cards the
+    multi-card runs. Returns the launches of its int8 mesh forwards and
+    the calls checked against their plain versions."""
+    import torch
+
+    log(f"mesh phase on {power_line}, {torch.cuda.device_count()} card(s)")
+    checked = {}
+    t0 = time.perf_counter()
+    launches = mesh_serving(dev, checked)
+    for k, n in launches.items():
+        if checked.get(k, {}).get("calls", 0) != n:
+            raise AssertionError(f"{k}: {n} mesh launches, "
+                                 f"{checked.get(k, {}).get('calls', 0)} "
+                                 "checked")
+    phase("mesh: serving over two replicas on one card")
+    mesh_training(dev)
+    phase("mesh: launch on one card (NCCL world 1, gloo world 2, fit)")
+    if torch.cuda.device_count() > 1:
+        for k, v in mesh_cards(power_line, checked).items():
+            launches[k] = launches.get(k, 0) + v
+        phase("mesh: every card")
+    log(f"  mesh launches {launches}; kernel calls checked against their "
+        "plain versions " + json.dumps(checked, default=sorted)
+        + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run(dev, power_line: str, phase) -> list:
     """Phases 2-4 on ``dev``; returns the kernel table."""
     import torch
@@ -2735,9 +3301,16 @@ def run(dev, power_line: str, phase) -> list:
 
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the port on "
+                                     "the card (every phase by default).")
+    parser.add_argument("--only", choices=["mesh"], default=None,
+                        help="build the kernels and run this phase alone")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on "
               "one NVIDIA GPU", file=sys.stderr)
@@ -2771,6 +3344,15 @@ def main() -> int:
     power_line = nvidia_smi_line()
     log(f"card: {power_line}")
     phase("build")
+    if only == "mesh":
+        mesh_launches = mesh_path(dev, power_line, phase)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"mesh_launches": mesh_launches}), flush=True)
+        print(power_line, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     table = run(dev, power_line, phase)
     train_path(dev, power_line, phase)
@@ -2787,6 +3369,9 @@ def main() -> int:
         row["stream_checked"] = stream_checked.get(row["name"], {}).get(
             "calls", 0)
     phase("stream: scenes larger than memory, predict --stream")
+    mesh_launches = mesh_path(dev, power_line, phase)
+    for row in table:
+        row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(power_line, flush=True)

@@ -29,10 +29,19 @@ it, as the JAX package's engines ignore the model's dtype.
 ``--remat true`` rematerializes the U-Net families' DoubleConvs in
 ``train``; the other families raise the JAX package's ``ValueError``.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item: ``--mesh-data`` / ``--mesh-spatial`` above 1 (Queue 1 item 16).
-The JAX package's other mesh behaviour (every chip on the data axis) is
-one device here.
+Every card, as the JAX CLI uses every chip (``parallel/mesh.py``):
+``train`` with ``--mesh-data N`` above 1, or -1 (the default) on a
+machine with more than one card, runs one process a card under
+``torch.distributed`` (``launch``, NCCL); ``eval`` over an engine,
+``predict`` and ``predict --stream`` serve over a mesh of the cards in one
+process (``eval``: the largest data axis that divides the batch,
+``_eval_mesh``; ``predict``: all of them, the default tile batch 128 a
+card). ``--mesh-data 1``, or ``--device cuda:K`` with the default -1,
+pins one card. With ``--device cpu``,
+``--mesh-data N`` gives N gloo ranks (``train``) or N CPU replicas. The
+module engine's ``eval`` runs on one device, as the JAX CLI's does.
+``--mesh-data`` above the visible cards raises; ``--mesh-spatial`` above 1
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
 
 def _build_cfg(args):
     from insarseg_torch.config import Config, compute_dtype, get_preset
-    from insarseg_torch.train.engine import MESH_TODO
+    from insarseg_torch.parallel.mesh import SPATIAL_TODO
 
     overrides = {}
     for f in dataclasses.fields(Config):
@@ -71,9 +80,43 @@ def _build_cfg(args):
     cfg = (get_preset(args.preset, **overrides) if args.preset
            else Config(**overrides))
     compute_dtype(cfg)  # an unknown dtype ends the command here
-    if cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
-        raise NotImplementedError(MESH_TODO)
+    if cfg.mesh_spatial > 1:
+        raise NotImplementedError(SPATIAL_TODO)
     return cfg
+
+
+def _mesh_devices(cfg, dev: torch.device) -> List[torch.device]:
+    """The devices a command may use: ``--mesh-data`` N of them (for -1
+    every visible card, or ``dev`` alone when ``--device`` names one);
+    ``dev`` alone for 1; on the CPU, N replicas of it (one for -1). More
+    than the visible cards raises."""
+    from insarseg_torch.parallel.mesh import make_mesh
+
+    if dev.type == "cpu":
+        return [dev] * max(cfg.mesh_data, 1)
+    if cfg.mesh_data == 1 or (cfg.mesh_data == -1 and dev.index is not None):
+        return [dev]
+    return list(make_mesh(cfg.mesh_data).devices)
+
+
+def _eval_mesh(cfg, devices):
+    """The serving mesh of an engine-scored ``eval`` over ``devices``:
+    the largest data axis that divides the loader's batch (the JAX CLI's
+    ``_eval_mesh``), or None for one device."""
+    from insarseg_torch.parallel.mesh import make_mesh
+
+    data = max(d for d in range(1, len(devices) + 1)
+               if cfg.batch_size % d == 0)
+    return make_mesh(data, devices=devices) if data > 1 else None
+
+
+def _serving_mesh(cfg, dev: torch.device):
+    """The mesh of ``predict``: every device the command may use (uneven
+    shards are fine), or None for one."""
+    from insarseg_torch.parallel.mesh import make_mesh
+
+    devices = _mesh_devices(cfg, dev)
+    return make_mesh(devices=devices) if len(devices) > 1 else None
 
 
 def _device(args) -> torch.device:
@@ -114,18 +157,36 @@ def _prefetched(args, loader):
 
 
 def cmd_train(args) -> int:
-    from insarseg_torch.data.voc import BatchLoader
-    from insarseg_torch.models.registry import build_model
-    from insarseg_torch.train import engine
-    from insarseg_torch.train.checkpoint import Checkpointer
-    from insarseg_torch.utils.history import load_history, save_history
-
     dev = _device(args)
     cfg = _build_cfg(args)
     if not os.path.isdir(os.path.join(cfg.voc_root, "JPEGImages")):
         print(f"error: dataset not found under {cfg.voc_root!r} "
               "(expected VOC layout with JPEGImages/)", file=sys.stderr)
         return 2
+    devices = _mesh_devices(cfg, dev)
+    if len(devices) > 1:
+        from insarseg_torch.parallel.mesh import launch
+
+        launch(_train_rank, len(devices), devices, args=(args,))
+        return 0
+    return _train(args, cfg, dev)
+
+
+def _train_rank(args) -> None:
+    """``train`` as one rank of a data mesh (``parallel/mesh.py::launch``
+    starts one a device; ``fit`` is SPMD)."""
+    _train(args, _build_cfg(args), _device(args))
+
+
+def _train(args, cfg, dev: torch.device) -> int:
+    from insarseg_torch.data.voc import BatchLoader
+    from insarseg_torch.models.registry import build_model
+    from insarseg_torch.parallel.mesh import rank
+    from insarseg_torch.train import engine
+    from insarseg_torch.train.checkpoint import Checkpointer
+    from insarseg_torch.utils.history import load_history, save_history
+
+    lead = rank() == 0
     train_loader = _prefetched(args, BatchLoader(
         _dataset(args, cfg, "train"), cfg.batch_size, shuffle=True,
         seed=cfg.seed, ignore_index=cfg.ignore_index,
@@ -139,8 +200,9 @@ def cmd_train(args) -> int:
     # eval / predict --checkpoint take this directory
     ckpt_dir = os.path.splitext(cfg.model_save_path)[0] or "."
     ckpt = Checkpointer(ckpt_dir)
-    print(f"checkpoints -> {ckpt_dir}/{{best,latest}}")
-    if args.resume and not ckpt.has_latest():
+    if lead:
+        print(f"checkpoints -> {ckpt_dir}/{{best,latest}}")
+    if lead and args.resume and not ckpt.has_latest():
         print(f"warning: --resume found no latest checkpoint under "
               f"{ckpt_dir!r}; training starts from step 0.", file=sys.stderr)
     anomaly = torch.is_anomaly_enabled()
@@ -156,6 +218,8 @@ def cmd_train(args) -> int:
                              resume=args.resume, device=dev)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
+    if not lead:
+        return 0
     if args.resume and os.path.exists(cfg.metrics_save_path):
         # keep the interrupted run's epochs, replace the ones the resumed
         # run trained again, append the new ones
@@ -212,13 +276,14 @@ def _check_artifact_vs_cfg(art, cfg, args, explicit_calib: bool) -> None:
               "time and are baked into the artifact)", file=sys.stderr)
 
 
-def _artifact_engine(args, cfg, explicit_calib: bool, dev: torch.device):
+def _artifact_engine(args, cfg, explicit_calib: bool, dev: torch.device,
+                     mesh=None):
     from insarseg_torch.engines import engine_from_artifact
     from insarseg_torch.engines_io import load_artifact
 
     art = load_artifact(args.engine_artifact)
     _check_artifact_vs_cfg(art, cfg, args, explicit_calib)
-    return engine_from_artifact(art, device=dev)
+    return engine_from_artifact(art, device=dev, mesh=mesh)
 
 
 # the families whose --torch-checkpoint import grafts an RGB stem (the
@@ -257,10 +322,11 @@ def _load_weights(args, cfg, model: torch.nn.Module) -> None:
 
 
 def _build_engine_maybe_save(args, cfg, model, engine_name: str, calib,
-                             dev: torch.device):
+                             dev: torch.device, mesh=None):
     """The save-engine flow shared by eval and predict: pack (and save the
     artifact when --save-engine is set) or build the live engine (the
-    module engine in ``cfg.compute_dtype``)."""
+    module engine in ``cfg.compute_dtype``), on ``dev`` or over ``mesh``
+    (``dev`` its first device, which packs and calibrates)."""
     from insarseg_torch.config import compute_dtype
     from insarseg_torch.engines import make_engine
 
@@ -273,10 +339,10 @@ def _build_engine_maybe_save(args, cfg, model, engine_name: str, calib,
                           device=dev)
         print(f"engine artifact written to "
               f"{save_artifact(args.save_engine, art)}")
-        return engine_from_artifact(art, device=dev)
+        return engine_from_artifact(art, device=dev, mesh=mesh)
     return make_engine(cfg.model, cfg.attention, model, None, engine_name,
                        calib_batches=calib, calib_stat=args.calib_stat,
-                       device=dev,
+                       device=dev, mesh=mesh,
                        input_dtype=(compute_dtype(cfg)
                                     if engine_name == "module" else None))
 
@@ -309,9 +375,14 @@ def cmd_eval(args) -> int:
     norm = (cfg.normalize_mean, cfg.normalize_std)
     explicit_calib = _resolve_calib_flags(args)
     engine_name = getattr(args, "engine", "module") or "module"
+    # an engine scores over every device the batch divides among; its
+    # outputs gather on the first
+    mesh = _eval_mesh(cfg, _mesh_devices(cfg, dev))
+    if mesh is not None:
+        dev = mesh.devices[0]
     if getattr(args, "engine_artifact", None):
         # a prebuilt engine: no checkpoint, no calibration
-        predict = _artifact_engine(args, cfg, explicit_calib, dev)
+        predict = _artifact_engine(args, cfg, explicit_calib, dev, mesh)
         eval_step = engine.make_engine_eval_step(
             predict, cfg.num_classes, cfg.ignore_index, normalize=norm,
             device=dev)
@@ -335,7 +406,7 @@ def cmd_eval(args) -> int:
             calib = collect_calib_batches(calib_loader, args.calib_batches,
                                           *norm)
         predict = _build_engine_maybe_save(args, cfg, model, engine_name,
-                                           calib, dev)
+                                           calib, dev, mesh)
         eval_step = engine.make_engine_eval_step(
             predict, cfg.num_classes, cfg.ignore_index, normalize=norm,
             device=dev)
@@ -386,14 +457,18 @@ def cmd_predict(args) -> int:
     dev = _device(args)
     cfg = _build_cfg(args)
     explicit_calib = _resolve_calib_flags(args)
+    # every device the command may use serves a share of each tile batch
+    mesh = _serving_mesh(cfg, dev)
+    if mesh is not None:
+        dev = mesh.devices[0]
     if getattr(args, "stream", False):
-        return predict_stream(args, cfg, explicit_calib, dev)
+        return predict_stream(args, cfg, explicit_calib, dev, mesh)
     model = build_model(cfg)
     scenes = [normalize_scene(read_scene(p), cfg) for p in args.input]
     engine_name = getattr(args, "engine", "module") or "module"
     _check_supported(cfg, engine_name)
     if getattr(args, "engine_artifact", None):
-        eng = _artifact_engine(args, cfg, explicit_calib, dev)
+        eng = _artifact_engine(args, cfg, explicit_calib, dev, mesh)
     else:
         _load_weights(args, cfg, model)
         if getattr(args, "save_engine", None) and engine_name == "module":
@@ -405,9 +480,9 @@ def cmd_predict(args) -> int:
                              args.calib_batches)
                  if engine_name == "int8" else None)
         eng = _build_engine_maybe_save(args, cfg, model, engine_name, calib,
-                                       dev)
+                                       dev, mesh)
     preds = predict_scenes(eng, scenes, args.tile, args.overlap,
-                           args.tile_batch, dev)
+                           args.tile_batch, dev, mesh.size if mesh else 1)
     if args.output and len(args.input) > 1:
         os.makedirs(args.output, exist_ok=True)
     out_paths = _output_paths(args)
@@ -479,10 +554,12 @@ def open_stream_scene(path: str) -> np.ndarray:
 
 
 def predict_stream(args, cfg, explicit_calib: bool,
-                   dev: torch.device) -> int:
+                   dev: torch.device, mesh=None) -> int:
     """``predict --stream``: each scene streams band by band through
     ``data/serve.py::stream_scene_inference`` on ``dev``, its class rows
-    argmaxed on the device and written into an (H, W) uint8 prediction.
+    argmaxed on the device and written into an (H, W) uint8 prediction;
+    with a ``mesh`` (``dev`` its first device) each engine call is split
+    over it, 128 tiles a device by default.
     Memory on the device is one call of tiles and one band's accumulator,
     never the (H, W, C) f32 logits of the in-memory path; uint8 scenes are
     normalized on the device. int8 calibrates on tiles of the first scene,
@@ -500,7 +577,7 @@ def predict_stream(args, cfg, explicit_calib: bool,
                 f"{arr.shape} — drop --stream or lower --tile")
     norm = (cfg.normalize_mean, cfg.normalize_std)
     if getattr(args, "engine_artifact", None):
-        eng = _artifact_engine(args, cfg, explicit_calib, dev)
+        eng = _artifact_engine(args, cfg, explicit_calib, dev, mesh)
     else:
         model = build_model(cfg)
         _load_weights(args, cfg, model)
@@ -510,16 +587,17 @@ def predict_stream(args, cfg, explicit_calib: bool,
                               args.overlap, args.calib_batches, cfg)
                  if engine_name == "int8" else None)
         eng = _build_engine_maybe_save(args, cfg, model, engine_name, calib,
-                                       dev)
+                                       dev, mesh)
     if args.output and len(args.input) > 1:
         os.makedirs(args.output, exist_ok=True)
     out_paths = _output_paths(args)
+    tile_batch = args.tile_batch or 128 * (mesh.size if mesh else 1)
     for path, arr in scenes.items():
         h, w = arr.shape
         pred = np.empty((h, w), np.uint8)
         stream_scene_inference(
             eng, arr, (h, w), cfg.num_classes, tile=args.tile,
-            overlap=args.overlap, batch_size=args.tile_batch or 128,
+            overlap=args.overlap, batch_size=tile_batch,
             normalize=norm if arr.dtype == np.uint8 else None, writer=pred,
             emit="argmax", device=dev)
         write_prediction(out_paths[path], pred, cfg.num_classes)
@@ -528,12 +606,13 @@ def predict_stream(args, cfg, explicit_calib: bool,
 
 
 def predict_scenes(eng, scenes: List[np.ndarray], tile: int, overlap: int,
-                   tile_batch: Optional[int],
-                   dev: torch.device) -> List[np.ndarray]:
+                   tile_batch: Optional[int], dev: torch.device,
+                   n_devices: int = 1) -> List[np.ndarray]:
     """The (H, W) uint8 class map of each (H, W, 1) scene, in order. Scenes
     of one shape share one tile plan and, two or more, run through the
     batched multi-scene stitch; the logits are stitched in f32 whatever
-    the engine returns, then argmaxed."""
+    the engine returns, then argmaxed. ``eng`` may serve over a mesh of
+    ``n_devices`` (its outputs on ``dev``)."""
     from insarseg_torch.data.stitch import (
         plan_tiles,
         sliding_window_inference,
@@ -550,9 +629,9 @@ def predict_scenes(eng, scenes: List[np.ndarray], tile: int, overlap: int,
     for shape, idxs in groups.items():
         h, w = shape[:2]
         n_tiles = len(plan_tiles(max(h, tile), max(w, tile), tile, overlap))
-        # the forward chunk: --tile-batch, else all tiles up to 128 (a
-        # bound on a chunk's memory)
-        bs = tile_batch or min(n_tiles * len(idxs), 128)
+        # the forward chunk: --tile-batch, else all tiles up to 128 a
+        # device (a bound on a chunk's memory; the JAX CLI's default)
+        bs = tile_batch or min(n_tiles * len(idxs), 128 * n_devices)
         with torch.inference_mode():
             if len(idxs) == 1:
                 logits = sliding_window_inference(

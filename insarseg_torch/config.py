@@ -10,10 +10,13 @@ the script, plus the two extensions; the CLI overrides any field.
 ``compute_dtype`` ('float32' or 'bfloat16', :func:`compute_dtype`) is
 the dtype the train and eval steps and the module engine compute in
 (``train/engine.py``, ``ops/layers.py``); ``remat`` rematerializes the
-U-Net families' DoubleConvs (``models/registry.py::build_model``). What
-the port does not run yet raises where it is read: ``mesh_data`` /
-``mesh_spatial`` above 1 (ROADMAP Queue 1 item 16) in
-``train/engine.py::fit`` and the CLI.
+U-Net families' DoubleConvs (``models/registry.py::build_model``).
+``mesh_data`` is the data axis (``parallel/mesh.py``): -1 every device,
+as the JAX package's. ``train/engine.py::fit`` runs as one rank of a
+process group of that size (-1 or the group's), and the CLI starts the
+ranks (``train``) or serves over the devices (``eval``, ``predict``).
+``mesh_spatial`` above 1 raises where it is read (ROADMAP Queue 1 item
+21).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ class Config:
     # -- execution --
     compute_dtype: str = "float32"  # float32 | bfloat16
     mesh_data: int = -1  # -1 = all devices on the data axis
-    mesh_spatial: int = 1  # spatial partitioning of H
+    mesh_spatial: int = 1  # spatial partitioning of H (not ported)
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

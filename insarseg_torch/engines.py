@@ -17,6 +17,19 @@ The port serves ``unet``, ``unet-fast``, ``deeplabv3``, ``fcn`` and
 ``pspnet`` with attention ``none``, ``channel`` or ``spatial``. Every
 ``predict`` takes and returns NHWC tensors and runs on the engine's
 device.
+
+Every engine runs over a ``data`` mesh too (``mesh=``, a
+``parallel/mesh.py::Mesh``), as the JAX package's engines do with the
+batch sharded over ``data`` and the weights replicated: one predict a
+mesh device, each over its own copy of the weights (for serve and int8
+the tree is packed, and for int8 calibrated, once on the first device
+and copied to the others, so every device holds bit-equal codes and
+scales: ``mesh_replicate_packed``), the batch split along dim 0 and the
+outputs gathered in order on the first device (``mesh_engine``). The
+hand-written kernels then launch on every device of the mesh. The int8
+engines are batch-invariant, so a mesh's int8 logits equal one device's
+bit for bit; the module and serve engines are not (cuDNN picks its
+kernels by the batch), and differ within float rounding.
 """
 
 from __future__ import annotations
@@ -27,12 +40,11 @@ import numpy as np
 import torch
 
 from insarseg_torch.device import DeviceLike, resolve_device
+from insarseg_torch.parallel.mesh import Mesh, mesh_engine, replicate_arrays
 
 ENGINES = ("module", "serve", "int8")
 KNOWN_MODELS = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
 ATTENTIONS = ("none", "channel", "spatial")
-MESH_TODO = ("insarseg_torch does not port multi-GPU serving (ROADMAP "
-             "Queue 1 item 16) yet")
 
 
 def supported(model_name: str, attention: str, engine: str) -> bool:
@@ -55,8 +67,9 @@ def _check_cell(model_name: str, attention: str, engine: str,
                          f"{KNOWN_MODELS}")
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be an insarseg_torch.parallel.Mesh "
+                        f"(make_mesh), got {type(mesh).__name__}")
     return model_name
 
 
@@ -86,18 +99,19 @@ def make_engine(
     calib_batches: Optional[List[Any]] = None,
     argmax: bool = False,
     input_dtype: Optional[torch.dtype] = None,
-    mesh: Optional[Any] = None,
+    mesh: Optional[Mesh] = None,
     calib_stat: str = "absmax",
     device: DeviceLike = None,
 ):
     """Build ``predict(images) -> logits | int32 class map`` on ``device``
-    (``None`` means ``cuda``).
+    (``None`` means ``cuda``), or over ``mesh`` (its first device then
+    packs, calibrates and gathers; ``device`` is not read).
 
     ``state_dict`` defaults to ``model.state_dict()``. ``calib_batches``
     (normalized f32 NHWC batches) is required for ``engine='int8'``;
     ``calib_stat`` is 'absmax' or 'p<percent>'."""
     model_name = _check_cell(model_name, attention, engine, mesh)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     sd = model.state_dict() if state_dict is None else state_dict
 
     if engine == "module":
@@ -106,13 +120,12 @@ def make_engine(
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         return make_predict_fn(model, argmax=argmax, input_dtype=input_dtype,
-                               device=dev)
+                               device=dev, mesh=mesh)
     meta = _meta(model_name, model)
     if engine == "serve":
-        return _serve_predict(model_name,
-                              _pack(model_name, attention, sd, engine,
-                                    meta=meta),
-                              dev, argmax, input_dtype, meta)
+        return _placed(lambda t, d: _serve_predict(
+            model_name, t, d, argmax, input_dtype, meta),
+            _pack(model_name, attention, sd, engine, meta=meta), dev, mesh)
     if not calib_batches:
         raise ValueError(
             "engine='int8' needs at least one calibration batch "
@@ -121,7 +134,28 @@ def make_engine(
             "them with insarseg_torch.engines.collect_calib_batches")
     tree = _pack(model_name, attention, sd, engine, calib_batches,
                  calib_stat, dev, meta)
-    return _int8_predict(model_name, tree, dev, argmax, meta)
+    return _placed(lambda t, d: _int8_predict(model_name, t, d, argmax,
+                                              meta), tree, dev, mesh)
+
+
+def mesh_replicate_packed(tree: Mapping[str, Any], mesh: Mesh
+                          ) -> List[Dict[str, Any]]:
+    """One copy of a packed tree a mesh device, its arrays on the device
+    and its Python scalars kept (they pick branches): the same codes and
+    scales everywhere."""
+    return replicate_arrays(tree, mesh)
+
+
+def _placed(build, tree: Mapping[str, Any], dev: torch.device,
+            mesh: Optional[Mesh]):
+    """``build(tree, device)``'s predict on ``dev``, or one a mesh device
+    over :func:`mesh_replicate_packed` copies, split and gathered by
+    ``mesh_engine``."""
+    if mesh is None:
+        return build(tree, dev)
+    return mesh_engine([build(t, d) for t, d in
+                        zip(mesh_replicate_packed(tree, mesh),
+                            mesh.devices)], mesh)
 
 
 def _meta(model_name: str, model: torch.nn.Module) -> Dict[str, Any]:
@@ -246,12 +280,13 @@ def engine_from_artifact(
     artifact: Dict[str, Any],
     argmax: bool = False,
     input_dtype: Optional[torch.dtype] = None,
-    mesh: Optional[Any] = None,
+    mesh: Optional[Mesh] = None,
     device: DeviceLike = None,
 ):
     """Rebuild ``predict(images)`` from an artifact (in memory, or read
     with ``insarseg_torch.engines_io.load_artifact``), written by either
-    package; a U-Net int8 tree serves in the layout it was packed in."""
+    package; a U-Net int8 tree serves in the layout it was packed in. On
+    ``device``, or over ``mesh`` as :func:`make_engine` serves."""
     model_name, engine = artifact.get("model"), artifact.get("engine")
     if artifact.get("format") != 1:
         raise ValueError(
@@ -262,12 +297,15 @@ def engine_from_artifact(
             f"bad engine artifact: model={model_name!r}, engine={engine!r}"
             f" (known models: {KNOWN_MODELS})")
     _check_cell(model_name, artifact.get("attention", "none"), engine, mesh)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     meta = artifact.get("meta") or {}
     if engine == "serve":
-        return _serve_predict(model_name, artifact["tree"], dev, argmax,
-                              input_dtype, meta)
-    return _int8_predict(model_name, artifact["tree"], dev, argmax, meta)
+        return _placed(lambda t, d: _serve_predict(
+            model_name, t, d, argmax, input_dtype, meta),
+            artifact["tree"], dev, mesh)
+    return _placed(lambda t, d: _int8_predict(model_name, t, d, argmax,
+                                              meta), artifact["tree"], dev,
+                   mesh)
 
 
 def collect_calib_batches(loader, n: int, normalize_mean: float = 0.5,

@@ -35,6 +35,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -91,20 +92,83 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         acc = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(acc)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
-        n = x.numel() // x.shape[1]
+        mean, var, unbias = self._moments(xf)
         with torch.no_grad():
             m = self.momentum
             rm, rv = self.running_mean, self.running_var
             rm.copy_((1.0 - m) * rm + m * mean.to(rm.dtype))
-            rv.copy_((1.0 - m) * rv + m * (var * (n / max(n - 1, 1)))
-                     .to(rv.dtype))
+            rv.copy_((1.0 - m) * rv + m * (var * unbias).to(rv.dtype))
             self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps) * self.weight.to(acc)
         y = (xf - mean[:, None, None]) * inv[:, None, None] \
             + self.bias.to(acc)[:, None, None]
         return y.to(x.dtype)
+
+    def _moments(self, xf: torch.Tensor):
+        """The batch's mean and biased variance per channel, and the
+        running variance's factor ``n / max(n - 1, 1)``."""
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
+        n = xf.numel() // xf.shape[1]
+        return mean, var, n / max(n - 1, 1)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks of the process group whose gradient is the
+    sum over the ranks of the gradient (every rank's output depends on
+    every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
+class SyncMomentBatchNorm2d(MomentBatchNorm2d):
+    """:class:`MomentBatchNorm2d` whose train-mode moments are those of the
+    global batch of a ``torch.distributed`` group (the JAX package's
+    BatchNorm under a ``data`` mesh, where GSPMD reduces the moments over
+    the whole batch): the per-channel sums of x and x^2 and the count, in
+    at least f32, summed over the ranks in one differentiable all-reduce
+    (:class:`_AllReduceSum`); the mean, the biased variance ``max(E[x^2] -
+    E[x]^2, 0)`` and the running variance's ``n / max(n - 1, 1)`` from the
+    global count. Uneven shards and empty ones are fine. Without a group
+    it is :class:`MomentBatchNorm2d`. Made by ``parallel/mesh.py::
+    sync_batchnorm``; ``nn.SyncBatchNorm`` takes no CPU tensors and would
+    lose the moment rule at one value per channel."""
+
+    @classmethod
+    def taking_over(cls, bn: nn.BatchNorm2d) -> "SyncMomentBatchNorm2d":
+        """One holding ``bn``'s parameter and buffer objects."""
+        if bn.momentum is None or not (bn.affine and bn.track_running_stats):
+            raise ValueError("sync BatchNorm needs an affine BatchNorm2d "
+                             "with running statistics and a momentum")
+        new = cls(bn.num_features, eps=bn.eps, momentum=bn.momentum,
+                  device="meta")
+        new.weight, new.bias = bn.weight, bn.bias
+        for k in ("running_mean", "running_var", "num_batches_tracked"):
+            setattr(new, k, getattr(bn, k))
+        return new.train(bn.training)
+
+    def _moments(self, xf: torch.Tensor):
+        if not (dist.is_available() and dist.is_initialized()):
+            return super()._moments(xf)
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum(dim=(0, 2, 3)),
+                          xf.square().sum(dim=(0, 2, 3)),
+                          xf.new_full((1,), xf.numel() // c)])
+        sums = _AllReduceSum.apply(sums)
+        n = sums[2 * c].detach()
+        mean = sums[:c] / n
+        var = (sums[c:2 * c] / n - mean.square()).clamp_min(0)
+        return mean, var, n / (n - 1).clamp_min(1)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,

@@ -1,6 +1,6 @@
 """Batched inference over the ``nn.Module`` graph (counterpart of
-``insarseg/parallel/inference.py::make_predict_fn``, single device; the
-mesh-sharded form is ROADMAP Queue 1 item 16)."""
+``insarseg/parallel/inference.py::make_predict_fn``), on one device or
+over a ``data`` mesh (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from torch import nn
 
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.parallel.mesh import Mesh, mesh_engine, replicate
 
 
 def make_predict_fn(
@@ -18,6 +19,7 @@ def make_predict_fn(
     argmax: bool = False,
     input_dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``predict(images)``: NHWC images in, NHWC logits (or the int32
     argmax map (B, H, W)) out, on ``device`` (``None`` means ``cuda``).
@@ -26,7 +28,15 @@ def make_predict_fn(
     ``--compute-dtype``) the images enter in that dtype and the graph
     follows it (``ops/layers.py``): the convs and linears cast their f32
     weights per call, BatchNorm keeps f32 parameters and statistics, as
-    the JAX module does for a bf16 input; the logits come out in it."""
+    the JAX module does for a bf16 input; the logits come out in it.
+
+    With ``mesh`` (``device`` is then not read) there is one eval-mode
+    copy of ``model`` a mesh device (``replicate``), and the batch is
+    split over them and gathered on the first (``mesh_engine``)."""
+    if mesh is not None:
+        return mesh_engine([make_predict_fn(m, argmax, input_dtype, d)
+                            for m, d in zip(replicate(model, mesh),
+                                            mesh.devices)], mesh)
     dev = resolve_device(device)
     model = model.to(dev).eval()
 

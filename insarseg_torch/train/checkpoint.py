@@ -10,7 +10,9 @@ with its optimizer for resume (counterpart of
 
 Each file is written under a temporary name and moved into place, so a
 crash never leaves a torn checkpoint. Files saved on the card load on the
-CPU: restores read them there.
+CPU: restores read them there, and the loads copy the tensors to the
+parameters' device. Under a ``torch.distributed`` group only rank 0
+writes (every rank holds the same state); every rank may restore.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from insarseg_torch.device import DeviceLike
+from insarseg_torch.parallel.mesh import rank
 
 
 def _save(obj: Any, path: str) -> None:
@@ -48,6 +51,8 @@ class Checkpointer:
         return os.path.join(self.directory, "best_miou.json")
 
     def save_best(self, state, miou: float) -> None:
+        if rank():
+            return
         _save(state.model.state_dict(), self.best_path)
         tmp = self._best_metric_path + ".tmp"
         with open(tmp, "w") as f:
@@ -62,6 +67,8 @@ class Checkpointer:
         return -1.0
 
     def save_latest(self, state) -> None:
+        if rank():
+            return
         _save({"step": state.step, "model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict()}, self.latest_path)
 

@@ -13,9 +13,26 @@ the dtype the image is cast to before the model, which every layer then
 follows (``ops/layers.py``): in bf16 the convs and matmuls run in bf16
 while the parameters, their gradients, Adam's state and the BN running
 statistics stay f32, and the loss is f32. In f32, TF32 stays off for the
-convolutions and matmuls. Multi-GPU training (``mesh_data`` /
-``mesh_spatial`` above 1) is ROADMAP Queue 1 item 16; ``fit`` raises for
-it.
+convolutions and matmuls.
+
+Under a ``torch.distributed`` group (one process per device,
+``parallel/mesh.py::launch`` or ``torchrun``) the steps compute the JAX
+package's global-batch math on a ``data`` mesh. Every rank is given the
+same global batch and takes its rows (``rows_of``); the BatchNorms are
+swapped for ``SyncMomentBatchNorm2d`` (global moments); the loss is the
+rank's summed cross-entropy over the global valid count; the gradients
+are summed over the ranks in one flattened all-reduce a dtype before the
+optimizer step; the counts and the reported loss are global. No
+``DistributedDataParallel``: ``BNFedConv2d``'s detached bias gets no
+gradient, which DDP takes for a fault every step. The all-reduce moves
+the f32 gradients once: U-Net-CA (base 64) has about 31M parameters,
+124 MB; FCN-ResNet50-CA about 33M. The augment's D4 flags are drawn for
+the global batch from the step's seed on every rank, each rank taking its
+columns, so the mesh augments as one device does; dropout draws rank 0's
+mask from the one-device seed and rank r's from ``SeedSequence([seed,
+step, r])``, so a mesh step equals a one-device step only with dropout
+off. ``mesh_spatial`` above 1 (the H axis sharded) raises, ROADMAP
+Queue 1 item 21.
 """
 
 from __future__ import annotations
@@ -33,11 +50,9 @@ from insarseg_torch.config import compute_dtype as cfg_dtype
 from insarseg_torch.data.augment import normalize_u8, random_dihedral
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.ops.layers import nhwc_to_nchw
+from insarseg_torch.parallel import mesh as P
 from insarseg_torch.train import metrics as M
-from insarseg_torch.train.losses import cross_entropy_loss
-
-MESH_TODO = ("insarseg_torch trains on one device; multi-GPU training "
-             "(mesh_data / mesh_spatial > 1) is ROADMAP Queue 1 item 16")
+from insarseg_torch.train.losses import cross_entropy_terms
 
 
 @dataclasses.dataclass
@@ -73,11 +88,14 @@ def create_state(model: nn.Module, learning_rate: float = 1e-4,
     """Move ``model`` to ``device`` (``None`` means ``cuda``) and give it
     Adam with torch's defaults, b1 0.9, b2 0.999, eps 1e-8 (the reference's
     ``optim.Adam``). With ``seed`` the weights are drawn anew first
-    (:func:`init_weights`)."""
+    (:func:`init_weights`). Under a process group every rank then takes
+    rank 0's weights and statistics."""
     dev = resolve_device(device)
     if seed is not None:
         init_weights(model, seed)
     model.to(dev)
+    if P.grouped():
+        P.broadcast_state(model)
     opt = torch.optim.Adam(model.parameters(), lr=learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
     return TrainState(model, opt)
@@ -113,10 +131,14 @@ def _cast(image: torch.Tensor, dtype: Optional[torch.dtype]
     return image if dtype is None else image.to(dtype)
 
 
-def step_seeds(seed: int, step: int) -> Tuple[int, int]:
+def step_seeds(seed: int, step: int, rank: int = 0) -> Tuple[int, int]:
     """(augment seed, dropout seed) of step ``step`` of a run with base
-    ``seed``: a resumed run redraws the stream the first run drew."""
+    ``seed``: a resumed run redraws the stream the first run drew. The
+    augment seed is every rank's; rank r > 0 of a mesh draws its dropout
+    from ``SeedSequence([seed, step, r])``."""
     a, d = np.random.SeedSequence([seed, step]).generate_state(2)
+    if rank:
+        d = np.random.SeedSequence([seed, step, rank]).generate_state(1)[0]
     return int(a), int(d)
 
 
@@ -129,13 +151,48 @@ def _default_generator(dev: torch.device) -> torch.Generator:
 
 
 def _scores(logits: torch.Tensor, mask: torch.Tensor, num_classes: int,
-            ignore_index: int, loss: Optional[torch.Tensor] = None
-            ) -> Dict[str, torch.Tensor]:
-    if loss is None:
-        loss = cross_entropy_loss(logits, mask, ignore_index)
-    return {"loss": loss.detach(),
-            **M.confusion_counts(logits.detach(), mask, num_classes,
-                                 ignore_index)}
+            ignore_index: int, terms: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None,
+            grouped: bool = False) -> Dict[str, torch.Tensor]:
+    """The loss and the confusion counts of a forward; ``terms``: its
+    loss's (numerator, valid count) when already computed. ``grouped``
+    (a rank's rows of the global batch): both are summed over the ranks
+    first (one all-reduce), the global batch's loss and counts."""
+    num, valid = terms if terms is not None \
+        else cross_entropy_terms(logits, mask, ignore_index)
+    counts = M.confusion_counts(logits.detach(), mask, num_classes,
+                                ignore_index)
+    num = num.detach()
+    if grouped:
+        num, valid, counts = _summed(num, valid, counts)
+    return {"loss": num / valid.clamp_min(1), **counts}
+
+
+def _summed(num: torch.Tensor, valid: torch.Tensor,
+            counts: Dict[str, torch.Tensor]):
+    """``num``, ``valid`` and ``counts`` summed over the ranks in one
+    all-reduce, in f64 (which holds the counts exactly)."""
+    parts = [num.reshape(1), valid.reshape(1),
+             *(v.reshape(-1) for v in counts.values())]
+    flat = torch.cat([t.to(torch.float64) for t in parts])
+    torch.distributed.all_reduce(flat)
+    out, i = [], 0
+    for t in parts:
+        out.append(flat[i:i + t.numel()].to(t.dtype))
+        i += t.numel()
+    summed = {k: o.reshape(v.shape)
+              for (k, v), o in zip(counts.items(), out[2:])}
+    return out[0][0], out[1][0], summed
+
+
+def _local(image, mask, dev: torch.device, grouped: bool):
+    """The image and mask on ``dev``; ``grouped``, this rank's rows of the
+    global batch."""
+    if grouped:
+        rows = P.rows_of(len(image))
+        image, mask = image[rows], mask[rows]
+    return torch.as_tensor(image, device=dev), \
+        torch.as_tensor(mask, device=dev)
 
 
 def make_train_step(model: nn.Module, num_classes: int,
@@ -152,30 +209,52 @@ def make_train_step(model: nn.Module, num_classes: int,
     uint8). ``seed`` is the run's base seed: the
     augment's D4 flags and dropout are drawn from generators seeded with
     ``step_seeds(seed, state.step)``. Returns device tensors and never
-    synchronises the stream."""
+    synchronises the stream.
+
+    Under a process group (made when the step is built) ``image`` and
+    ``mask`` are the global batch, the model's BatchNorms are synced
+    (``parallel/mesh.py::sync_batchnorm``) and the step is the global
+    batch's (the module docstring)."""
+    grouped = P.grouped()
+    if grouped:
+        P.sync_batchnorm(model)
 
     def step(state: TrainState, image, mask, seed: int = 0):
         dev = next(model.parameters()).device
-        image = _to_float(torch.as_tensor(image, device=dev), normalize)
-        mask = torch.as_tensor(mask, device=dev)
-        aug_seed, drop_seed = step_seeds(seed, state.step)
+        aug_seed, drop_seed = step_seeds(seed, state.step, P.rank())
+        flags = None
         if augment:
             g = torch.Generator(device=dev)
             g.manual_seed(aug_seed)
-            image, mask = random_dihedral(image, mask, generator=g)
+            flags = torch.rand((3, len(image)), generator=g, device=dev) \
+                < 0.5
+            if grouped:
+                flags = flags[:, P.rows_of(len(image))]
+        image, mask = _local(image, mask, dev, grouped)
+        image = _to_float(image, normalize)
+        if augment:
+            image, mask = random_dihedral(image, mask, flags=flags)
         model.train()
         with _f32(), torch.random.fork_rng(
                 devices=[dev] if dev.type == "cuda" else []):
             _default_generator(dev).manual_seed(drop_seed)
             logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
                 .permute(0, 2, 3, 1)
-            loss = cross_entropy_loss(logits, mask, ignore_index)
+            num, valid = cross_entropy_terms(logits, mask, ignore_index)
+            den = valid
+            if grouped:
+                den = valid.clone()
+                torch.distributed.all_reduce(den)
+            loss = num / den.clamp_min(1)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if grouped:
+                P.all_reduce_grads(model.parameters())
             state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            return _scores(logits, mask, num_classes, ignore_index, loss)
+            return _scores(logits, mask, num_classes, ignore_index,
+                           (num, valid), grouped)
 
     return step
 
@@ -188,18 +267,22 @@ def make_eval_step(model: nn.Module, num_classes: int,
     """``step(image, mask) -> {loss, counts}`` of ``model`` in eval mode
     (BN running statistics, no dropout), on the model's device, the image
     entering the model in ``compute_dtype`` (as in
-    :func:`make_train_step`)."""
+    :func:`make_train_step`). Under a process group (made when the step
+    is built) each rank scores its rows of the global batch and the loss
+    and counts are the global batch's."""
+    grouped = P.grouped()
 
     @torch.no_grad()
     def step(image, mask):
         dev = next(model.parameters()).device
-        image = _to_float(torch.as_tensor(image, device=dev), normalize)
-        mask = torch.as_tensor(mask, device=dev)
+        image, mask = _local(image, mask, dev, grouped)
+        image = _to_float(image, normalize)
         model.eval()
         with _f32():
             logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
                 .permute(0, 2, 3, 1)
-        return _scores(logits, mask, num_classes, ignore_index)
+        return _scores(logits, mask, num_classes, ignore_index,
+                       grouped=grouped)
 
     return step
 
@@ -314,11 +397,27 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     validation mIoU and the latest state are saved each epoch;
     ``resume=True`` restores the latest state first and continues from
     epoch ``step // len(train_loader)`` (the history then covers the
-    resumed epochs only)."""
+    resumed epochs only).
+
+    ``fit`` is SPMD: inside a ``torch.distributed`` group (``launch``,
+    ``torchrun``) it runs as one rank of a ``data`` mesh, every rank
+    iterating the same loader (the global batches) and ``device`` this
+    rank's; ``cfg.mesh_data`` must then be -1 or the group's size. Only
+    rank 0 prints and saves checkpoints, every rank restores on resume,
+    and the ranks meet after each save. Without a group ``fit`` runs on
+    one device, and ``mesh_data`` above 1 raises. ``mesh_spatial`` above
+    1 raises (ROADMAP Queue 1 item 21)."""
     dev = resolve_device(device)
     dtype = cfg_dtype(cfg)
-    if cfg.mesh_data > 1 or cfg.mesh_spatial > 1:
-        raise NotImplementedError(MESH_TODO)
+    if cfg.mesh_spatial > 1:
+        raise NotImplementedError(P.SPATIAL_TODO)
+    if P.grouped():
+        if cfg.mesh_data not in (-1, P.world()):
+            raise ValueError(f"mesh_data={cfg.mesh_data} in a process "
+                             f"group of {P.world()} ranks")
+    elif cfg.mesh_data > 1:
+        raise ValueError(P.NEEDS_LAUNCH)
+    verbose = verbose and P.rank() == 0
     if iter(train_loader) is train_loader:
         raise ValueError("fit needs a re-iterable train loader (each epoch "
                          "iterates it afresh), not an iterator")
@@ -374,10 +473,12 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
                 best_miou = cur
                 if checkpointer is not None:
                     checkpointer.save_best(state, best_miou)
+                    P.barrier()
                 if verbose:
                     print(f"*** val mIoU improved to {best_miou:.4f} ***")
         if checkpointer is not None:
             checkpointer.save_latest(state)
+            P.barrier()
         history.append(epoch_metrics)
     if verbose:
         print(f"training done in {(time.time() - t_start) / 60:.2f} min")

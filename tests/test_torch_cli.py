@@ -343,7 +343,7 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["predict", "--input", "scene.png", "--mesh-data", "2"], "item 16"),
+    (["predict", "--input", "scene.png", "--mesh-spatial", "2"], "item 21"),
 ])
 def test_cli_unported_flags_raise(cwd, flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -144,9 +144,9 @@ def test_bf16_artifact_leaves_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("model,attention,kw,err", [
-    ("unet-fast", "channel", {"mesh": object()}, NotImplementedError),
-    ("deeplabv3", "none", {"mesh": object()}, NotImplementedError),
-    ("unet", "channel", {"mesh": object()}, NotImplementedError),
+    ("unet-fast", "channel", {"mesh": object()}, TypeError),
+    ("deeplabv3", "none", {"mesh": object()}, TypeError),
+    ("unet", "channel", {"mesh": object()}, TypeError),
     ("unet", "channel", {"engine": "int8"}, ValueError),
     ("unet", "channel", {"engine": "fp4"}, ValueError),
     ("pspnet", "cbam", {}, ValueError),

@@ -461,7 +461,7 @@ def test_init_is_seeded_and_keeps_the_callers_rng():
 def test_fit_refuses_what_it_does_not_port():
     train, _ = _loaders()
     model = UNet(base_features=16, use_se=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="launch"):
         TE.fit(model, _cfg(mesh_data=2), train, device=CPU)
     with pytest.raises(ValueError, match="re-iterable"):
         TE.fit(model, _cfg(), iter(train), device=CPU)
