@@ -164,10 +164,14 @@ only (no JAX, nothing of ``insarseg``) and:
    (``mesh_cards``): the train step on every card (NCCL; U-Net-CA bf16
    at 512^2, 8 tiles a card) timed with CUDA events against the same
    tiles a card on one card, the gradient all-reduce and the other
-   collectives apart, the f32 steps held to one process's; U-Net-CA
-   int8 over the cards at 128 tiles a card bit-equal to one card, with
-   tiles/s and each card's idle share; the 16384^2 stream over the cards
-   against one card (seconds, equal class maps).
+   collectives apart, the f32 steps held to one process's; the CLI's
+   default ``train`` on every card against ``--mesh-data 1`` at two
+   presets (``mesh_presets``, ms a step); U-Net-CA int8 over the cards
+   at 128 tiles a card bit-equal to one card, that forward's every
+   kernel call checked (its launches are the phase's), with tiles/s and
+   each card's idle share; the 16384^2 stream over the cards against one
+   card (seconds, equal class maps), each stream's engine batch a card
+   checked on a strip first.
    ``python3 chip_smoke.py --only mesh`` builds the kernels and runs
    this phase alone;
 9. prints the kernel table as one JSON line (each row with
@@ -2678,6 +2682,12 @@ MESH_BARS = (1e-5, 1e-4, 1e-5)
 MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
 MESH_CARD_TILES = 128  # tiles a card: the serving timing's engine batch
 MESH_STEP_TILES = 8  # tiles a card: the multi-card train step's batch
+# the CLI's default train (every card) at two presets, each (preset, image
+# size, batch, steps an epoch): U-Net-CA at 128^2 b8 (2 tiles a card on
+# four) and FCN-ResNet50-CA at 64^2 b128; 3 epochs, the first a warm-up
+MESH_PRESETS = (("unet-channelattention", 128, 8, 10),
+                ("pspnet-channelattention", 64, 128, 4))
+MESH_PRESET_EPOCHS = 3
 
 
 def mesh_serving(dev, checked) -> dict:
@@ -3019,6 +3029,84 @@ def mesh_step_rank(dtype_name, per_card, steps, reps, hold_batches,
     return out
 
 
+def preset_rank(root, presets, mesh_data, device="cuda"):
+    """``python -m insarseg_torch.cli train`` of each of ``presets`` (as
+    ``MESH_PRESETS``) on its VOC tree under ``root`` as a user runs it
+    (the default loader), in this process: one device with ``mesh_data``
+    "1", one rank of the caller's group with "-1". Returns each preset's
+    training seconds an epoch, from the loader's ``set_epoch`` to the end
+    of the epoch's train-metrics read (which waits for the card)."""
+    from insarseg_torch import cli
+    from insarseg_torch.data.voc import BatchLoader
+    from insarseg_torch.train import engine
+
+    stamps = []
+    set_epoch, result = BatchLoader.set_epoch, engine._Averager.result
+
+    def timed_set_epoch(self, epoch):
+        stamps.append(time.perf_counter())
+        return set_epoch(self, epoch)
+
+    def timed_result(self, prefix):
+        out = result(self, prefix)
+        if prefix == "train":
+            stamps[-1] = time.perf_counter() - stamps[-1]
+        return out
+
+    BatchLoader.set_epoch = timed_set_epoch
+    engine._Averager.result = timed_result
+    out = {}
+    try:
+        for preset, size, b, _ in presets:
+            stamps.clear()
+            if cli.main(["train", "--preset", preset, "--voc-root",
+                         f"{root}/{preset}", "--image-size", str(size),
+                         "--batch-size", str(b), "--num-epochs",
+                         str(MESH_PRESET_EPOCHS), "--model-save-path",
+                         f"{root}/{preset}-{mesh_data}/m",
+                         "--metrics-save-path",
+                         f"{root}/{preset}-{mesh_data}.json",
+                         "--mesh-data", mesh_data, "--device", device]):
+                raise AssertionError(f"train --preset {preset} failed")
+            out[preset] = list(stamps)
+    finally:
+        BatchLoader.set_epoch, engine._Averager.result = set_epoch, result
+    return out
+
+
+def mesh_presets(n, power_line, presets=MESH_PRESETS, devices=None) -> None:
+    """The CLI's default ``train`` on every card (``devices``: the first
+    ``n`` cards) against ``--mesh-data 1`` at ``presets``: ms a step and
+    tiles/s after the warm-up epoch."""
+    import tempfile
+
+    from insarseg_torch.data.synthetic import make_synthetic_voc
+    from insarseg_torch.parallel import launch
+
+    device = "cuda" if devices is None else str(devices[0])
+    with tempfile.TemporaryDirectory() as root:
+        for i, (preset, size, b, steps) in enumerate(presets):
+            make_synthetic_voc(f"{root}/{preset}", n_train=b * steps,
+                               n_val=b, size=size, seed=SEED + 30 + i)
+        one = preset_rank(root, presets, "1", device)
+        t0 = time.perf_counter()
+        ranks = launch(preset_rank, n, devices,
+                       args=(root, presets, "-1", device))
+        log(f"  launch world {n} of the preset trains: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for preset, size, b, steps in presets:
+        if len(one[preset]) != MESH_PRESET_EPOCHS:
+            raise AssertionError(f"{preset}: epochs timed {one[preset]}")
+        ms1 = float(np.median(one[preset][1:])) / steps * 1e3
+        msn = float(np.median(ranks[0][preset][1:])) / steps * 1e3
+        log(f"  train --preset {preset} ({size}^2 b{b}, {steps} steps an "
+            f"epoch), seconds an epoch: one card {one[preset]}, {n} cards "
+            f"(rank 0) {ranks[0][preset]}; after the warm-up {ms1:.3f} ms "
+            f"a step ({b / ms1 * 1e3:.1f} tiles/s) on one card against "
+            f"{msn:.3f} ms ({b / msn * 1e3:.1f} tiles/s) on {n}, x"
+            f"{ms1 / msn:.3f}; on {power_line}")
+
+
 def idle_by_device(prof) -> dict:
     """``device_idle_share`` of each device of a profiler window."""
     spans = {}
@@ -3046,12 +3134,16 @@ def mesh_cards(power_line, checked) -> dict:
     step (U-Net-CA bf16 at ``HW``^2, ``MESH_STEP_TILES`` tiles a card)
     timed against the same tiles-a-card step on one card, the gradient
     all-reduce and the other collectives apart, and the f32 SGD steps held
-    to one process's (``mesh_hold``); U-Net-CA int8 over the cards at
+    to one process's (``mesh_hold``); the CLI's default train on every
+    card against one (``mesh_presets``); U-Net-CA int8 over the cards at
     ``MESH_CARD_TILES`` tiles a card, bit-equal to one card, tiles/s
-    against one card and each card's idle share, one forward's kernel
-    calls checked; the 16384^2 stream over the cards against one card
-    (seconds, the same class map). Returns the launches of its int8
-    forwards."""
+    against one card and each card's idle share; the 16384^2 stream over
+    the cards against one card (seconds, the same class map). Returns the
+    launches of the one int8 forward at the timed engine batch, every
+    kernel call of which is held against its plain version; the streams'
+    engine batches a card are checked on a strip first (``checked_strip``),
+    and a stream that launches a kernel at a batch no checked call ran
+    fails the phase."""
     import os
     import tempfile
 
@@ -3060,7 +3152,7 @@ def mesh_cards(power_line, checked) -> dict:
     from insarseg_torch import kernels as K
     from insarseg_torch.data.synthetic import synthetic_batch
     from insarseg_torch.engines import engine_from_artifact, pack_engine
-    from insarseg_torch.parallel import launch, make_mesh
+    from insarseg_torch.parallel import launch, make_mesh, rows_of
     from insarseg_torch.parallel.mesh import default_backend
 
     mesh = make_mesh()
@@ -3098,6 +3190,7 @@ def mesh_cards(power_line, checked) -> dict:
         + ("not measured" if r0["idle"] is None
            else f"{100 * r0['idle']:.2f}%")
         + f"; peak {r0['peak_gib']:.3f} GiB a card; on {power_line}")
+    mesh_presets(n, power_line)
 
     rng = np.random.default_rng(SEED + 1)
     calib = [smooth_batch(rng, 4, HW, HW) for _ in range(2)]
@@ -3108,14 +3201,23 @@ def mesh_cards(power_line, checked) -> dict:
     cards = engine_from_artifact(art, mesh=mesh)
     xs = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 71),
                                        MESH_CARD_TILES * n, HW, HW)).to(first)
-    K.reset_launches()
-    with checked_calls(checked):
-        cards(xs[:MESH_BATCH * n // 2])
     ref = torch.cat([alone(c) for c in xs.split(MESH_CARD_TILES)])
-    got = cards(xs)
+    torch.cuda.synchronize(first)
+    # the forward whose launches the row reports: the timed engine batch,
+    # MESH_CARD_TILES a card, every kernel call checked
+    calls = {k: c["calls"] for k, c in checked.items()}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with checked_calls(checked):
+        got = cards(xs)
     for d in mesh.devices:
         torch.cuda.synchronize(d)
     launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    mesh_checked(launches, {k: {"calls": c["calls"] - calls.get(k, 0)}
+                            for k, c in checked.items()})
+    log(f"  U-Net-CA int8 over {n} cards at {MESH_CARD_TILES} tiles a card, "
+        f"every kernel call checked against its plain version in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
     same = torch.equal(ref, got)
     del ref, got
 
@@ -3150,18 +3252,29 @@ def mesh_cards(power_line, checked) -> dict:
     del xs
     torch.cuda.empty_cache()
 
-    runs = StreamRuns()
     with tempfile.TemporaryDirectory() as d:
         big = scene_file(f"{d}/big.npy", 16384, 16384, SEED + 60, first)
         maps = {}
-        for label, fn, bs in (("one card", alone, 128),
-                              (f"{n} cards", cards, 128 * n)):
-            path = f"{d}/{bs}.npy"
-            stream_at_scale(runs, fn, big, bs, path, f"16384^2 on {label}",
-                            power_line)
-            stream_at_scale(runs, fn, big, bs, path, f"16384^2 on {label}",
-                            power_line)
+        for label, fn, k in (("one card", alone, 1),
+                             (f"{n} cards", cards, n)):
+            bs = MESH_CARD_TILES * k
+            # the stream's engine batch checked on its first rows
+            checked_strip(StreamRuns(), checked, fn, big, bs,
+                          f"16384^2 on {label}")
+            runs, path = StreamRuns(), f"{d}/{bs}.npy"
+            for _ in range(2):
+                stream_at_scale(runs, fn, big, bs, path,
+                                f"16384^2 on {label}", power_line)
             maps[label] = np.load(path, mmap_mode="r")
+            for kname, batches in runs.batches.items():
+                shards = {len(range(b)[rows_of(b, r, k)])
+                          for b in batches for r in range(k)}
+                missing = shards - checked[kname]["batches"]
+                if missing:
+                    raise AssertionError(
+                        f"16384^2 on {label}: {kname} launched at engine "
+                        f"batches {sorted(missing)} a card, never checked "
+                        "there")
         same = np.array_equal(*maps.values())
         log(f"  the 16384^2 class maps on one card and on {n}: "
             f"{'equal' if same else 'DIFFERENT'}")
@@ -3171,6 +3284,16 @@ def mesh_cards(power_line, checked) -> dict:
         for f in os.listdir(d):
             os.remove(f"{d}/{f}")
     return launches
+
+
+def mesh_checked(launches, checked) -> None:
+    """Every kernel launch the phase counted was held against its plain
+    version: the launches equal the checked calls, kernel by kernel."""
+    for k, n in launches.items():
+        if checked.get(k, {}).get("calls", 0) != n:
+            raise AssertionError(f"{k}: {n} mesh launches, "
+                                 f"{checked.get(k, {}).get('calls', 0)} "
+                                 "checked")
 
 
 def mesh_path(dev, power_line: str, phase) -> dict:
@@ -3184,11 +3307,7 @@ def mesh_path(dev, power_line: str, phase) -> dict:
     checked = {}
     t0 = time.perf_counter()
     launches = mesh_serving(dev, checked)
-    for k, n in launches.items():
-        if checked.get(k, {}).get("calls", 0) != n:
-            raise AssertionError(f"{k}: {n} mesh launches, "
-                                 f"{checked.get(k, {}).get('calls', 0)} "
-                                 "checked")
+    mesh_checked(launches, checked)
     phase("mesh: serving over two replicas on one card")
     mesh_training(dev)
     phase("mesh: launch on one card (NCCL world 1, gloo world 2, fit)")

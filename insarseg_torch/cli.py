@@ -32,16 +32,23 @@ it, as the JAX package's engines ignore the model's dtype.
 Every card, as the JAX CLI uses every chip (``parallel/mesh.py``):
 ``train`` with ``--mesh-data N`` above 1, or -1 (the default) on a
 machine with more than one card, runs one process a card under
-``torch.distributed`` (``launch``, NCCL); ``eval`` over an engine,
+``torch.distributed`` (``launch``, NCCL). At the presets' batches four
+H100s train slower than one (``unet-channelattention`` x0.849,
+``pspnet-channelattention`` x0.722 a step, PERF.md §5): every rank reads
+the whole global batch and runs the synced BatchNorms' unfused passes;
+``--mesh-data 1`` trains on one card. ``eval`` over an engine,
 ``predict`` and ``predict --stream`` serve over a mesh of the cards in one
 process (``eval``: the largest data axis that divides the batch,
 ``_eval_mesh``; ``predict``: all of them, the default tile batch 128 a
 card). ``--mesh-data 1``, or ``--device cuda:K`` with the default -1,
-pins one card. With ``--device cpu``,
-``--mesh-data N`` gives N gloo ranks (``train``) or N CPU replicas. The
-module engine's ``eval`` runs on one device, as the JAX CLI's does.
-``--mesh-data`` above the visible cards raises; ``--mesh-spatial`` above 1
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 21).
+pins one card; ``--device cuda:K --mesh-data N`` takes N cards from K
+on. Under ``torchrun`` (or inside a process group its caller made)
+``train`` runs as one rank, on ``LOCAL_RANK``'s card (or the caller's).
+With ``--device cpu``, ``--mesh-data N`` gives N gloo ranks (``train``)
+or N CPU replicas. The module engine's ``eval`` runs on one device, as
+the JAX CLI's does. ``--mesh-data`` above the visible cards raises;
+``--mesh-spatial`` above 1 raises ``NotImplementedError`` (ROADMAP Queue
+1 item 21).
 """
 
 from __future__ import annotations
@@ -86,17 +93,20 @@ def _build_cfg(args):
 
 
 def _mesh_devices(cfg, dev: torch.device) -> List[torch.device]:
-    """The devices a command may use: ``--mesh-data`` N of them (for -1
-    every visible card, or ``dev`` alone when ``--device`` names one);
-    ``dev`` alone for 1; on the CPU, N replicas of it (one for -1). More
-    than the visible cards raises."""
+    """The devices a command may use: ``--mesh-data`` N cards from ``dev``'s
+    on (``--device cuda``: from the first; -1: every visible card, or
+    ``dev`` alone when ``--device`` names one); ``dev`` alone for 1; on the
+    CPU, N replicas of it (one for -1). More than the cards there are
+    raises."""
     from insarseg_torch.parallel.mesh import make_mesh
 
     if dev.type == "cpu":
         return [dev] * max(cfg.mesh_data, 1)
     if cfg.mesh_data == 1 or (cfg.mesh_data == -1 and dev.index is not None):
         return [dev]
-    return list(make_mesh(cfg.mesh_data).devices)
+    cards = [torch.device("cuda", i)
+             for i in range(dev.index or 0, torch.cuda.device_count())]
+    return list(make_mesh(cfg.mesh_data, devices=cards).devices)
 
 
 def _eval_mesh(cfg, devices):
@@ -157,25 +167,34 @@ def _prefetched(args, loader):
 
 
 def cmd_train(args) -> int:
+    from insarseg_torch.parallel.mesh import env_rank, grouped, joined
+
     dev = _device(args)
     cfg = _build_cfg(args)
     if not os.path.isdir(os.path.join(cfg.voc_root, "JPEGImages")):
         print(f"error: dataset not found under {cfg.voc_root!r} "
               "(expected VOC layout with JPEGImages/)", file=sys.stderr)
         return 2
+    if grouped() or env_rank():
+        # a rank that torchrun (or the caller's group) started
+        with joined(dev) as rank_dev:
+            return _train(args, cfg, rank_dev)
     devices = _mesh_devices(cfg, dev)
     if len(devices) > 1:
         from insarseg_torch.parallel.mesh import launch
 
-        launch(_train_rank, len(devices), devices, args=(args,))
+        launch(_train_rank, len(devices), devices, args=(args, devices))
         return 0
     return _train(args, cfg, dev)
 
 
-def _train_rank(args) -> None:
-    """``train`` as one rank of a data mesh (``parallel/mesh.py::launch``
-    starts one a device; ``fit`` is SPMD)."""
-    _train(args, _build_cfg(args), _device(args))
+def _train_rank(args, devices: List[torch.device]) -> None:
+    """``train`` as rank r of a data mesh over ``devices``, on
+    ``devices[r]`` (``parallel/mesh.py::launch`` starts one a device;
+    ``fit`` is SPMD)."""
+    from insarseg_torch.parallel.mesh import rank
+
+    _train(args, _build_cfg(args), devices[rank()])
 
 
 def _train(args, cfg, dev: torch.device) -> int:

@@ -23,13 +23,14 @@ Every engine runs over a ``data`` mesh too (``mesh=``, a
 batch sharded over ``data`` and the weights replicated: one predict a
 mesh device, each over its own copy of the weights (for serve and int8
 the tree is packed, and for int8 calibrated, once on the first device
-and copied to the others, so every device holds bit-equal codes and
-scales: ``mesh_replicate_packed``), the batch split along dim 0 and the
-outputs gathered in order on the first device (``mesh_engine``). The
-hand-written kernels then launch on every device of the mesh. The int8
-engines are batch-invariant, so a mesh's int8 logits equal one device's
-bit for bit; the module and serve engines are not (cuDNN picks its
-kernels by the batch), and differ within float rounding.
+and copied to the others by ``parallel/mesh.py::replicate_arrays``, so
+every device holds bit-equal codes and scales), the batch split along
+dim 0 and the outputs gathered in order on the first device
+(``mesh_engine``). The hand-written kernels then launch on every device
+of the mesh. The int8 engines are batch-invariant, so a mesh's int8
+logits equal one device's bit for bit; the module and serve engines are
+not (cuDNN picks its kernels by the batch), and differ within float
+rounding.
 """
 
 from __future__ import annotations
@@ -138,23 +139,15 @@ def make_engine(
                                               meta), tree, dev, mesh)
 
 
-def mesh_replicate_packed(tree: Mapping[str, Any], mesh: Mesh
-                          ) -> List[Dict[str, Any]]:
-    """One copy of a packed tree a mesh device, its arrays on the device
-    and its Python scalars kept (they pick branches): the same codes and
-    scales everywhere."""
-    return replicate_arrays(tree, mesh)
-
-
 def _placed(build, tree: Mapping[str, Any], dev: torch.device,
             mesh: Optional[Mesh]):
     """``build(tree, device)``'s predict on ``dev``, or one a mesh device
-    over :func:`mesh_replicate_packed` copies, split and gathered by
+    over copies of ``tree`` (``replicate_arrays``), split and gathered by
     ``mesh_engine``."""
     if mesh is None:
         return build(tree, dev)
     return mesh_engine([build(t, d) for t, d in
-                        zip(mesh_replicate_packed(tree, mesh),
+                        zip(replicate_arrays(tree, mesh),
                             mesh.devices)], mesh)
 
 

@@ -78,6 +78,24 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks of the process group whose gradient is the
+    sum over the ranks of the gradient (every rank's output depends on
+    every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
 class MomentBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode statistics are the JAX
     package's (``insarseg/ops/layers.py::BatchNorm2d``): the batch mean
@@ -85,7 +103,33 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
     the running variance the unbiased ``n / max(n - 1, 1)`` estimate,
     momentum 0.1. At one value per channel (a 1x1 pooled map at batch 1)
     the variance is 0 and the output the bias, where ``nn.BatchNorm2d``
-    raises. Eval mode and the state_dict names are ``nn.BatchNorm2d``'s."""
+    raises. Eval mode and the state_dict names are ``nn.BatchNorm2d``'s.
+
+    ``synced`` (set by ``parallel/mesh.py::sync_batchnorm``): inside a
+    ``torch.distributed`` group the moments are the global batch's, as
+    the JAX package's BatchNorm under a ``data`` mesh (GSPMD reduces them
+    over the whole batch): the per-channel sums of x and x^2 and the
+    count, in at least f32, summed over the ranks in one differentiable
+    all-reduce (:class:`_AllReduceSum`), the running variance's factor
+    from the global count. Uneven shards and empty ones are fine.
+    ``nn.SyncBatchNorm`` takes no CPU tensors and would lose the moment
+    rule at one value per channel."""
+
+    synced = False
+
+    @classmethod
+    def taking_over(cls, bn: nn.BatchNorm2d) -> "MomentBatchNorm2d":
+        """A synced one holding ``bn``'s parameter and buffer objects."""
+        if bn.momentum is None or not (bn.affine and bn.track_running_stats):
+            raise ValueError("sync BatchNorm needs an affine BatchNorm2d "
+                             "with running statistics and a momentum")
+        new = cls(bn.num_features, eps=bn.eps, momentum=bn.momentum,
+                  device="meta")
+        new.weight, new.bias = bn.weight, bn.bias
+        for k in ("running_mean", "running_var", "num_batches_tracked"):
+            setattr(new, k, getattr(bn, k))
+        new.synced = True
+        return new.train(bn.training)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -107,68 +151,20 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
     def _moments(self, xf: torch.Tensor):
         """The batch's mean and biased variance per channel, and the
         running variance's factor ``n / max(n - 1, 1)``."""
+        if self.synced and dist.is_available() and dist.is_initialized():
+            c = xf.shape[1]
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)),
+                              xf.square().sum(dim=(0, 2, 3)),
+                              xf.new_full((1,), xf.numel() // c)])
+            sums = _AllReduceSum.apply(sums)
+            n = sums[2 * c].detach()
+            mean = sums[:c] / n
+            var = (sums[c:2 * c] / n - mean.square()).clamp_min(0)
+            return mean, var, n / (n - 1).clamp_min(1)
         mean = xf.mean(dim=(0, 2, 3))
         var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
         n = xf.numel() // xf.shape[1]
         return mean, var, n / max(n - 1, 1)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks of the process group whose gradient is the
-    sum over the ranks of the gradient (every rank's output depends on
-    every rank's input)."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
-        t = t.clone()
-        dist.all_reduce(t)
-        return t
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
-        g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
-
-
-class SyncMomentBatchNorm2d(MomentBatchNorm2d):
-    """:class:`MomentBatchNorm2d` whose train-mode moments are those of the
-    global batch of a ``torch.distributed`` group (the JAX package's
-    BatchNorm under a ``data`` mesh, where GSPMD reduces the moments over
-    the whole batch): the per-channel sums of x and x^2 and the count, in
-    at least f32, summed over the ranks in one differentiable all-reduce
-    (:class:`_AllReduceSum`); the mean, the biased variance ``max(E[x^2] -
-    E[x]^2, 0)`` and the running variance's ``n / max(n - 1, 1)`` from the
-    global count. Uneven shards and empty ones are fine. Without a group
-    it is :class:`MomentBatchNorm2d`. Made by ``parallel/mesh.py::
-    sync_batchnorm``; ``nn.SyncBatchNorm`` takes no CPU tensors and would
-    lose the moment rule at one value per channel."""
-
-    @classmethod
-    def taking_over(cls, bn: nn.BatchNorm2d) -> "SyncMomentBatchNorm2d":
-        """One holding ``bn``'s parameter and buffer objects."""
-        if bn.momentum is None or not (bn.affine and bn.track_running_stats):
-            raise ValueError("sync BatchNorm needs an affine BatchNorm2d "
-                             "with running statistics and a momentum")
-        new = cls(bn.num_features, eps=bn.eps, momentum=bn.momentum,
-                  device="meta")
-        new.weight, new.bias = bn.weight, bn.bias
-        for k in ("running_mean", "running_var", "num_batches_tracked"):
-            setattr(new, k, getattr(bn, k))
-        return new.train(bn.training)
-
-    def _moments(self, xf: torch.Tensor):
-        if not (dist.is_available() and dist.is_initialized()):
-            return super()._moments(xf)
-        c = xf.shape[1]
-        sums = torch.cat([xf.sum(dim=(0, 2, 3)),
-                          xf.square().sum(dim=(0, 2, 3)),
-                          xf.new_full((1,), xf.numel() // c)])
-        sums = _AllReduceSum.apply(sums)
-        n = sums[2 * c].detach()
-        mean = sums[:c] / n
-        var = (sums[c:2 * c] / n - mean.square()).clamp_min(0)
-        return mean, var, n / (n - 1).clamp_min(1)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,

@@ -14,10 +14,10 @@ paths need.
 - **Training** (``train/engine.py``: the train and eval steps, ``fit``,
   the CLI's ``train``) runs one process per device under
   ``torch.distributed`` (NCCL on cards, gloo on the CPU), started by
-  :func:`launch` or by ``torchrun``. Every rank reads the same global
-  batch and takes its rows (:func:`rows_of`); the step computes the JAX
-  package's global-batch math: BatchNorm moments over the global batch
-  (``ops/layers.py::SyncMomentBatchNorm2d``, swapped in by
+  :func:`launch` or by ``torchrun`` (:func:`joined`). Every rank reads
+  the same global batch and takes its rows (:func:`rows_of`); the step
+  computes the JAX package's global-batch math: BatchNorm moments over the
+  global batch (``ops/layers.py::MomentBatchNorm2d`` marked ``synced`` by
   :func:`sync_batchnorm`), the loss's valid count summed over the ranks,
   the gradients summed (:func:`all_reduce_grads`), and the counts summed.
 
@@ -42,7 +42,7 @@ from torch import nn
 
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.engines_io import to_torch_tree
-from insarseg_torch.ops.layers import SyncMomentBatchNorm2d
+from insarseg_torch.ops.layers import MomentBatchNorm2d
 
 SPATIAL_TODO = ("insarseg_torch does not shard the image H axis "
                 "(mesh_spatial > 1, ROADMAP Queue 1 item 21) yet")
@@ -246,18 +246,55 @@ def broadcast_state(model: nn.Module, src: int = 0) -> None:
 
 
 def sync_batchnorm(model: nn.Module) -> nn.Module:
-    """Swap every ``nn.BatchNorm2d`` of ``model`` (``MomentBatchNorm2d``
-    among them) for a ``SyncMomentBatchNorm2d`` that holds the same
-    parameter and buffer objects (an optimizer built over the model keeps
-    them; the state_dict names do not change). In place; returns
-    ``model``."""
+    """Make every ``nn.BatchNorm2d`` of ``model`` take the global batch's
+    moments under a process group: a ``MomentBatchNorm2d`` is marked
+    ``synced``, any other is swapped for a synced ``MomentBatchNorm2d``
+    that holds the same parameter and buffer objects (an optimizer built
+    over the model keeps them; the state_dict names do not change). In
+    place; returns ``model``."""
     for name, child in list(model.named_children()):
-        if isinstance(child, nn.BatchNorm2d) \
-                and not isinstance(child, SyncMomentBatchNorm2d):
-            setattr(model, name, SyncMomentBatchNorm2d.taking_over(child))
+        if isinstance(child, MomentBatchNorm2d):
+            child.synced = True
+        elif isinstance(child, nn.BatchNorm2d):
+            setattr(model, name, MomentBatchNorm2d.taking_over(child))
         else:
             sync_batchnorm(child)
     return model
+
+
+# the variables ``torchrun`` (and any ``env://`` launcher) gives a rank
+ENV_RANK = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def env_rank() -> bool:
+    """Whether ``torchrun`` started this process as a rank
+    (:data:`ENV_RANK` all set)."""
+    return all(k in os.environ for k in ENV_RANK)
+
+
+@contextlib.contextmanager
+def joined(dev: torch.device):
+    """This process as a rank of its group for the body of the ``with``:
+    the group its caller made, or else the one ``torchrun`` describes in
+    the environment (joined here through ``env://``, NCCL on the card
+    ``LOCAL_RANK`` names or gloo on the CPU, and left on exit). Yields the
+    rank's device: ``dev`` on the CPU, else the caller's current card or
+    ``LOCAL_RANK``'s."""
+    if grouped():
+        yield torch.device("cuda", torch.cuda.current_device()) \
+            if dev.type == "cuda" else dev
+        return
+    kw = {}
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group("nccl" if kw else "gloo", init_method="env://",
+                            timeout=COLLECTIVE_TIMEOUT, **kw)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
 
 
 def default_backend(devices: Sequence[torch.device]) -> str:
@@ -293,11 +330,11 @@ def _rank_main(r: int, fn: Callable, args: tuple, world_size: int,
 
 def launch(fn: Callable, world_size: int,
            devices: Optional[Sequence[DeviceLike]] = None,
-           backend: Optional[str] = None, args: tuple = ()) -> List[Any]:
+           args: tuple = ()) -> List[Any]:
     """Run ``fn(*args)`` in ``world_size`` ranks, one process each
     (``torch.multiprocessing``, ``spawn``), rank r on ``devices[r]``
     (default: the first ``world_size`` cards), in one process group
-    (``backend``: :func:`default_backend`). The ranks meet through a
+    (:func:`default_backend`'s). The ranks meet through a
     ``FileStore`` in a temporary directory (no TCP port). On a card the
     kernels' library is built here first, so the ranks find it built.
     ``fn`` must be importable (a module-level function); each rank gets
@@ -312,7 +349,7 @@ def launch(fn: Callable, world_size: int,
         devs = [_device(d) for d in devices]
     if len(devs) != world_size:
         raise ValueError(f"{len(devs)} devices for {world_size} ranks")
-    backend = backend or default_backend(devs)
+    backend = default_backend(devs)
     if any(d.type == "cuda" for d in devs):
         from insarseg_torch.kernels import load_library
 

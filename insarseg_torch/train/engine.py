@@ -185,14 +185,23 @@ def _summed(num: torch.Tensor, valid: torch.Tensor,
     return out[0][0], out[1][0], summed
 
 
+def _put(a, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``; a host array goes to a card through pinned memory
+    with a non-blocking copy, so the host does not wait for the stream."""
+    t = torch.as_tensor(a)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def _local(image, mask, dev: torch.device, grouped: bool):
     """The image and mask on ``dev``; ``grouped``, this rank's rows of the
-    global batch."""
+    global batch, taken before the copy (a host batch sends each card its
+    rows alone)."""
     if grouped:
         rows = P.rows_of(len(image))
         image, mask = image[rows], mask[rows]
-    return torch.as_tensor(image, device=dev), \
-        torch.as_tensor(mask, device=dev)
+    return _put(image, dev), _put(mask, dev)
 
 
 def make_train_step(model: nn.Module, num_classes: int,
@@ -366,15 +375,12 @@ def evaluate(eval_step: Callable, loader, version: int = 2,
 
 
 def _placer(dev: torch.device) -> Callable:
-    """A batch's arrays onto ``dev``; host arrays go through pinned memory
-    with a non-blocking copy, so the host does not wait for the stream."""
-    def put(a):
-        t = torch.as_tensor(a)
-        if dev.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t.to(dev)
-
-    return lambda b: {**b, "image": put(b["image"]), "mask": put(b["mask"])}
+    """A batch's arrays onto ``dev`` (:func:`_put`). Under a process group
+    the batch stays where it is: the steps copy this rank's rows alone."""
+    if P.grouped():
+        return lambda b: b
+    return lambda b: {**b, "image": _put(b["image"], dev),
+                      "mask": _put(b["mask"], dev)}
 
 
 def fit(model: nn.Module, cfg, train_loader, val_loader=None,

@@ -37,7 +37,6 @@ from insarseg.parallel import shard_batch as jax_shard_batch
 from insarseg_torch.engines import (
     engine_from_artifact,
     make_engine,
-    mesh_replicate_packed,
     pack_engine,
 )
 from insarseg_torch.models.unet import UNet
@@ -220,7 +219,7 @@ def test_packed_trees_are_copied_to_every_device(unet):
     tm, _, calib, _ = unet
     tree = pack_engine("unet", "channel", tm, None, "int8",
                        calib_batches=[calib], device=CPU)["tree"]
-    copies = mesh_replicate_packed(tree, make_mesh(devices=CPUS))
+    copies = replicate_arrays(tree, make_mesh(devices=CPUS))
     assert len(copies) == 4
     for c in copies:
         assert c["s2d"] is tree["s2d"] and c["in_s"] == tree["in_s"]

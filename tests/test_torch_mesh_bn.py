@@ -1,5 +1,5 @@
-"""The port's synced BatchNorm (``ops/layers.py::SyncMomentBatchNorm2d``,
-swapped in by ``parallel/mesh.py::sync_batchnorm``) on 2 gloo ranks
+"""The port's synced BatchNorm (``ops/layers.py::MomentBatchNorm2d`` with
+``synced``, made by ``parallel/mesh.py::sync_batchnorm``) on 2 gloo ranks
 (``insarseg_torch.parallel.launch``, one torch thread each) against one
 process on the global batch: the output rows, the input gradient rows,
 the weight and bias gradients (summed over the ranks) and the running
@@ -17,7 +17,7 @@ import pytest
 import torch
 from torch import nn
 
-from insarseg_torch.ops.layers import MomentBatchNorm2d, SyncMomentBatchNorm2d
+from insarseg_torch.ops.layers import MomentBatchNorm2d
 from insarseg_torch.parallel import launch, sync_batchnorm
 from tests import torch_mesh_ranks as R
 
@@ -85,8 +85,9 @@ def test_sync_batchnorm_keeps_parameters_and_names():
     ref = MomentBatchNorm2d(4)
     ref.load_state_dict(model[1].state_dict())
     assert sync_batchnorm(model) is model
-    assert isinstance(model[1], SyncMomentBatchNorm2d)
-    assert isinstance(model[2][1], SyncMomentBatchNorm2d)
+    for bn in (model[1], model[2][1]):
+        assert isinstance(bn, MomentBatchNorm2d) and bn.synced
+    assert not MomentBatchNorm2d(4).synced
     assert list(model.state_dict()) == names
     for k, p in model.named_parameters():
         assert p is params[k], k

@@ -167,3 +167,27 @@ def test_fcn_ca_2_ranks_match_jax_mesh_step(fcn_runs):
         back = segmentation_variables_from_torch(_np_sd(sd), "fcn",
                                                  "channel")
         _assert_step((out, sd), want, back, jstate, 1e-3)
+
+
+def test_a_rank_copies_its_rows_alone(monkeypatch):
+    """Under a group ``fit`` leaves the host batch where it is and the step
+    copies this rank's rows (rank 1 of 2 of a b5 batch: rows 3 and 4)
+    alone to its device."""
+    from insarseg_torch.parallel import mesh as P
+    from insarseg_torch.train import engine as TE
+
+    monkeypatch.setattr(P, "grouped", lambda: True)
+    monkeypatch.setattr(P, "rank", lambda: 1)
+    monkeypatch.setattr(P, "world", lambda: 2)
+    batch = {"image": np.arange(5 * 4, dtype=np.float32).reshape(5, 2, 2, 1),
+             "mask": np.arange(5 * 4, dtype=np.int32).reshape(5, 2, 2)}
+    assert TE._placer(torch.device("cpu"))(batch) is batch
+    copied = []
+    put = TE._put
+    monkeypatch.setattr(TE, "_put",
+                        lambda a, dev: copied.append(len(a)) or put(a, dev))
+    image, mask = TE._local(batch["image"], batch["mask"],
+                            torch.device("cpu"), True)
+    assert copied == [2, 2]
+    np.testing.assert_array_equal(image.numpy(), batch["image"][3:])
+    np.testing.assert_array_equal(mask.numpy(), batch["mask"][3:])
