@@ -155,9 +155,10 @@ only (no JAX, nothing of ``insarseg``) and:
    counted, and in bf16 with no bar); then ``parallel.launch`` on the
    card: world 1 on NCCL and world 2 on gloo (both ranks on one card),
    two SGD 0.1 f32 steps of U-Net-CA (base 64, 128^2, global b8) under
-   ``cudnn.deterministic`` held to the same steps in one process at the
-   JAX package's mesh bars (``MESH_BARS``: loss rtol 1e-5, counts equal,
-   parameters 1e-4, BN statistics 1e-5), three bf16 steps on 2 ranks
+   ``cudnn.deterministic`` held to the same steps in one process, each
+   from the mesh's parameters before it, at the JAX package's mesh bars
+   (``MESH_BARS``: loss rtol 1e-5, counts equal, parameters 1e-4, BN
+   statistics 1e-5), three bf16 steps on 2 ranks
    finite and falling, a 2-rank ``fit`` of 2 epochs with a
    ``Checkpointer`` and a resume to epoch 3 (rank 0's files, the ranks'
    histories and states equal); on a machine with more cards, also
@@ -645,10 +646,12 @@ def check_resnet_fixed_shapes(dev) -> None:
 
 
 @contextlib.contextmanager
-def spying(modules, names, on_call):
+def spying(modules, names, on_call, keep=()):
     """While open, each call of a kernel wrapper of ``names`` that a module
     of ``modules`` holds runs as it is, then goes to ``on_call(name, args,
-    out)`` with its arguments bound to the wrapper's parameter names."""
+    out)`` with its arguments bound to the wrapper's parameter names; the
+    arguments named in ``keep`` (buffers the wrapper updates in place) are
+    cloned before the call and given as ``args["before"]``."""
     import inspect
 
     saved = [(m, n, getattr(m, n)) for m in modules for n in names
@@ -658,10 +661,12 @@ def spying(modules, names, on_call):
         sig = inspect.signature(fn)
 
         def wrapped(*args, **kwargs):
-            out = fn(*args, **kwargs)
             bound_args = sig.bind(*args, **kwargs)
             bound_args.apply_defaults()
-            on_call(n, dict(bound_args.arguments), out)
+            a = dict(bound_args.arguments)
+            before = {k: a[k].clone() for k in keep if k in a}
+            out = fn(*args, **kwargs)
+            on_call(n, dict(a, before=before) if keep else a, out)
             return out
         return wrapped
 
@@ -699,7 +704,9 @@ def checked_calls(checked):
     tiles of the batch at a time), as ``kernel_row`` holds the main paths'
     calls: equal, K6 within its counted bar (``up_compare`` at
     ``UP_SHARE_MAIN``, in each chunk); the first that disagrees raises.
-    ``checked`` gathers per kernel name the calls, the engine batches
+    Every call of K8a-K9b (a train step's) is held too
+    (``checked_bn_calls``). ``checked`` gathers per kernel name the
+    calls, the engine batches
     they came at, the largest |delta|, the differing and all elements,
     and the seconds the checks took."""
     from insarseg_torch import kernels as K
@@ -735,7 +742,8 @@ def checked_calls(checked):
         c["elements"] += nall
         c["seconds"] += time.perf_counter() - t0
 
-    with spying([unet_int8, resnet_int8], list(kernel_of), check):
+    with spying([unet_int8, resnet_int8], list(kernel_of), check), \
+            checked_bn_calls(checked):
         yield
 
 
@@ -1751,8 +1759,8 @@ def train_fit(dev) -> None:
         log(f"fit: {TRAIN_PRESET} (U-Net-CA base {BASE}, {size}^2 b{b}, "
             f"{TRAIN_STEPS} steps and {VAL_STEPS} validation batches an "
             f"epoch), 2 epochs in {time.perf_counter() - t0:.2f} s; "
-            f"kernel launches {launched} (the train path runs stock "
-            "PyTorch / cuDNN ops only)")
+            f"kernel launches {launched} (the DoubleConv epilogue's "
+            "K8a-K9b; the rest stock PyTorch / cuDNN ops)")
         log("history " + json.dumps(hist))
         losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
         if not np.all(np.isfinite(losses)):
@@ -2062,9 +2070,409 @@ def remat_on_card(dev) -> None:
         torch.backends.cudnn.deterministic = saved
 
 
-def train_path(dev, power_line: str, phase) -> None:
+# ---------------------------------------------------------------------------
+# 5b. the DoubleConv train epilogue's kernels (K8a / K8b / K9a / K9b)
+# ---------------------------------------------------------------------------
+
+# kernel name -> (its wrapper in insarseg_torch.kernels.bn_act, the JAX
+# site it replaces); the source is csrc/bn_act.cu
+BN_KERNELS = {
+    "bn_stats": ("bn_stats", "insarseg/ops/layers.py:231"),
+    "bn_apply_relu": ("bn_apply_relu", "insarseg/ops/layers.py:244"),
+    "bn_relu_grad_stats": ("bn_relu_grad_stats",
+                           "insarseg/ops/layers.py:231"),
+    "bn_relu_grad_apply": ("bn_relu_grad_apply",
+                           "insarseg/ops/layers.py:244"),
+}
+BN_OUTS = ("bn_apply_relu", "bn_relu_grad_apply")  # elementwise outputs
+# The bars of K8a-K9b against their plain versions on the same inputs.
+# K8a and K9a sum exact f64 terms in another order than torch's sum (block
+# partials, then the slices in order), so each half of their f64 buffers
+# is held within BN_SUM_BAR of its largest |value| (n u for 2^21 terms;
+# readings on an H100 below 1e-15), and the running statistics K8b derives
+# in f32 within BN_STAT_BAR; K8b and K9b compute each element as their
+# plain versions do, so on the same buffers a bf16 element may differ by
+# at most one bf16 ulp (judged no finer than at 2^-12 of the largest
+# |value|) and at most BN_SHARE of the elements may differ at all (0
+# measured of 1.3e9 on an H100); an f32 one within BN_F32_BAR
+# of the largest |value|.
+BN_SUM_BAR = 1e-10
+BN_STAT_BAR = 1e-6
+BN_F32_BAR = 1e-6
+BN_SHARE = 1e-6
+# the largest reading of each bar in this run: name -> |delta| / bar scale
+BN_WORST = {}
+# fixed shapes: (N, C, H, W, dtype, channels-last)
+BN_SHAPES = (
+    (8, 64, 512, 512, "bfloat16", False), (8, 64, 512, 512, "bfloat16", True),
+    (8, 1024, 32, 32, "bfloat16", False), (8, 1024, 32, 32, "bfloat16", True),
+    (8, 64, 128, 128, "float32", False), (8, 64, 128, 128, "float32", True),
+    (8, 1, 512, 512, "bfloat16", False), (8, 1, 256, 256, "float32", False),
+    (4, 5, 1, 1, "bfloat16", False), (4, 5, 1, 1, "float32", True),
+    (3, 48, 17, 19, "bfloat16", False), (3, 48, 17, 19, "bfloat16", True),
+    (3, 48, 17, 19, "float32", True), (2, 3, 9, 9, "bfloat16", True),
+    (2, 1024, 1, 1, "float32", False),
+)
+
+
+def bn_compare(name):
+    """The comparison of kernel ``name``'s result with its plain version's:
+    (max |delta|, differing elements, elements); raises past the bars."""
     import torch
 
+    def halves(got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        c = want.shape[0] // 2
+        err = 0.0
+        for part in (slice(0, c), slice(c, 2 * c), slice(2 * c, None)):
+            g, w = got[part].detach().double(), want[part].detach().double()
+            if not w.numel():
+                continue
+            e = float((g - w).abs().max())
+            ratio = e / max(float(w.abs().max()), 1e-30)
+            BN_WORST[name] = max(BN_WORST.get(name, 0.0), ratio)
+            if e > BN_SUM_BAR * float(w.abs().max()):
+                raise AssertionError(
+                    f"{name}: sums {e:.3g} apart, over {BN_SUM_BAR} x "
+                    f"{float(w.abs().max()):.3g}")
+            err = max(err, e)
+        return err, int((got != want).sum()), got.numel()
+
+    def elements(got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        g, w = got.detach().double(), want.detach().double()
+        d = (g - w).abs()
+        err = float(d.max()) if d.numel() else 0.0
+        big = float(w.abs().max()) if w.numel() else 0.0
+        nd = int((got != want).sum())
+        if got.numel():
+            BN_WORST[name + " share"] = max(
+                BN_WORST.get(name + " share", 0.0), nd / got.numel())
+        if got.dtype == torch.float32:
+            if err > BN_F32_BAR * big:
+                raise AssertionError(f"{name}: f32 {err:.3g} apart, over "
+                                     f"{BN_F32_BAR} x {big:.3g}")
+        else:
+            mag = w.abs().clamp_min(big * 2.0 ** -12)
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30)))
+                             - 7)
+            worst = float((d / ulp).max()) if d.numel() else 0.0
+            if worst > 1.0:
+                raise AssertionError(f"{name}: {worst:.3g} bf16 ulps apart")
+        if got.numel() and nd > BN_SHARE * got.numel():
+            raise AssertionError(f"{name}: {nd} of {got.numel()} elements "
+                                 f"differ, over the share {BN_SHARE}")
+        return err, nd, got.numel()
+
+    return elements if name in BN_OUTS else halves
+
+
+def bn_inputs(dev, n, c, h, w, dtype, channels_last, seed):
+    """Seeded y, bias, gamma, beta, running mean / var and dout."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(dtype)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device=dev) * scale + shift
+
+    y = draw(n, c, h, w, scale=2.0, shift=0.5).to(dt)
+    dout = draw(n, c, h, w).to(dt)
+    if channels_last:
+        y = y.contiguous(memory_format=torch.channels_last)
+        dout = dout.contiguous(memory_format=torch.channels_last)
+    return {"y": y, "dout": dout, "bias": draw(c, scale=0.5),
+            "gamma": draw(c, scale=0.2, shift=1.0),
+            "beta": draw(c, scale=0.3), "running_mean": draw(c, scale=0.1),
+            "running_var": draw(c, scale=0.1, shift=1.0).abs()}
+
+
+def bn_steps(a, eps=1e-5, momentum=0.1):
+    """Argument sets of the four kernels on one site's inputs ``a``, each
+    later one fed the kernels' own buffers (so a kernel and its plain
+    version see the same inputs)."""
+    from insarseg_torch.kernels import bn_act as B
+
+    y, bias, gamma, beta = a["y"], a["bias"], a["gamma"], a["beta"]
+    stats = B.bn_stats(y, bias)
+    gstats = B.bn_relu_grad_stats(a["dout"], y, bias, stats, gamma, beta, eps)
+    return {
+        "bn_stats": {"y": y, "bias": bias},
+        "bn_apply_relu": {"y": y, "bias": bias, "stats": stats,
+                          "gamma": gamma, "beta": beta,
+                          "running_mean": a["running_mean"],
+                          "running_var": a["running_var"], "eps": eps,
+                          "momentum": momentum},
+        "bn_relu_grad_stats": {"dy": a["dout"], "y": y, "bias": bias,
+                               "stats": stats, "gamma": gamma, "beta": beta,
+                               "eps": eps},
+        "bn_relu_grad_apply": {"dy": a["dout"], "y": y, "bias": bias,
+                               "stats": stats, "gstats": gstats,
+                               "gamma": gamma, "beta": beta, "eps": eps},
+    }
+
+
+IN_PLACE = ("running_mean", "running_var")
+
+
+def bn_check_call(name, args, out=None):
+    """Kernel ``name`` on ``args`` (run here unless ``out`` is given; then
+    ``args`` must hold the in-place buffers as they were before it ran,
+    under ``"before"``) against its plain version on copies of the same
+    inputs: the result, and for K8b the running statistics it updated.
+    Returns (max |delta|, differing, elements)."""
+    from insarseg_torch.kernels import bn_act as B
+
+    before = args.pop("before", None)
+    if out is None:
+        before = {k: args[k].clone() for k in IN_PLACE if k in args}
+        out = getattr(B, name)(**args)
+    before = before or {}
+    plain_args = dict(args, **{k: v.clone() for k, v in before.items()})
+    want = getattr(B, name + "_plain")(**plain_args)
+    res = bn_compare(name)(out, want)
+    for k in before:
+        err = float((args[k] - plain_args[k]).abs().max())
+        if err > BN_STAT_BAR * float(plain_args[k].abs().max()):
+            raise AssertionError(f"{name}: {k} {err:.3g} apart")
+    return res
+
+
+def check_bn_fixed_shapes(dev) -> None:
+    """K8a-K9b against their plain versions on the same inputs at fixed
+    shapes (NCHW and channels-last, C 1 / 3 / 5 / 48 / 64 / 1024, a 1x1 map,
+    an odd H*W, bf16 and f32), each kernel run twice and bit-equal to
+    itself."""
+    import torch
+    from insarseg_torch.kernels import bn_act as B
+
+    worst = {k: [0.0, 0, 0] for k in BN_KERNELS}
+    for i, (n, c, h, w, dtype, cl) in enumerate(BN_SHAPES):
+        a = bn_inputs(dev, n, c, h, w, dtype, cl, SEED + 70 + i)
+        steps = bn_steps(a)
+        for name, args in steps.items():
+            e, nd, ne = bn_check_call(name, dict(args))
+            wk = worst[name]
+            wk[0], wk[1], wk[2] = max(wk[0], e), wk[1] + nd, wk[2] + ne
+            keep = {k: args[k].clone() for k in IN_PLACE if k in args}
+            first = getattr(B, name)(**args)
+            for k, v in keep.items():
+                args[k].copy_(v)
+            second = getattr(B, name)(**args)
+            if not torch.equal(first, second):
+                raise AssertionError(f"{name} on {(n, c, h, w, dtype, cl)} "
+                                     "differs between two runs")
+        layout, vec, s = B.plan(a["y"])
+        log(f"  bn_act {n}x{c}x{h}x{w} {dtype} "
+            f"{'channels-last' if cl else 'NCHW'}: plan layout {layout} vec "
+            f"{vec} slices {s}; kernels == plain within the bars, two runs "
+            "bit-equal")
+        del a, steps
+    torch.cuda.synchronize()
+    log("K8a-K9b against their plain versions at fixed shapes (max |delta|, "
+        "differing, elements): " + json.dumps(worst) + "; largest readings "
+        "(sums: |delta| / max|value|; outputs: the differing share) "
+        + json.dumps(BN_WORST))
+
+
+@contextlib.contextmanager
+def checked_bn_calls(checked, record=None):
+    """While open, every call of K8a-K9b (through ``kernels/bn_act.py``, as
+    ``bn_relu_train`` makes them) is held against its plain version on the
+    same inputs (``bn_check_call``), into ``checked`` as ``checked_calls``
+    gathers; with ``record``, each call's arguments are kept there by
+    kernel name."""
+    from insarseg_torch.kernels import bn_act as B
+
+    def on_call(n, a, out):
+        t0 = time.perf_counter()
+        e, nd, ne = bn_check_call(n, dict(a), out)
+        c = checked.setdefault(n, {
+            "calls": 0, "batches": set(), "max_abs_err": 0.0,
+            "differing": 0, "elements": 0, "seconds": 0.0})
+        c["calls"] += 1
+        c["batches"].add(a["y"].shape[0])
+        c["max_abs_err"] = max(c["max_abs_err"], e)
+        c["differing"] += nd
+        c["elements"] += ne
+        c["seconds"] += time.perf_counter() - t0
+        if record is not None:
+            a.pop("before")
+            record.setdefault(n, []).append(a)
+
+    with spying([B], BN_KERNELS, on_call, keep=IN_PLACE):
+        yield
+
+
+def bn_cases(calls):
+    """Timing cases of K8a-K9b on the arguments one train step gave them,
+    with the library calls PyTorch's own batch norm runs the same work
+    with: ``batch_norm_stats`` (mean, invstd) for K8a,
+    ``batch_norm_elemt`` for K8b, ``batch_norm_backward_reduce`` for K9a
+    and ``batch_norm_backward_elemt`` for K9b (each on the biased t; no
+    ReLU)."""
+    import torch
+    from insarseg_torch.kernels import bn_act as B
+
+    cases = {}
+    for name, args in calls.items():
+        cases[name] = []
+        for a in args:
+            a = {k: v for k, v in a.items() if k != "before"}
+            y = a["y"]
+            n, c, h, w = y.shape
+            e = y.element_size()
+            t = (y + a["bias"].to(y.dtype)[:, None, None])
+            mean, invstd = torch.batch_norm_stats(t, 1e-5)
+            count = torch.full((1,), n * h * w, dtype=torch.int32,
+                               device=y.device)
+            gamma, beta = a.get("gamma"), a.get("beta")
+            reads = {"bn_stats": 1, "bn_apply_relu": 2,
+                     "bn_relu_grad_stats": 2, "bn_relu_grad_apply": 3}[name]
+            if name == "bn_stats":
+                lib = lambda t=t: torch.batch_norm_stats(t, 1e-5)  # noqa
+            elif name == "bn_apply_relu":
+                lib = lambda t=t, m=mean, s=invstd, g=gamma, b=beta: \
+                    torch.batch_norm_elemt(t, g, b, m, s, 1e-5)  # noqa
+            else:
+                dy = a["dy"]
+                sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(
+                    dy, t, mean, invstd, gamma, True, True, True)
+                if name == "bn_relu_grad_stats":
+                    lib = lambda dy=dy, t=t, m=mean, s=invstd, g=gamma: \
+                        torch.batch_norm_backward_reduce(
+                            dy, t, m, s, g, True, True, True)  # noqa
+                else:
+                    lib = lambda dy=dy, t=t, m=mean, s=invstd, g=gamma, \
+                        a1=sdy, a2=sdyx, k=count: \
+                        torch.batch_norm_backward_elemt(
+                            dy, t, m, s, g, a1, a2, k)  # noqa
+            kern = getattr(B, name)
+            plain = getattr(B, name + "_plain")
+
+            def run(fn, a=a):
+                b = dict(a)
+                for k in IN_PLACE:  # the module's statistics stay as they are
+                    if k in b:
+                        b[k] = b[k].clone()
+                return fn(**b)
+
+            layout = "channels-last" if B.layout_of(y) else "NCHW"
+            cases[name].append({
+                "shape": f"b{n} {c}x{h}x{w} {str(y.dtype)[6:]} {layout}",
+                "kernel": lambda run=run, kern=kern: run(kern),
+                "plain": lambda run=run, plain=plain: run(plain),
+                "compare": bn_compare(name), "lib": lib, "path": "train",
+                "ops": 6.0 * y.numel(), "peak": PEAK_F32,
+                "bytes": reads * y.numel() * e + 16 * c})
+    return cases
+
+
+def train_bn_kernels(dev, power_line) -> list:
+    """One bf16 U-Net-CA (base ``BASE``) train step at 512^2 b8 with the
+    launch counters set to 0 just before and read just after (the main
+    path of K8a-K9b), every K8a-K9b call of it held against its plain
+    version (``checked_bn_calls``); then each kernel timed on the tensors
+    that step gave it (``kernel_row``: device ms, plain, library, bound).
+    Returns the four kernel rows."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    state = create_state(model, seed=SEED, device=dev)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16)
+    data = synthetic_batch(BATCH, HW, seed=SEED + 32)
+    x = torch.from_numpy(data["image"]).to(dev)
+    m = torch.from_numpy(data["mask"]).to(dev)
+    step(state, x, m)
+    torch.cuda.synchronize()
+    checked, calls = {}, {}
+    K.reset_launches()
+    with checked_bn_calls(checked, calls):
+        step(state, x, m)
+    torch.cuda.synchronize()
+    launches = {k: K.LAUNCHES[k] for k in BN_KERNELS}
+    log(f"bf16 train step U-Net-CA base {BASE}, {HW}^2 b{BATCH}: K8a-K9b "
+        f"launches {launches}; every call held against its plain version "
+        + json.dumps(checked, default=sorted) + "; largest readings so far "
+        + json.dumps(BN_WORST))
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {k} never launched on the train "
+                                 "path")
+        if checked.get(k, {}).get("calls") != n:
+            raise AssertionError(f"{k}: {n} launches, "
+                                 f"{checked.get(k, {}).get('calls')} checked")
+    del state, step, model
+    log(f"each K8a-K9b call of that step timed on its tensors, on "
+        f"{power_line}:")
+    rows = []
+    for kname, (wrapper, replaces) in BN_KERNELS.items():
+        row = kernel_row(kname, "insarseg_torch/csrc/bn_act.cu", replaces,
+                         bn_cases({wrapper: calls[wrapper]})[wrapper])
+        row["launches"] = row["train_launches"] = launches[kname]
+        row["train_checked"] = checked[kname]["calls"]
+        row["train_differing_share"] = (checked[kname]["differing"]
+                                        / checked[kname]["elements"])
+        rows.append(row)
+    del calls
+    torch.cuda.empty_cache()
+    log("library site a step (bias add, cuDNN F.batch_norm(training=True), "
+        "F.relu), forward and backward: " + json.dumps(bn_library_site(dev)))
+    return rows
+
+
+def bn_library_site(dev) -> dict:
+    """The epilogue as stock PyTorch runs it at the bf16 512^2 b8 step's 18
+    BatchNorm sites: the bias add, ``F.batch_norm(training=True)`` (cuDNN)
+    and ``F.relu`` forward, and their backward, device ms a step."""
+    import torch
+    import torch.nn.functional as F
+
+    sites = []
+    for level in range(5):
+        c, hw = BASE * 2 ** level, HW // 2 ** level
+        sites += [(c, hw)] * (2 if level == 4 else 4)
+    fwd = bwd = 0.0
+    for i, (c, hw) in enumerate(sites):
+        y = torch.randn(BATCH, c, hw, hw, device=dev, dtype=torch.bfloat16)
+        bias = torch.randn(c, device=dev)
+        gamma = torch.ones(c, device=dev, requires_grad=True)
+        beta = torch.zeros(c, device=dev, requires_grad=True)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        y.requires_grad_(True)
+
+        def forward():
+            t = y + bias.to(y.dtype)[:, None, None]
+            return F.relu(F.batch_norm(t, rm, rv, gamma, beta, True, 0.1,
+                                       1e-5))
+
+        out = forward()
+        g = torch.randn_like(out)
+        fwd += device_ms(forward, reps=3)[0]
+        bwd += device_ms(lambda: torch.autograd.grad(
+            forward(), (y, gamma, beta), g), reps=3)[0] \
+            - device_ms(forward, reps=3)[0]
+        del y, out, g
+    return {"forward_ms": fwd, "backward_ms": bwd, "sites": len(sites)}
+
+
+def train_path(dev, power_line: str, phase) -> list:
+    """Phase 5; returns the rows of K8a-K9b."""
+    import torch
+
+    check_bn_fixed_shapes(dev)
+    phase("training: K8a-K9b against their plain versions at fixed shapes")
+    rows = train_bn_kernels(dev, power_line)
+    phase("training: K8a-K9b through a bf16 512^2 step, checked and timed")
     train_fit(dev)
     phase("training: fit, checkpoints, resume")
     # 5 steps a repeat at 128^2, 2 at 512^2 (a step there is ~310 ms and
@@ -2092,6 +2500,7 @@ def train_path(dev, power_line: str, phase) -> None:
     phase("training: bf16 steps and fit")
     remat_on_card(dev)
     phase("training: remat against no remat on the card")
+    return rows
 
 
 # The CLI phase: the commands users run, on files, through
@@ -2676,8 +3085,9 @@ def stream_path(dev, power_line: str):
 MESH_BATCH = 16  # the serving check's global batch: 8 tiles a replica
 MESH_TRAIN = (128, 8)  # U-Net-CA's train checks: 128^2, global b8
 MESH_LR = 0.1  # SGD: the update is linear in the summed gradient
-# the JAX package's own mesh bars (tests/test_parallel.py:67-79): the
-# loss's rtol, the parameters' and the BN statistics' atol; counts equal
+# the JAX package's own mesh bars (tests/test_parallel.py:67-79, one step
+# from equal parameters): the loss's rtol, the parameters' and the BN
+# statistics' atol; that step's counts equal
 MESH_BARS = (1e-5, 1e-4, 1e-5)
 MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
 MESH_CARD_TILES = 128  # tiles a card: the serving timing's engine batch
@@ -2780,11 +3190,13 @@ def _cpu_tree(tree):
     return tree
 
 
-def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR):
+def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR, starts=None):
     """One rank (or, without a group, one process) of U-Net-CA (``base``
     features, the seeded init) on ``device`` taking one SGD step on each
     global batch in turn, in f32 under ``cudnn.deterministic``: each
-    step's outputs and the state_dict after the last."""
+    step's outputs and the state_dict after each step. Given ``starts``,
+    step k first loads ``starts[k]`` (a state_dict; ``None`` keeps the
+    state it has)."""
     import torch
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.train.engine import create_state, make_train_step
@@ -2794,9 +3206,14 @@ def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR):
     state = create_state(model, seed=SEED, device=device)
     state.optimizer = torch.optim.SGD(model.parameters(), lr=lr)
     step = make_train_step(model, 2)
-    outs = [step(state, torch.from_numpy(b["image"]),
-                 torch.from_numpy(b["mask"])) for b in batches]
-    return _cpu_tree(outs), _cpu_tree(model.state_dict())
+    outs, states = [], []
+    for k, b in enumerate(batches):
+        if starts is not None and starts[k] is not None:
+            model.load_state_dict(starts[k])
+        outs.append(_cpu_tree(step(state, torch.from_numpy(b["image"]),
+                                   torch.from_numpy(b["mask"]))))
+        states.append(_cpu_tree(model.state_dict()))
+    return outs, states
 
 
 def mesh_bf16_rank(batch, base, device, steps: int = 3):
@@ -2848,32 +3265,46 @@ def mesh_gloo_rank(batches, fit_data, directory, base, device):
             "fit": mesh_fit_rank(*fit_data, directory, base, device)}
 
 
-def mesh_hold(got, want, label) -> None:
+def mesh_hold(got, batches, device, label) -> None:
     """A mesh's SGD steps (``mesh_sgd_rank``) against one process's at
-    ``MESH_BARS``: every step's loss, its counts equal, the parameters and
-    the BN statistics after the last."""
+    ``MESH_BARS``, each step one step from equal parameters: step k of
+    the one process on ``device`` starts from the mesh's state after step
+    k-1 (the first from the seeded init). Every step's loss and counts
+    (equal), the parameters and the BN statistics after it."""
     import torch
 
-    (g_outs, g_sd), (w_outs, w_sd) = got, want
+    g_outs, g_sds = got
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    w_outs, w_sds = mesh_sgd_rank(batches, BASE, device,
+                                  starts=[None] + g_sds[:-1])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     loss_rel = max(abs(float(g["loss"]) - float(w["loss"]))
                    / abs(float(w["loss"])) for g, w in zip(g_outs, w_outs))
-    counts = all(torch.equal(g[k], w[k]) for g, w in zip(g_outs, w_outs)
-                 for k in ("tp", "fp", "fn", "correct", "valid"))
+    keys = ("tp", "fp", "fn", "correct", "valid")
+    moved = [{k: (g[k] - w[k]).tolist() for k in keys
+              if not torch.equal(g[k], w[k])} for g, w in zip(g_outs, w_outs)]
     stats = ("running_mean", "running_var")
-    p_err = max(float((g_sd[k] - w_sd[k]).abs().max()) for k in w_sd
+    p_err = max(float((g_sd[k] - w_sd[k]).abs().max())
+                for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
                 if w_sd[k].is_floating_point() and not k.endswith(stats))
-    s_err = max(float((g_sd[k] - w_sd[k]).abs().max()) for k in w_sd
+    s_err = max(float((g_sd[k] - w_sd[k]).abs().max())
+                for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
                 if k.endswith(stats))
-    tracked = all(torch.equal(g_sd[k], w_sd[k]) for k in w_sd
+    tracked = all(torch.equal(g_sd[k], w_sd[k])
+                  for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
                   if k.endswith("num_batches_tracked"))
     log(f"  {label} vs one process (U-Net-CA base {BASE}, "
         f"{MESH_TRAIN[0]}^2 global b{MESH_TRAIN[1]}, {len(w_outs)} SGD "
-        f"{MESH_LR} f32 steps, cudnn.deterministic, TF32 off): loss rel "
-        f"{loss_rel:.3g} (bar {MESH_BARS[0]}), counts "
-        f"{'equal' if counts else 'DIFFER'}, parameters {p_err:.3g} (bar "
-        f"{MESH_BARS[1]}), BN statistics {s_err:.3g} (bar {MESH_BARS[2]})")
-    if not (loss_rel <= MESH_BARS[0] and counts and p_err <= MESH_BARS[1]
-            and s_err <= MESH_BARS[2] and tracked):
+        f"{MESH_LR} f32 steps, each from the mesh's parameters, "
+        f"cudnn.deterministic, TF32 off): loss rel {loss_rel:.3g} (bar "
+        f"{MESH_BARS[0]}), counts "
+        f"{'equal' if not any(moved) else 'moved ' + json.dumps(moved)}, "
+        f"parameters {p_err:.3g} (bar {MESH_BARS[1]}), BN statistics "
+        f"{s_err:.3g} (bar {MESH_BARS[2]})")
+    if not (loss_rel <= MESH_BARS[0] and not any(moved)
+            and p_err <= MESH_BARS[1] and s_err <= MESH_BARS[2]
+            and tracked):
         raise AssertionError(f"{label}: the mesh's steps differ from one "
                              "process's")
 
@@ -2899,15 +3330,11 @@ def mesh_training(dev) -> None:
     fit_data = ([synthetic_batch(b, size, seed=SEED + 10 + i)
                  for i in range(2)],
                 [synthetic_batch(b, size, seed=SEED + 20)])
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    want = mesh_sgd_rank(batches, BASE, dev)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     backend = default_backend([dev])
     t0 = time.perf_counter()
     (alone,) = launch(mesh_sgd_rank, 1, [dev], args=(batches, BASE, dev))
     log(f"  launch world 1 ({backend}): {time.perf_counter() - t0:.1f} s")
-    mesh_hold(alone, want, f"world 1 on {backend}")
+    mesh_hold(alone, batches, dev, f"world 1 on {backend}")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ranks = launch(mesh_gloo_rank, 2, [dev, dev],
@@ -2916,7 +3343,8 @@ def mesh_training(dev) -> None:
             f"{time.perf_counter() - t0:.1f} s")
         files = sorted(os.listdir(d))
     for r in ranks:
-        mesh_hold(r["sgd"], want, f"world 2 on gloo, rank {r['fit']['rank']}")
+        mesh_hold(r["sgd"], batches, dev,
+                  f"world 2 on gloo, rank {r['fit']['rank']}")
     losses = [r["bf16"] for r in ranks]
     log(f"  world 2 bf16 Adam steps on one global batch: losses {losses}")
     if losses[0] != losses[1] or not (np.all(np.isfinite(losses[0]))
@@ -3161,7 +3589,6 @@ def mesh_cards(power_line, checked) -> dict:
     backend = default_backend(mesh.devices)
     size, b = MESH_TRAIN
     hold = [synthetic_batch(b, size, seed=SEED + 80 + i) for i in range(2)]
-    want = mesh_sgd_rank(hold, BASE, first)
     one = mesh_step_rank("bfloat16", MESH_STEP_TILES, 5, 3, None,
                          synced=False)
     one_synced = mesh_step_rank("bfloat16", MESH_STEP_TILES, 5, 3, None)
@@ -3170,7 +3597,7 @@ def mesh_cards(power_line, checked) -> dict:
                                             3, hold))
     log(f"  launch world {n} ({backend}): {time.perf_counter() - t0:.1f} s")
     for i, r in enumerate(ranks):
-        mesh_hold(r["held"], want, f"world {n} on {backend}, rank {i}")
+        mesh_hold(r["held"], hold, first, f"world {n} on {backend}, rank {i}")
     r0 = ranks[0]
     ms1, msn = float(np.median(one["ms"])), float(np.median(r0["ms"]))
     ms1s = float(np.median(one_synced["ms"]))
@@ -3474,7 +3901,9 @@ def main(argv=None) -> int:
         return 0
 
     table = run(dev, power_line, phase)
-    train_path(dev, power_line, phase)
+    for row in table:
+        row["train_launches"] = 0
+    table += train_path(dev, power_line, phase)
     cli_launches, cli_checked = cli_path(power_line)
     for row in table:
         row["cli_launches"] = cli_launches.get(row["name"], 0)

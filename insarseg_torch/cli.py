@@ -33,12 +33,12 @@ Every card, as the JAX CLI uses every chip (``parallel/mesh.py``):
 ``train`` with ``--mesh-data N`` above 1, or -1 (the default) on a
 machine with more than one card, runs one process a card under
 ``torch.distributed`` (``launch``, NCCL). At the presets' batches four
-H100s train slower than one (``unet-channelattention`` x0.849,
-``pspnet-channelattention`` x0.722 a step, PERF.md §5): every rank reads
-the whole global batch and runs the synced BatchNorms' unfused passes;
-``--mesh-data 1`` trains on one card. ``eval`` over an engine,
-``predict`` and ``predict --stream`` serve over a mesh of the cards in one
-process (``eval``: the largest data axis that divides the batch,
+H100s train ``unet-channelattention`` x1.034-x1.175 as fast as one card
+a step and ``pspnet-channelattention`` x0.414-x0.990 (PERF.md §5; every
+rank reads the whole global batch); ``--mesh-data 1`` trains on one
+card, the faster choice for the ResNet families. ``eval`` over
+an engine, ``predict`` and ``predict --stream`` serve over a mesh of the
+cards in one process (``eval``: the largest data axis that divides the batch,
 ``_eval_mesh``; ``predict``: all of them, the default tile batch 128 a
 card). ``--mesh-data 1``, or ``--device cuda:K`` with the default -1,
 pins one card; ``--device cuda:K --mesh-data N`` takes N cards from K

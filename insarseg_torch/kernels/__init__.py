@@ -24,13 +24,25 @@ K6    ``up_concat_i8``             ``models/unet_int8.py::unet_int8_apply``
 K7    ``stem_pool_i8``             ``models/resnet_int8.py::
                                    resnet_int8_apply`` stem exit: 3x3/s2
                                    max-pool + requant to NHWC codes
+K8a   ``bn_stats``                 ``ops/layers.py`` conv bias add +
+                                   BatchNorm train moments (the DoubleConv
+                                   train epilogue)
+K8b   ``bn_apply_relu``            ``ops/layers.py`` BatchNorm apply +
+                                   running statistics, ``ops/blocks.py``
+                                   relu
+K9a   ``bn_relu_grad_stats``       their autodiff: the beta / gamma
+                                   gradients
+K9b   ``bn_relu_grad_apply``       their autodiff: the conv output's
+                                   gradient
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel (building the library at first use) or raises. Every
-kernel but K6 equals its plain version bit for bit; K6 sums on the tensor
-cores and is held to its plain version by a counted bar on its codes
-(``assert_up_codes_close``).
+int8 kernel but K6 equals its plain version bit for bit; K6 sums on the
+tensor cores and is held to its plain version by a counted bar on its codes
+(``assert_up_codes_close``). K8a-K9b (``kernels/bn_act.py``, the train
+path's, with the autograd function ``bn_relu_train``) sum in another
+order than their plain versions.
 """
 
 from insarseg_torch.kernels._lib import (
@@ -40,6 +52,17 @@ from insarseg_torch.kernels._lib import (
     reset_launches,
 )
 from insarseg_torch.kernels.block_i8 import se_residual_i8, se_residual_i8_plain
+from insarseg_torch.kernels.bn_act import (
+    bn_apply_relu,
+    bn_apply_relu_plain,
+    bn_relu_grad_apply,
+    bn_relu_grad_apply_plain,
+    bn_relu_grad_stats,
+    bn_relu_grad_stats_plain,
+    bn_relu_train,
+    bn_stats,
+    bn_stats_plain,
+)
 from insarseg_torch.kernels.conv_i8 import (
     conv3x3_i8,
     conv3x3_i8_plain,
@@ -88,4 +111,7 @@ __all__ = [
     "stem_pool_i8", "stem_pool_i8_plain", "tile_n", "pack_up_weight",
     "up_concat_i8", "up_concat_i8_plain", "assert_up_codes_close",
     "UP_SHARE_MAIN", "UP_SHARE_RANDOM", "UP_SHARE_TIES",
+    "bn_stats", "bn_stats_plain", "bn_apply_relu", "bn_apply_relu_plain",
+    "bn_relu_grad_stats", "bn_relu_grad_stats_plain", "bn_relu_grad_apply",
+    "bn_relu_grad_apply_plain", "bn_relu_train",
 ]

@@ -32,7 +32,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
-           "block_i8.cu", "sa_i8.cu", "up_i8.cu", "stem_i8.cu")
+           "block_i8.cu", "sa_i8.cu", "up_i8.cu", "stem_i8.cu",
+           "bn_act.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -49,6 +50,10 @@ LAUNCHES: Dict[str, int] = {
     "se_residual_i8": 0,
     "up_concat_i8": 0,
     "stem_pool_i8": 0,
+    "bn_stats": 0,
+    "bn_apply_relu": 0,
+    "bn_relu_grad_stats": 0,
+    "bn_relu_grad_apply": 0,
 }
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -68,6 +73,13 @@ _SIGNATURES = {
                                 _vp),
     "insarseg_up_concat_i8": (_vp,) * 5 + (_i,) * 7 + (_f, _vp),
     "insarseg_stem_pool_i8": (_vp, _vp, _i, _i, _i, _i, _i, _f, _vp),
+    "insarseg_bn_stats": (_vp,) * 4 + (_ll, _ll) + (_i,) * 5 + (_vp,),
+    "insarseg_bn_apply_relu": (_vp,) * 8 + (_ll, _ll, _i, _i, _f, _f, _f)
+    + (_i,) * 3 + (_vp,),
+    "insarseg_bn_relu_grad_stats": (_vp,) * 8 + (_ll, _ll, _i, _i, _f)
+    + (_i,) * 3 + (_vp,),
+    "insarseg_bn_relu_grad_apply": (_vp,) * 8 + (_ll, _ll, _i, _i, _f)
+    + (_i,) * 3 + (_vp,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,365 @@
+"""K8a ``bn_stats``, K8b ``bn_apply_relu``, K9a ``bn_relu_grad_stats``
+and K9b ``bn_relu_grad_apply``: the DoubleConv train epilogue, one
+``Conv2d(stop_bias_grad=train) -> BatchNorm2d(train) -> relu`` of the JAX
+package's train step (the conv's bias add, ``insarseg/ops/layers.py:121-
+127``; the BatchNorm moments and apply, ``:224-246``; the relu,
+``insarseg/ops/blocks.py:127-134``), forward and backward. Kernels:
+``insarseg_torch/csrc/bn_act.cu``.
+
+With ``cdt`` the compute dtype (the conv output's) and ``acc`` =
+``promote(cdt, f32)``:
+
+- K8a: ``t = cdt(y + cdt(bias))`` and the per-channel sums of t and t^2
+  in f64, then the count: one f64 buffer ``[sum t (C), sum t^2 (C), n]``;
+- K8b: from that buffer (all-reduced over the ranks when the BatchNorm is
+  synced): the JAX moment rule in acc, ``mean = acc(sum t * (1/n))``,
+  ``var = max(acc(sum t^2 * (1/n)) - mean^2, 0)``, ``a = rsqrt(var +
+  eps) * gamma``; the running statistics ``(1 - m) r + m (mean, var * n /
+  max(n - 1, 1))``; and ``relu(cdt((t - mean) * a + beta))``;
+- K9a: ``g = dout`` where the pre-ReLU cdt value is > 0 (else 0),
+  ``xhat = (t - mean) * rsqrt(var + eps)``: ``[sum g, sum g * xhat]`` in
+  f64 (the beta and gamma gradients);
+- K9b: ``dt = cdt(a * ((g - acc(sum g * (1/n))) - xhat * acc(sum g xhat
+  * (1/n))))`` from that buffer (all-reduced when synced).
+
+The sums are f64 (each term, t, t^2, g or g * xhat of f32 values, is
+exact there) and each mean rounds to acc once: sums taken in other
+orders (a kernel's and its plain version's, one card's and a mesh's,
+whose ranks add their buffers) then give the same means but where a sum
+lies within ~1e-16 of a rounding boundary. The JAX package reduces in
+f32; these sums are closer to the exact moments.
+
+The conv bias gets no gradient (the JAX ``stop_gradient``). Each
+``*_plain`` function is the kernel's formula in torch ops, in the kernel's
+order; on the card a kernel and its plain version differ only where their
+sums, taken in other orders, differ. :func:`bn_relu_train` is the
+``torch.autograd.Function`` over the four. A wrapper given a CPU (or meta)
+tensor runs its plain version; a CUDA tensor launches its kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from insarseg_torch.kernels._lib import (
+    check_cuda,
+    device_guard,
+    launch,
+    stream_of,
+)
+
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+# the plan: about this many blocks a launch (8 per SM of an H100), and at
+# least this many elements a slice
+TARGET_BLOCKS = 1056
+MIN_SLICE = 8192
+THREADS = 256
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector broadcast over (N, C, H, W)."""
+    return v[:, None, None]
+
+
+def _t(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The biased conv output in acc: ``cdt(y + cdt(bias))``."""
+    return (y + _col(bias.to(y.dtype))).to(_acc(y.dtype))
+
+
+def _terms(stats: torch.Tensor, gamma: torch.Tensor, eps: float, acc):
+    """n (f64), and in acc the mean, biased var, rsqrt(var + eps) and a =
+    rstd * gamma of a ``[sum t, sum t^2, n]`` buffer."""
+    c = gamma.shape[0]
+    n = stats[2 * c]
+    rn = 1.0 / n  # each mean is a sum times 1/n, as in the kernels
+    mean = (stats[:c] * rn).to(acc)
+    var = ((stats[c:2 * c] * rn).to(acc) - mean.square()).clamp_min(0)
+    rstd = torch.rsqrt(var + eps)
+    return n, mean, var, rstd, rstd * gamma.to(acc)
+
+
+def _sum64(t: torch.Tensor) -> torch.Tensor:
+    """The per-channel sums of t (N, C, H, W) in f64, summed along its
+    memory (NCHW or channels-last)."""
+    n, c = t.shape[:2]
+    t = t.to(torch.float64)
+    if t.is_contiguous():
+        return t.view(n, c, -1).sum(2).sum(0)
+    return t.permute(0, 2, 3, 1).reshape(-1, c).sum(0)
+
+
+def _masked(dy, y, bias, stats, gamma, beta, eps):
+    """(g, xhat, a, n) of the backward: the ReLU mask recomputed from t
+    (a product with the mask, the kernels' select for a finite dout, and
+    a quarter of a select's time on the CPU)."""
+    n, mean, _, rstd, a = _terms(stats, gamma, eps, _acc(y.dtype))
+    d = _t(y, bias) - _col(mean)
+    pre = (d * _col(a) + _col(beta.to(d.dtype))).to(y.dtype)
+    g = dy.to(d.dtype) * (pre > 0)
+    return g, d * _col(rstd), a, n
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def bn_stats_plain(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    t = _t(y, bias).to(torch.float64)
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    return torch.cat([_sum64(t), _sum64(t * t), t.new_full((1,), n)])
+
+
+def bn_apply_relu_plain(y, bias, stats, gamma, beta, running_mean,
+                        running_var, eps: float, momentum: float):
+    acc = _acc(y.dtype)
+    n, mean, var, _, a = _terms(stats, gamma, eps, acc)
+    with torch.no_grad():
+        unbias = (n / (n - 1).clamp_min(1)).to(acc)
+        running_mean.copy_((1.0 - momentum) * running_mean
+                           + momentum * mean.to(running_mean.dtype))
+        running_var.copy_((1.0 - momentum) * running_var
+                          + momentum * (var * unbias).to(running_var.dtype))
+    d = _t(y, bias) - _col(mean)
+    return torch.relu((d * _col(a) + _col(beta.to(d.dtype))).to(y.dtype))
+
+
+def bn_relu_grad_stats_plain(dy, y, bias, stats, gamma, beta, eps: float):
+    g, xhat, _, _ = _masked(dy, y, bias, stats, gamma, beta, eps)
+    g = g.to(torch.float64)
+    return torch.cat([_sum64(g), _sum64(g * xhat.to(torch.float64))])
+
+
+def bn_relu_grad_apply_plain(dy, y, bias, stats, gstats, gamma, beta,
+                             eps: float):
+    g, xhat, a, n = _masked(dy, y, bias, stats, gamma, beta, eps)
+    c = gamma.shape[0]
+    rn = 1.0 / n
+    mg, mgt = (gstats[:c] * rn).to(g.dtype), (gstats[c:] * rn).to(g.dtype)
+    return (_col(a) * ((g - _col(mg)) - xhat * _col(mgt))).to(y.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def layout_of(y: torch.Tensor) -> int:
+    """0 for NCHW memory, 1 for channels-last; anything else raises (a
+    tensor in both, as at C = 1 or a 1x1 map, is taken as NCHW)."""
+    if y.is_contiguous():
+        return 0
+    if y.is_contiguous(memory_format=torch.channels_last):
+        return 1
+    raise ValueError(f"bn_act: y must be NCHW or channels-last, got strides "
+                     f"{tuple(y.stride())}")
+
+
+def plan(y: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
+    """(layout, vec, S) of a launch over ``y`` (and ``others``, in the
+    same layout): 16-byte vectors when a plane (NCHW) or a row
+    (channels-last) is a whole number of them and every pointer is
+    16-byte aligned; S slices, from the shape alone, so the sums of one
+    tensor are the same at every call."""
+    n, c, h, w = y.shape
+    layout = layout_of(y)
+    per = 16 // y.element_size()
+    whole = (h * w if layout == 0 else c) % per == 0
+    vec = int(whole and all(t.data_ptr() % 16 == 0 for t in (y,) + others))
+    v = per if vec else 1
+    rows = n * h * w
+    if layout == 0:
+        s = min(math.ceil(TARGET_BLOCKS / c), math.ceil(rows / MIN_SLICE))
+    else:
+        cv = c // v
+        groups = math.ceil(cv / THREADS)
+        rows_a_pass = THREADS // min(cv, THREADS)
+        s = min(math.ceil(TARGET_BLOCKS / groups),
+                math.ceil(rows * min(cv, THREADS) * v / MIN_SLICE),
+                math.ceil(rows / rows_a_pass))
+    return layout, vec, max(1, s)
+
+
+def _cuda_args(name, y, bias, *vectors):
+    """The checks of a launch: y f32 or bf16 (N, C, H, W) on the card, the
+    per-channel vectors f32 and the sum buffers (``stats``, ``gstats``)
+    f64, each contiguous, aligned and on y's card."""
+    dev = y.device
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: y has dtype {y.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    if y.dim() != 4:
+        raise ValueError(f"{name}: y must be (N, C, H, W), got "
+                         f"{tuple(y.shape)}")
+    c = y.shape[1]
+    for label, v in (("bias", bias),) + vectors:
+        check_cuda(label, v, torch.float64 if label.endswith("stats")
+                   else torch.float32, dev)
+        if v.shape[0] < c:
+            raise ValueError(f"{name}: {label} holds {v.shape[0]} values for "
+                             f"{c} channels")
+
+
+def _sizes(y):
+    n, c, h, w = y.shape
+    return n, h * w, c
+
+
+def _is_plain(name: str, y: torch.Tensor) -> bool:
+    if y.device.type in ("cpu", "meta"):
+        return True
+    if y.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {y.device}")
+    return False
+
+
+def bn_stats(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K8a. y (N, C, H, W) the conv output without its bias, bias (C) f32
+    -> ``[sum t (C), sum t^2 (C), n]`` in f64, t = cdt(y + cdt(bias))."""
+    if _is_plain("bn_stats", y):
+        return bn_stats_plain(y, bias)
+    _cuda_args("bn_stats", y, bias)
+    layout, vec, s = plan(y)
+    n, hw, c = _sizes(y)
+    stats = y.new_empty(2 * c + 1, dtype=torch.float64)
+    ws = y.new_empty(s * 2 * c, dtype=torch.float64)
+    with device_guard(y.device):
+        launch("bn_stats", "insarseg_bn_stats", y.data_ptr(),
+               bias.data_ptr(), ws.data_ptr(), stats.data_ptr(), n, hw, c, s,
+               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+    return stats
+
+
+def bn_apply_relu(y, bias, stats, gamma, beta, running_mean, running_var,
+                  eps: float, momentum: float) -> torch.Tensor:
+    """K8b. ``relu(cdt((t - mean) * a + beta))`` in y's layout, and the
+    running statistics updated in place from ``stats``."""
+    if _is_plain("bn_apply_relu", y):
+        return bn_apply_relu_plain(y, bias, stats, gamma, beta, running_mean,
+                                   running_var, eps, momentum)
+    _cuda_args("bn_apply_relu", y, bias, ("stats", stats), ("gamma", gamma),
+               ("beta", beta), ("running_mean", running_mean),
+               ("running_var", running_var))
+    out = torch.empty_like(y)
+    layout, vec, s = plan(y, out)
+    n, hw, c = _sizes(y)
+    with device_guard(y.device):
+        launch("bn_apply_relu", "insarseg_bn_apply_relu", y.data_ptr(),
+               bias.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
+               beta.data_ptr(), running_mean.data_ptr(),
+               running_var.data_ptr(), out.data_ptr(), n, hw, c, s,
+               float(eps), float(1.0 - momentum), float(momentum),
+               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+    return out
+
+
+def _like(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The gradient in y's memory layout (a copy only when it differs)."""
+    fmt = torch.channels_last if layout_of(y) else torch.contiguous_format
+    return dy.contiguous(memory_format=fmt)
+
+
+def bn_relu_grad_stats(dy, y, bias, stats, gamma, beta,
+                       eps: float) -> torch.Tensor:
+    """K9a. ``[sum g (C), sum g * xhat (C)]`` in f64."""
+    if _is_plain("bn_relu_grad_stats", y):
+        return bn_relu_grad_stats_plain(dy, y, bias, stats, gamma, beta, eps)
+    _cuda_args("bn_relu_grad_stats", y, bias, ("stats", stats),
+               ("gamma", gamma), ("beta", beta))
+    dy = _like(dy, y)
+    layout, vec, s = plan(y, dy)
+    n, hw, c = _sizes(y)
+    gstats = y.new_empty(2 * c, dtype=torch.float64)
+    ws = y.new_empty(s * 2 * c, dtype=torch.float64)
+    with device_guard(y.device):
+        launch("bn_relu_grad_stats", "insarseg_bn_relu_grad_stats",
+               dy.data_ptr(), y.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+               gamma.data_ptr(), beta.data_ptr(), ws.data_ptr(),
+               gstats.data_ptr(), n, hw, c, s, float(eps),
+               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+    return gstats
+
+
+def bn_relu_grad_apply(dy, y, bias, stats, gstats, gamma, beta,
+                       eps: float) -> torch.Tensor:
+    """K9b. ``dt = cdt(a * ((g - acc(sum g / n)) - xhat * acc(sum g xhat /
+    n)))``, the gradient of the conv output, in y's layout."""
+    if _is_plain("bn_relu_grad_apply", y):
+        return bn_relu_grad_apply_plain(dy, y, bias, stats, gstats, gamma,
+                                        beta, eps)
+    _cuda_args("bn_relu_grad_apply", y, bias, ("stats", stats),
+               ("gstats", gstats), ("gamma", gamma), ("beta", beta))
+    dy = _like(dy, y)
+    dt = torch.empty_like(y)
+    layout, vec, s = plan(y, dy, dt)
+    n, hw, c = _sizes(y)
+    with device_guard(y.device):
+        launch("bn_relu_grad_apply", "insarseg_bn_relu_grad_apply",
+               dy.data_ptr(), y.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+               gstats.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+               dt.data_ptr(), n, hw, c, s, float(eps),
+               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+    return dt
+
+
+# ---------------------------------------------------------------------------
+# the autograd function
+# ---------------------------------------------------------------------------
+
+class _BNReLU(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y, bias, gamma, beta, running_mean, running_var, eps,
+                momentum, reduce):
+        stats = bn_stats(y, bias)
+        if reduce is not None:
+            stats = reduce(stats)
+        out = bn_apply_relu(y, bias, stats, gamma, beta, running_mean,
+                            running_var, eps, momentum)
+        ctx.save_for_backward(y, bias, stats, gamma, beta)
+        ctx.eps, ctx.reduce = eps, reduce
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, bias, stats, gamma, beta = ctx.saved_tensors
+        gstats = bn_relu_grad_stats(dout, y, bias, stats, gamma, beta,
+                                    ctx.eps)
+        c = gamma.shape[0]
+        # this rank's dbeta and dgamma (the step sums the ranks' gradients),
+        # copied before the all-reduce sums the buffer in place
+        copy = ctx.reduce is not None
+        dbeta = gstats[:c].to(beta.dtype, copy=copy)
+        dgamma = gstats[c:].to(gamma.dtype, copy=copy)
+        if ctx.reduce is not None:
+            gstats = ctx.reduce(gstats)
+        dy = bn_relu_grad_apply(dout, y, bias, stats, gstats, gamma, beta,
+                                ctx.eps) if ctx.needs_input_grad[0] else None
+        return (dy, None, dgamma if ctx.needs_input_grad[2] else None,
+                dbeta if ctx.needs_input_grad[3] else None,
+                None, None, None, None, None)
+
+
+def bn_relu_train(y: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, running_mean: torch.Tensor,
+                  running_var: torch.Tensor, eps: float, momentum: float,
+                  reduce: Reduce = None) -> torch.Tensor:
+    """A train-mode ``relu(BatchNorm2d(y + bias))`` with the JAX package's
+    moments (K8a, K8b forward; K9a, K9b backward). ``y`` (N, C, H, W) is
+    the conv output without its bias, NCHW or channels-last; ``bias`` the
+    conv bias (no gradient); ``gamma`` / ``beta`` the BatchNorm's affine
+    parameters; the running statistics are updated in place. ``reduce``
+    sums a buffer over the ranks in place and returns it (None on one
+    process): called on K8a's buffer in the forward pass and on K9a's in
+    the backward pass, so the moments and the input gradient are the
+    global batch's, and the running variance's factor comes from the
+    global count."""
+    return _BNReLU.apply(y, bias.detach(), gamma, beta, running_mean,
+                         running_var, eps, momentum, reduce)

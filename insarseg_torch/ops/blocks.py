@@ -3,9 +3,11 @@
 - :class:`DoubleConv` and :class:`SELayer` (U-Net): the Sequential indices
   reproduce the reference state_dict names ``double_conv.{0,1,3,4,6}``
   (conv, BN, ReLU, conv, BN, ReLU, SE) and ``fc.{0,2}`` (Linear, ReLU,
-  Linear; no bias, reduction 16); in train mode the two convs' biases get
-  no gradient (:class:`BNFedConv2d`), and with ``remat`` the block's
-  activations are recomputed in the backward pass
+  Linear; no bias, reduction 16); in train mode each conv -> BN -> ReLU
+  runs as the conv without its bias (:class:`BNFedConv2d`) and the fused
+  epilogue ``kernels/bn_act.py::bn_relu_train`` (the bias added there,
+  with no gradient; the JAX package's moments), and with ``remat`` the
+  block's activations are recomputed in the backward pass
   (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
 - :class:`SEBlock` (FCN-CA bottlenecks): the same squeeze-excite with a
   bias-free 1x1-conv MLP, ``fc.{0,2}``;
@@ -26,9 +28,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from insarseg_torch.kernels.bn_act import bn_relu_train
 from insarseg_torch.ops.layers import (
     Conv2d,
     Linear,
+    MomentBatchNorm2d,
     follow,
     global_avg_pool,
     global_max_pool,
@@ -58,19 +62,27 @@ class BNFedConv2d(Conv2d):
     ``Conv2d(stop_bias_grad=train)``, ``insarseg/ops/layers.py:80-89``). In
     train mode BN subtracts the batch mean, so a per-channel shift cancels
     and the bias's gradient is exactly zero; autograd would give float
-    noise (~1e-8) instead, on which Adam takes full-size steps. So in train
-    mode the conv uses the detached bias, and the bias gets no gradient
-    and keeps its value; the state_dict names are ``nn.Conv2d``'s."""
+    noise (~1e-8) instead, on which Adam takes full-size steps. So a
+    train-mode :class:`DoubleConv` calls it with ``with_bias=False`` and
+    adds the bias, detached, in its fused BatchNorm epilogue: the bias
+    gets no gradient and keeps its value. The state_dict names are
+    ``nn.Conv2d``'s."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = self.bias
-        if self.training and bias is not None:
-            bias = bias.detach()
-        return self._conv_forward(x, follow(x, self.weight), follow(x, bias))
+    def forward(self, x: torch.Tensor,
+                with_bias: bool = True) -> torch.Tensor:
+        return self._conv_forward(x, follow(x, self.weight),
+                                  follow(x, self.bias) if with_bias else None)
 
 
 class DoubleConv(nn.Module):
     """(Conv3x3 same-pad -> BN -> ReLU) x2, optional SE tail.
+
+    In train mode each conv runs without its bias and its BN -> ReLU is
+    ``bn_relu_train`` (kernels K8a / K8b forward, K9a / K9b backward on
+    the card; the bias added there with no gradient, the JAX package's
+    moment rule, the running statistics and ``num_batches_tracked``
+    updated; over the ranks when the BN is ``synced``). Eval mode runs the
+    Sequential as it is.
 
     With ``remat`` a train-mode forward under autograd runs in
     ``torch.utils.checkpoint`` (``use_reentrant=False``): its activations
@@ -96,20 +108,34 @@ class DoubleConv(nn.Module):
             layers.append(SELayer(out_channels))
         self.double_conv = nn.Sequential(*layers)
 
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        seq = self.double_conv
+        for conv, bn in ((seq[0], seq[1]), (seq[3], seq[4])):
+            reduce = bn.ranks_sum() if isinstance(bn, MomentBatchNorm2d) \
+                else None
+            x = bn_relu_train(conv(x, with_bias=False), conv.bias, bn.weight,
+                              bn.bias, bn.running_mean, bn.running_var,
+                              bn.eps, bn.momentum, reduce)
+            bn.num_batches_tracked.add_(1)
+        return seq[6](x) if len(seq) > 6 else x
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        return self._train(x) if self.training else self.double_conv(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return self.double_conv(x)
+            return self._run(x)
         first = [True]
 
         def run(t: torch.Tensor) -> torch.Tensor:
             if first[0]:
                 first[0] = False
-                return self.double_conv(t)
+                return self._run(t)
             # the recompute may stop early (it raises once the tensors the
             # backward needs are back), so the statistics go back in any case
             kept = {k: v.clone() for k, v in self.named_buffers()}
             try:
-                return self.double_conv(t)
+                return self._run(t)
             finally:
                 with torch.no_grad():
                     for k, v in self.named_buffers():

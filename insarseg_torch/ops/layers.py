@@ -96,6 +96,11 @@ class _AllReduceSum(torch.autograd.Function):
         return g
 
 
+def _ranks_sum(t: torch.Tensor) -> torch.Tensor:
+    dist.all_reduce(t)
+    return t
+
+
 class MomentBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode statistics are the JAX
     package's (``insarseg/ops/layers.py::BatchNorm2d``): the batch mean
@@ -148,10 +153,18 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
             + self.bias.to(acc)[:, None, None]
         return y.to(x.dtype)
 
+    def ranks_sum(self):
+        """When this BatchNorm is ``synced`` inside a process group, a
+        function that sums a tensor over the ranks in place and returns
+        it; else None (the moments are this process's batch's)."""
+        if self.synced and dist.is_available() and dist.is_initialized():
+            return _ranks_sum
+        return None
+
     def _moments(self, xf: torch.Tensor):
         """The batch's mean and biased variance per channel, and the
         running variance's factor ``n / max(n - 1, 1)``."""
-        if self.synced and dist.is_available() and dist.is_initialized():
+        if self.ranks_sum() is not None:
             c = xf.shape[1]
             sums = torch.cat([xf.sum(dim=(0, 2, 3)),
                               xf.square().sum(dim=(0, 2, 3)),

@@ -16,7 +16,13 @@ channels-last input, odd H and W, W not a multiple of 8 or 16, three
 column spans, b1, partial channel groups. Outputs must be exactly equal,
 except K6's, which sums on the tensor cores in its own order and is held
 by a counted bar (``kernels.assert_up_codes_close``). A warm int8 forward
-of each engine family must not synchronise the stream.
+of each engine family must not synchronise the stream. The DoubleConv
+train epilogue K8a-K9b (``kernels/bn_act.py``) at NCHW and channels-last,
+C 1 / 3 / 64, a 1x1 map and an odd H*W, bf16 and f32: K8a's and K9a's
+f64 sums within 1e-10 of their largest value (another order), K8b and K9b
+on the same buffers equal to their plain versions, every kernel equal
+to itself on a second run; a train-mode ``DoubleConv`` on the card
+launches all four and never a plain version.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -647,3 +653,71 @@ def test_train_step_never_synchronises_and_matches_the_cpu(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+BN_CASES = [(2, 64, 32, 32), (3, 48, 17, 19), (4, 5, 1, 1), (2, 1, 64, 64),
+            (2, 3, 9, 9)]
+
+
+def _bn_close(got, want):
+    c = want.shape[0] // 2
+    for part in (slice(0, c), slice(c, 2 * c), slice(2 * c, None)):
+        w = want[part]
+        if w.numel():
+            torch.testing.assert_close(got[part], w, rtol=0,
+                                       atol=1e-10 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("n,c,h,w", BN_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_bn_act_equals_plain(dev, n, c, h, w, dtype, layout):
+    from insarseg_torch.kernels import bn_act as B
+
+    g = torch.Generator(device=dev).manual_seed(n + c + h + w)
+    y = (torch.randn(n, c, h, w, generator=g, device=dev) * 2 + 0.5) \
+        .to(dtype)
+    dy = torch.randn(n, c, h, w, generator=g, device=dev).to(dtype)
+    if layout == "channels_last":
+        y = y.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    bias, beta = (torch.randn(c, generator=g, device=dev) for _ in range(2))
+    gamma = torch.rand(c, generator=g, device=dev) + 0.5
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    stats = B.bn_stats(y, bias)
+    _bn_close(stats, B.bn_stats_plain(y, bias))
+    rm2, rv2 = rm.clone(), rv.clone()
+    out = B.bn_apply_relu(y, bias, stats, gamma, beta, rm, rv, 1e-5, 0.1)
+    assert torch.equal(out, B.bn_apply_relu_plain(
+        y, bias, stats, gamma, beta, rm2, rv2, 1e-5, 0.1))
+    assert torch.equal(rm, rm2) and torch.equal(rv, rv2)
+    assert B.layout_of(out) == B.layout_of(y)
+    gs = B.bn_relu_grad_stats(dy, y, bias, stats, gamma, beta, 1e-5)
+    _bn_close(gs, B.bn_relu_grad_stats_plain(dy, y, bias, stats, gamma, beta,
+                                             1e-5))
+    dt = B.bn_relu_grad_apply(dy, y, bias, stats, gs, gamma, beta, 1e-5)
+    assert torch.equal(dt, B.bn_relu_grad_apply_plain(
+        dy, y, bias, stats, gs, gamma, beta, 1e-5))
+    assert torch.equal(stats, B.bn_stats(y, bias))
+    assert torch.equal(gs, B.bn_relu_grad_stats(dy, y, bias, stats, gamma,
+                                                beta, 1e-5))
+
+
+def test_train_double_conv_launches_the_kernels(dev, monkeypatch):
+    from insarseg_torch.kernels import bn_act as B
+    from insarseg_torch.ops.blocks import DoubleConv
+
+    for name in ("bn_stats_plain", "bn_apply_relu_plain",
+                 "bn_relu_grad_stats_plain", "bn_relu_grad_apply_plain"):
+        monkeypatch.setattr(B, name, pytest.fail)
+    m = DoubleConv(3, 32, use_se=True).to(dev).train()
+    x = torch.randn(2, 3, 16, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    names = ("bn_stats", "bn_apply_relu", "bn_relu_grad_stats",
+             "bn_relu_grad_apply")
+    before = {k: K.LAUNCHES[k] for k in names}
+    m(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in names} == \
+        dict.fromkeys(names, 2)
+    assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()

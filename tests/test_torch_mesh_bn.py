@@ -11,7 +11,15 @@ process. The one exception to the f32 bar: the input gradient of the 1x1
 case, two values a channel, whose ``E[x^2] - E[x]^2`` variance leaves
 f32 a few significant digits whatever the summation order (it measured
 1.5e-5 of a largest 0.044 here), is held within 1e-3 of its largest
-value; in f64 the same case holds at 1e-12."""
+value; in f64 the same case holds at 1e-12.
+
+The DoubleConv's fused train epilogue (``kernels/bn_act.py::
+bn_relu_train`` with ``MomentBatchNorm2d.ranks_sum``, the bias added
+inside, the ReLU after) runs on the same 2 ranks in the same launch and
+is held to the synced ``MomentBatchNorm2d`` then ReLU on ``x + bias``,
+rank by rank, and its rows to one process's fused epilogue over the
+global batch, at the same bars (the 1x1 f32 input gradient's exception
+too: there the module's autograd is the imprecise side)."""
 
 import pytest
 import torch
@@ -34,7 +42,8 @@ def _case(shape, dtype, moment):
     return x, gy, dtype, moment
 
 
-CASES = [(s, d, m) for s in SHAPES for d in DTYPES for m in (False, True)]
+CASES = [(s, d, m) for s in SHAPES for d in DTYPES
+         for m in (False, True, "fused")]
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +51,14 @@ def runs():
     torch.set_num_threads(1)
     cases = [_case(SHAPES[s], DTYPES[d][0], m) for s, d, m in CASES]
     ranks = launch(R.bn_cases, 2, ["cpu", "cpu"], args=(cases,))
-    return {c: ([r[i] for r in ranks], R.bn_case(*cases[i]))
+    return {c: ([r[i] for r in ranks], R.bn_cases([cases[i]])[0])
             for i, c in enumerate(CASES)}
+
+
+def _bar(shape, dtype, key, want):
+    if (shape, dtype, key) == ("b2-1x1", "f32", "gx"):
+        return 1e-3 * float(want.abs().max())
+    return DTYPES[dtype][1]
 
 
 @pytest.mark.parametrize("moment", [False, True],
@@ -55,9 +70,7 @@ def test_two_ranks_equal_the_global_batch(runs, shape, dtype, moment):
     tol = DTYPES[dtype][1]
     got = {k: torch.cat([r[k] for r in ranks]) for k in ("y", "gx")}
     for k in KEYS:
-        bar = tol
-        if (shape, dtype, k) == ("b2-1x1", "f32", "gx"):
-            bar = 1e-3 * float(want[k].abs().max())
+        bar = _bar(shape, dtype, k, want[k])
         for i, r in enumerate(ranks):
             g = got[k] if k in got else r[k]
             assert g.dtype == want[k].dtype, k
@@ -68,6 +81,26 @@ def test_two_ranks_equal_the_global_batch(runs, shape, dtype, moment):
         # the bias; the global batch holds two
         bias = torch.linspace(-0.2, 0.2, 6, dtype=want["y"].dtype)
         assert (got["y"][:, :, 0, 0] - bias).abs().min() > 0.1
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_fused_epilogue_on_two_ranks_equals_the_synced_batchnorm(
+        runs, shape, dtype):
+    ranks, alone = runs[(shape, dtype, "fused")]
+    got = {k: torch.cat([r["fused"][k] for r in ranks]) for k in ("y", "gx")}
+    for k in KEYS:
+        for i, r in enumerate(ranks):
+            want = r["moment"][k]
+            assert r["fused"][k].dtype == want.dtype, k
+            torch.testing.assert_close(
+                r["fused"][k], want, rtol=0,
+                atol=_bar(shape, dtype, k, want), msg=f"{k} (rank {i})")
+            g = got[k] if k in got else r["fused"][k]
+            torch.testing.assert_close(
+                g, alone["fused"][k], rtol=0,
+                atol=_bar(shape, dtype, k, alone["fused"][k]),
+                msg=f"{k} (rank {i}) against one process")
 
 
 def test_sync_batchnorm_keeps_parameters_and_names():

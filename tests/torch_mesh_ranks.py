@@ -6,6 +6,7 @@ They import torch and the port only, so a rank starts without JAX."""
 import torch
 from torch import nn
 
+from insarseg_torch.kernels.bn_act import bn_relu_train
 from insarseg_torch.ops.layers import MomentBatchNorm2d
 from insarseg_torch.parallel import mesh as P
 from insarseg_torch.train import engine as TE
@@ -50,8 +51,43 @@ def bn_case(x: torch.Tensor, gy: torch.Tensor, dtype: torch.dtype,
                  "rv": sync.running_var})
 
 
+def fused_case(x: torch.Tensor, gy: torch.Tensor, dtype: torch.dtype):
+    """``relu(BN(x + bias))`` of a synced ``MomentBatchNorm2d`` two ways
+    on this rank's rows: the fused epilogue (``bn_relu_train`` with the
+    hook DoubleConv gives it, ``MomentBatchNorm2d.ranks_sum``) and the
+    module itself under autograd. Returns ``{"fused": ..., "moment": ...}``, each as
+    :func:`bn_case` returns it."""
+    c = x.shape[1]
+    bias = torch.linspace(-0.3, 0.3, c, dtype=dtype)
+    rows = P.rows_of(len(x))
+    out = {}
+    for kind in ("fused", "moment"):
+        bn = MomentBatchNorm2d(c).to(dtype)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, c))
+        holder = P.sync_batchnorm(nn.Sequential(bn))
+        sync = holder[0]
+        xl = x[rows].to(dtype).requires_grad_(True)
+        if kind == "fused":
+            y = bn_relu_train(xl, bias, sync.weight, sync.bias,
+                              sync.running_mean, sync.running_var, sync.eps,
+                              sync.momentum, sync.ranks_sum())
+        else:
+            y = torch.relu(holder(xl + bias[:, None, None]))
+        (y * gy[rows].to(dtype)).sum().backward()
+        P.all_reduce_grads(holder.parameters())
+        out[kind] = _cpu({"y": y, "gx": xl.grad, "gw": sync.weight.grad,
+                          "gb": sync.bias.grad, "rm": sync.running_mean,
+                          "rv": sync.running_var})
+    return out
+
+
 def bn_cases(cases):
-    return [bn_case(*c) for c in cases]
+    """Each case's :func:`bn_case`, or :func:`fused_case` where its
+    ``moment`` is ``"fused"``."""
+    return [fused_case(*c[:3]) if c[3] == "fused" else bn_case(*c)
+            for c in cases]
 
 
 # ---------------------------------------------------------------------------
