@@ -103,7 +103,15 @@ only (no JAX, nothing of ``insarseg``) and:
    the backward pass) at 512^2 b8 in f32 and bf16 beside the step without
    it (ms and peak memory), and remat against no remat on the card under
    ``cudnn.deterministic`` (held to the difference two identical steps
-   without remat show, 0 if they agree bit for bit);
+   without remat show, 0 if they agree bit for bit); before all that,
+   K8a-K9b (the DoubleConv train epilogue): their registers, spills,
+   resident blocks and bytes in flight an SM (``bn_kernel_info``), their
+   results against their plain versions at fixed shapes, and every call of
+   a bf16 512^2 b8 step checked, then timed on its tensors (each call's
+   line with dout's layout, whether ``_like`` copied it and the kernels
+   the wrapper launched; the sums by level).
+   ``python3 chip_smoke.py --only train`` builds the kernels and runs
+   this phase alone;
 6. runs the commands users run (``insarseg_torch.cli``, on the card) on
    files, the ``cli`` phase: a synthetic VOC tree (``make_synthetic_voc``)
    in a temporary directory; ``train --preset unet-channelattention``
@@ -340,6 +348,21 @@ CARD_VS_CPU_AS_IS = {("unet", "channel"): (0.999, 0.995),
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def sass_text(lib=None) -> str:
+    """The SASS of the kernels' library, or of the shared library ``lib``
+    (``cuobjdump --dump-sass``)."""
+    from pathlib import Path
+
+    from insarseg_torch import kernels as K
+    from insarseg_torch.kernels import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    lib = lib or Path(K.build_info["dir"]) / _lib.LIB_NAME
+    return subprocess.run([str(tool), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def check_sass() -> None:
     """K1, K5a and K6 must run on the tensor cores: every conv kernel of
     the library has int8 tensor-core MMA instructions in its SASS (IGMMA,
@@ -347,18 +370,9 @@ def check_sass() -> None:
     (``__dp4a``); every K6 kernel (``up_i8.cu``) has bf16 ``wgmma``
     instructions (HGMMA)."""
     import re
-    from pathlib import Path
 
-    from insarseg_torch import kernels as K
-    from insarseg_torch.kernels import _lib
-
-    tool = Path(_lib._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "--dump-sass", str(Path(K.build_info["dir"])
-                                       / _lib.LIB_NAME)],
-        capture_output=True, text=True, timeout=300, check=True).stdout
     counts, name, ops = {}, None, set()
-    for line in sass.splitlines():
+    for line in sass_text().splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
@@ -758,7 +772,7 @@ def kernel_row(name, source, replaces, cases):
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0,
            "b2b": 0.0, "host_us": 0.0}
     err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
-    by_path = {}
+    by_path, bound_by_path = {}, {}
     has_lib = True
     n_diff = n_all = 0
     for c in cases:
@@ -770,12 +784,14 @@ def kernel_row(name, source, replaces, cases):
         bms, by = bound(c["ops"], c["bytes"], c.get("peak", PEAK_OPS))
         lms = None if c["lib"] is None else device_ms(c["lib"], reps=5)[0]
         by_path[c["path"]] = by_path.get(c["path"], 0.0) + ms
+        bound_by_path[c["path"]] = bound_by_path.get(c["path"], 0.0) + bms
         log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms device, "
             f"{hus:.1f} us host, {b2b:.4f} ms back to back, plain "
             f"{pms:.4f} ms, "
             f"library {'-' if lms is None else f'{lms:.4f}'} ms, "
             f"bound {bms:.4f} ms ({by})"
-            + (f", {nd} of {n} codes differ" if nd else ""))
+            + (f", {nd} of {n} codes differ" if nd else "")
+            + (f"; {c['note']}" if c.get("note") else ""))
         tot["ms"] += ms
         tot["host_us"] += hus
         tot["b2b"] += b2b
@@ -795,7 +811,8 @@ def kernel_row(name, source, replaces, cases):
             "host_us": tot["host_us"] / len(cases),
             "back_to_back_ms": tot["b2b"],
             "differing_share": n_diff / n_all if n_all else 0.0,
-            "calls_timed": len(cases), "ms_by_path": by_path}
+            "calls_timed": len(cases), "ms_by_path": by_path,
+            "bound_ms_by_path": bound_by_path}
 
 
 # kernel name -> (its wrapper in insarseg_torch.kernels, source, the JAX
@@ -2268,10 +2285,12 @@ def check_bn_fixed_shapes(dev) -> None:
                 raise AssertionError(f"{name} on {(n, c, h, w, dtype, cl)} "
                                      "differs between two runs")
         layout, vec, s = B.plan(a["y"])
+        r = B.reduce_plan(a["y"], a["dout"])
         log(f"  bn_act {n}x{c}x{h}x{w} {dtype} "
-            f"{'channels-last' if cl else 'NCHW'}: plan layout {layout} vec "
-            f"{vec} slices {s}; kernels == plain within the bars, two runs "
-            "bit-equal")
+            f"{'channels-last' if cl else 'NCHW'}: K8b / K9b plan layout "
+            f"{layout} vec {vec} slices {s}; K8a / K9a vec {r.vec} groups "
+            f"{r.groups} slices {r.slices} of {r.per}; kernels == plain "
+            "within the bars, two runs bit-equal")
         del a, steps
     torch.cuda.synchronize()
     log("K8a-K9b against their plain versions at fixed shapes (max |delta|, "
@@ -2307,6 +2326,38 @@ def checked_bn_calls(checked, record=None):
 
     with spying([B], BN_KERNELS, on_call, keep=IN_PLACE):
         yield
+
+
+def bn_kernel_launches() -> int:
+    """The kernels ``csrc/bn_act.cu``'s entry points have launched in this
+    process (the library's own host counter)."""
+    import ctypes
+
+    from insarseg_torch.kernels import _lib
+
+    count = ctypes.c_int()
+    _lib.load_library().insarseg_bn_kernel_launches(ctypes.addressof(count))
+    return count.value
+
+
+def memory_format(t) -> str:
+    import torch
+
+    if t.is_contiguous():
+        return "NCHW"
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return "channels-last"
+    return "strided"
+
+
+def copied_by_like(dy, y) -> bool:
+    """Whether ``kernels/bn_act.py`` copies ``dy`` into y's layout before
+    a backward kernel reads it."""
+    import torch
+    from insarseg_torch.kernels import bn_act as B
+
+    fmt = torch.channels_last if B.layout_of(y) else torch.contiguous_format
+    return not dy.is_contiguous(memory_format=fmt)
 
 
 def bn_cases(calls):
@@ -2363,11 +2414,21 @@ def bn_cases(calls):
                 return fn(**b)
 
             layout = "channels-last" if B.layout_of(y) else "NCHW"
+            first = bn_kernel_launches()
+            run(kern)
+            note = (f"kernels launched a call "
+                    f"{bn_kernel_launches() - first}")
+            if "dy" in a:
+                note = (f"dout {memory_format(a['dy'])} strides "
+                        f"{tuple(a['dy'].stride())}, copied by _like: "
+                        f"{'yes' if copied_by_like(a['dy'], y) else 'no'}; "
+                        + note)
             cases[name].append({
                 "shape": f"b{n} {c}x{h}x{w} {str(y.dtype)[6:]} {layout}",
                 "kernel": lambda run=run, kern=kern: run(kern),
                 "plain": lambda run=run, plain=plain: run(plain),
-                "compare": bn_compare(name), "lib": lib, "path": "train",
+                "compare": bn_compare(name), "lib": lib,
+                "path": f"train C{c} {h}x{w}", "note": note,
                 "ops": 6.0 * y.numel(), "peak": PEAK_F32,
                 "bytes": reads * y.numel() * e + 16 * c})
     return cases
@@ -2423,6 +2484,11 @@ def train_bn_kernels(dev, power_line) -> list:
         row["train_differing_share"] = (checked[kname]["differing"]
                                         / checked[kname]["elements"])
         rows.append(row)
+    log("K8a-K9b by level of the step (device ms / bound ms, summed over "
+        "the level's calls): " + json.dumps({
+            r["name"]: {p: [ms, r["bound_ms_by_path"][p]]
+                        for p, ms in r["ms_by_path"].items()}
+            for r in rows}))
     del calls
     torch.cuda.empty_cache()
     log("library site a step (bias add, cuDNN F.batch_norm(training=True), "
@@ -2465,10 +2531,71 @@ def bn_library_site(dev) -> dict:
     return {"forward_ms": fwd, "backward_ms": bwd, "sites": len(sites)}
 
 
+# insarseg_bn_kernel_info's kernels, by index
+BN_INFO = ("K8a bf16 channels-last", "K9a bf16 channels-last",
+           "K8a f32 NCHW", "K9a f32 NCHW", "K8a bf16 NCHW", "K9a bf16 NCHW",
+           "K8a f32 channels-last", "K9a f32 channels-last",
+           "K8b bf16 channels-last", "K9b bf16 channels-last",
+           "K8b f32 NCHW", "K9b f32 NCHW")
+
+
+def bn_kernel_info() -> dict:
+    """K8a-K9b's resources on this card, from the CUDA runtime: registers
+    and local-memory (spill) bytes a thread, static shared bytes and
+    threads a block, resident blocks an SM, and the bytes of device memory
+    in flight an SM when every resident thread has its loads of one trip
+    out."""
+    import ctypes
+
+    from insarseg_torch.kernels import _lib
+
+    lib = _lib.load_library()
+    info = {}
+    for k, label in enumerate(BN_INFO):
+        out = (ctypes.c_int * 6)()
+        if lib.insarseg_bn_kernel_info(k, out) != 0:
+            continue
+        regs, local, smem, blocks, threads, flight = out
+        info[label] = {"registers": regs, "spill_bytes": local,
+                       "shared_bytes": smem, "threads": threads,
+                       "blocks_per_sm": blocks,
+                       "bytes_in_flight_per_sm": blocks * threads * flight}
+    log("K8a-K9b resources (CUDA runtime): " + json.dumps(info))
+    log("K8a-K9b conversions and f64 operations in the SASS, by kernel: "
+        + json.dumps(bn_sass_counts()))
+    return info
+
+
+# the SASS opcodes of K8a / K9a's arithmetic: f32 -> f64 (and back),
+# f32 -> bf16, f64 adds and products, and branches
+BN_OPCODES = ("F2F.F64.F32", "F2F.F32.F64", "F2FP.BF16", "DADD", "DMUL",
+              "DFMA", "BSSY", "BRA")
+
+
+def bn_sass_counts(sass=None) -> dict:
+    """Per K8a-K9b kernel of the library (or of the SASS ``sass``), the
+    static count of each of ``BN_OPCODES``."""
+    import re
+
+    counts, name = {}, None
+    for line in (sass or sass_text()).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "bn_act" in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(BN_OPCODES, 0)
+        elif name is not None:
+            for op in BN_OPCODES:
+                counts[name][op] += bool(re.search(
+                    r"\b" + re.escape(op) + r"\b", line))
+    return counts
+
+
 def train_path(dev, power_line: str, phase) -> list:
     """Phase 5; returns the rows of K8a-K9b."""
     import torch
 
+    bn_kernel_info()
     check_bn_fixed_shapes(dev)
     phase("training: K8a-K9b against their plain versions at fixed shapes")
     rows = train_bn_kernels(dev, power_line)
@@ -3854,7 +3981,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on "
                                      "the card (every phase by default).")
-    parser.add_argument("--only", choices=["mesh"], default=None,
+    parser.add_argument("--only", choices=["mesh", "train"], default=None,
                         help="build the kernels and run this phase alone")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3890,15 +4017,24 @@ def main(argv=None) -> int:
     power_line = nvidia_smi_line()
     log(f"card: {power_line}")
     phase("build")
-    if only == "mesh":
-        mesh_launches = mesh_path(dev, power_line, phase)
+
+    def finish(result) -> int:
+        """The run's result line, the card's line and the contract's last
+        line."""
         log(f"total {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"mesh_launches": mesh_launches}), flush=True)
+        print(json.dumps(result), flush=True)
         print(power_line, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+
+    if only == "mesh":
+        mesh_launches = mesh_path(dev, power_line, phase)
+        return finish({"mesh_launches": mesh_launches})
+    if only == "train":
+        table = train_path(dev, power_line, phase)
+        return finish({"kernels": table})
 
     table = run(dev, power_line, phase)
     for row in table:
@@ -3920,13 +4056,7 @@ def main(argv=None) -> int:
     mesh_launches = mesh_path(dev, power_line, phase)
     for row in table:
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": table}), flush=True)
-    print(power_line, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish({"kernels": table})
 
 
 if __name__ == "__main__":

@@ -39,31 +39,45 @@
 // 1.0234e9 elements; in bf16 at 3.35 TB/s that is ~0.61 ms for K8a (one
 // read), 1.22 ms for K8b and K9a, 1.83 ms for K9b: ~4.9 ms a step.
 //
-// Design (a simple memory-bound pass, two layouts, fixed order):
+// Design (memory-bound passes, two layouts, fixed order):
 //   - Layouts: NCHW (cuDNN's f32 output) and channels-last (NHWC memory),
 //     read where they lie. NCHW: a block owns one channel (grid.y) and a
-//     strided share (grid.x = S slices) of its work items, an item being
-//     up to THREADS * V * 4 consecutive elements of one (n, c) plane; the
+//     share (grid.x = S slices) of its work items, an item being up to
+//     THREADS * V * U consecutive elements of one (n, c) plane; the
 //     per-channel terms are block-uniform registers. NHWC: a thread owns V
-//     consecutive channels of a row (threads a row = C / V, up to THREADS;
-//     more channels make channel groups on grid.y), a block a contiguous
-//     range of rows (grid.x = S slices).
-//   - Loads and stores are 16 bytes (V = 8 bf16 or 4 f32) where the plane
-//     (NCHW) or the row (NHWC) is a whole number of vectors and the
+//     consecutive channels of a row, a block a group of channels (grid.y)
+//     and a contiguous range of rows (grid.x = S slices).
+//   - K8b and K9b load and store 16 bytes (V = 8 bf16 or 4 f32) where the
+//     plane (NCHW) or the row (NHWC) is a whole number of vectors and the
 //     pointers are 16-byte aligned, else one element (ragged H*W, C = 1,
-//     the 1x1 map).
-//   - Sums in two stages and no atomics: each block reduces its share in a
-//     fixed order (registers, a warp's xor tree, then the warps or rows in
-//     order through shared memory) into a workspace of per-slice partial
-//     sums; a second launch sums the S partials of each channel in a fixed
-//     order (8 strided runs over the slices, then the 8 runs in order).
-//     The plan (S, V) follows the shape alone (kernels/bn_act.py::plan),
-//     so the same tensor gives the same sums bit for bit, as remat's
-//     recompute and cudnn.deterministic runs need.
-//   - n is made on the host from the shape and written into stats[2C] by
-//     the second launch (f64, exact), so an all-reduce of the buffer sums
-//     the counts with the moments. No launch synchronises. The f64 adds
-//     (2-3 an element, at the card's f64 rate) stay under the memory time.
+//     the 1x1 map); a block's threads span up to THREADS channel vectors.
+//   - K8a and K9a (the reductions) are bound by the bytes a card keeps in
+//     flight and, in bf16, by conversions (f32 -> bf16 roundings and
+//     f32 -> f64, beside 2 f64 adds and a product an element). A thread
+//     takes V = 4 channels (8 bytes of bf16, 16 of f32) and issues U
+//     loads an operand a trip (RED_BYTES: U = 4 in bf16, 2 in f32; U = 4
+//     for one element, V = 1) before its first add; channels-last, the
+//     loads of the next trip go out before the adds of this one, and the
+//     first trip's before the per-channel terms are made. A channels-last
+//     block spans GROUP_LANES channel vectors (64 channels), so the terms
+//     stay a few registers a thread (4 blocks an SM for K8a, 2 for K9a)
+//     and a group's partial sums stay short; the bf16 forms round two
+//     elements an instruction.
+//   - Sums in one launch, in a fixed order: each block reduces its slice
+//     in a fixed order (registers, then a warp's xor tree and the warps in
+//     order, or the rows of the block in order, through shared memory)
+//     into a per-slice partial in a workspace; the last block of each run
+//     of TREE slices of a group (found by a counter, __threadfence then
+//     atomicAdd, which orders nothing of the sums) adds the run's partials
+//     in a fixed order, and the last run of the group adds the runs' sums
+//     in order. The counters reset themselves for the next launch. The
+//     plan (S, the slice's length) follows the shape alone
+//     (kernels/bn_act.py::reduce_plan), so the same tensor gives the same
+//     sums bit for bit, as remat's recompute and cudnn.deterministic runs
+//     need.
+//   - n is made from the shape and written into stats[2C] by the last
+//     block (f64, exact), so an all-reduce of the buffer sums the counts
+//     with the moments. No launch synchronises.
 //   - K8b's slice 0 of each channel updates its running statistics.
 
 #include <cuda_bf16.h>
@@ -74,7 +88,18 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEM_VECS = 4;  // vectors a thread loads in one NCHW item
+constexpr int ITEM_VECS = 4;    // vectors a thread loads in one K8b / K9b item
+constexpr int RED_V = 4;        // channels (NHWC) or elements (NCHW) a load
+constexpr int GROUP_LANES = 16; // channel vectors of a channels-last group
+constexpr int TREE = 32;        // partial sums a first-stage combine adds
+constexpr int RED_BYTES = 32;   // bytes of loads an operand a thread's trip
+
+// loads an operand a thread issues before its first add: RED_BYTES of
+// vectors, or 4 single elements
+template <typename T, int V>
+__host__ __device__ constexpr int unroll() {
+  return V == 1 ? 4 : RED_BYTES / (V * (int)sizeof(T));
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v);
@@ -118,6 +143,40 @@ __device__ __forceinline__ void load(const T* __restrict__ p, float (&v)[V]) {
   }
 }
 
+// the bits of V elements of T, loaded as one word
+template <int B>
+struct RawOf;
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <typename T, int V>
+using Raw = typename RawOf<(int)sizeof(T) * V>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> raw_load(const T* __restrict__ p) {
+  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const Raw<T, V>& r, float (&v)[V]) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = to_f<T>(e[k]);
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void store(T* __restrict__ p, const float (&v)[V]) {
   if constexpr (V == 1) {
@@ -143,10 +202,13 @@ struct Site {
   void* out;              // K8b's output or K9b's gradient (cdt)
   float* rm;              // running mean (C), K8b only
   float* rv;              // running variance (C), K8b only
-  double* ws;             // the partial sums (S, 2C)
+  double* ws;             // the reductions' partial sums ((S + Q), 2C)
+  unsigned* counters;     // the reductions' counters (G (Q + 1))
   double* sums;           // the result of a reduction (2C, +1 with n)
   long long N, HW;        // batch, pixels a plane
+  long long per;          // rows (NHWC) or items (NCHW) a reduction's slice
   int C, S;               // channels, slices
+  int with_n;             // a reduction writes n at sums[2C]
   float eps, keep, mom;   // eps, 1 - momentum, momentum
 };
 
@@ -203,6 +265,25 @@ __device__ __forceinline__ float pre_of(float d, const Chan& h) {
   return round_to<T>(__fadd_rn(__fmul_rn(d, h.a), h.beta));
 }
 
+// The bf16 forms of K8a / K9a take two elements at a time (a 32-bit word
+// of two bf16, the first in the low half): one F2FP rounds both to bf16,
+// half the roundings of one element at a time (5-8% of these kernels'
+// time on an H100, PERF.md, PR 14), the same bits.
+
+// the two floats of a word of two bf16
+__device__ __forceinline__ float lo_f(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_f(unsigned v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// a and b rounded to bf16 (one instruction), as a word of two bf16
+__device__ __forceinline__ unsigned round2(float a, float b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
 // K8a: (t, t^2)
 template <typename T>
 struct StatsOp {
@@ -212,6 +293,18 @@ struct StatsOp {
     const double t = t_of<T>(y, h);
     u = t;
     w = __dmul_rn(t, t);
+  }
+  // two bf16 elements (words y and, unused, dy)
+  __device__ static __forceinline__ void pair2(unsigned y, unsigned,
+                                               const Chan& h0,
+                                               const Chan& h1, double (&u)[2],
+                                               double (&w)[2]) {
+    const unsigned t = round2(__fadd_rn(lo_f(y), h0.bias),
+                              __fadd_rn(hi_f(y), h1.bias));
+    u[0] = lo_f(t);
+    u[1] = hi_f(t);
+    w[0] = __dmul_rn(u[0], u[0]);
+    w[1] = __dmul_rn(u[1], u[1]);
   }
 };
 
@@ -227,7 +320,49 @@ struct GradStatsOp {
     u = g;
     w = __dmul_rn(g, (double)__fmul_rn(d, h.rstd));
   }
+  __device__ static __forceinline__ void pair2(unsigned y, unsigned dy,
+                                               const Chan& h0,
+                                               const Chan& h1, double (&u)[2],
+                                               double (&w)[2]) {
+    const unsigned t = round2(__fadd_rn(lo_f(y), h0.bias),
+                              __fadd_rn(hi_f(y), h1.bias));
+    const float d0 = __fsub_rn(lo_f(t), h0.mean);
+    const float d1 = __fsub_rn(hi_f(t), h1.mean);
+    const unsigned pre = round2(__fadd_rn(__fmul_rn(d0, h0.a), h0.beta),
+                                __fadd_rn(__fmul_rn(d1, h1.a), h1.beta));
+    u[0] = lo_f(pre) > 0.0f ? lo_f(dy) : 0.0f;
+    u[1] = hi_f(pre) > 0.0f ? hi_f(dy) : 0.0f;
+    w[0] = __dmul_rn(u[0], (double)__fmul_rn(d0, h0.rstd));
+    w[1] = __dmul_rn(u[1], (double)__fmul_rn(d1, h1.rstd));
+  }
 };
+
+// the (u, w) terms of V elements of one load (and dy's), channel k's
+// terms in h[k]: two at a time in bf16, else one at a time
+template <typename T, int V, class Op>
+__device__ __forceinline__ void terms(const Raw<T, V>& ry,
+                                      const Raw<T, V>& rd, const Chan* h,
+                                      double (&u)[V], double (&w)[V]) {
+  if constexpr (sizeof(T) == 2 && V % 2 == 0) {
+    const unsigned* y2 = reinterpret_cast<const unsigned*>(&ry);
+    const unsigned* d2 = reinterpret_cast<const unsigned*>(&rd);
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      double a[2], b[2];
+      Op::pair2(y2[k], Op::kDy ? d2[k] : 0u, h[2 * k], h[2 * k + 1], a, b);
+      u[2 * k] = a[0];
+      u[2 * k + 1] = a[1];
+      w[2 * k] = b[0];
+      w[2 * k + 1] = b[1];
+    }
+  } else {
+    float yv[V], dv[V] = {};
+    unpack<T, V>(ry, yv);
+    if constexpr (Op::kDy) unpack<T, V>(rd, dv);
+#pragma unroll
+    for (int k = 0; k < V; ++k) Op::pair(yv[k], dv[k], h[k], u[k], w[k]);
+  }
+}
 
 // K8b: relu(cdt((t - mean) * a + beta))
 template <typename T>
@@ -264,6 +399,80 @@ __device__ __forceinline__ void update_running(const Site& s, int c) {
                       __fmul_rn(s.mom, __fmul_rn(var, unbias)));
 }
 
+// ---------------------------------------------------------------------------
+// the reductions' combine: the last blocks add the partials in a fixed order
+// ---------------------------------------------------------------------------
+
+// dst[col] for the 2 * width columns of channels [c0, c0 + width) of a
+// [2C] row (the sums of u, then of w): the sum over the rows p < n of src
+// (each 2C doubles) in a fixed order: lane l of L = THREADS / (2 width)
+// adds the rows l, l + L, ... in order, then the L lanes are added in
+// order. The rows were written by other blocks: read past L1.
+__device__ __forceinline__ void combine(const Site& s, const double* src,
+                                        int n, int c0, int width,
+                                        double* dst) {
+  __shared__ double part[THREADS];
+  const int m = 2 * width;
+  const int L = THREADS / m;
+  const int j = threadIdx.x % m, l = threadIdx.x / m;
+  const int col = j < width ? c0 + j : s.C + c0 + (j - width);
+  double a = 0.0;
+  if (l < L)
+    for (int p = l; p < n; p += L)
+      a = __dadd_rn(a, __ldcg(src + (long long)p * 2 * s.C + col));
+  part[threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.x < m) {
+    double t = part[j];
+    const int lanes = min(L, n);
+    for (int k = 1; k < lanes; ++k) t = __dadd_rn(t, part[k * m + j]);
+    dst[col] = t;
+  }
+}
+
+// A block has written its slice's partial (row blockIdx.x of s.ws, the
+// columns of its group blockIdx.y: channels [c0, c0 + width)). The last
+// block of its run of TREE slices adds the run's partials (into stage row
+// q of s.ws, or into s.sums when one run holds every slice); the last run
+// of the group adds the runs' sums in order into s.sums. Which block is
+// last changes nothing in the sums. Each counter goes back to 0.
+__device__ __forceinline__ void finish(const Site& s, int c0, int width) {
+  __shared__ unsigned ticket;
+  const int Q = (s.S + TREE - 1) / TREE;
+  const int q = blockIdx.x / TREE;
+  const int runs = min(TREE, s.S - q * TREE);
+  unsigned* first = s.counters + (long long)blockIdx.y * Q + q;
+  unsigned* second = s.counters + (long long)gridDim.y * Q + blockIdx.y;
+  double* stage = s.ws + (long long)s.S * 2 * s.C;
+  __threadfence();  // the partial is visible before the count
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(first, 1u);
+  __syncthreads();
+  if (ticket != (unsigned)(runs - 1)) return;
+  __threadfence();
+  combine(s, s.ws + (long long)q * TREE * 2 * s.C, runs, c0, width,
+          Q == 1 ? s.sums : stage + (long long)q * 2 * s.C);
+  if (Q > 1) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      *first = 0;
+      ticket = atomicAdd(second, 1u);
+    }
+    __syncthreads();
+    if (ticket != (unsigned)(Q - 1)) return;
+    __threadfence();
+    combine(s, stage, Q, c0, width, s.sums);
+  }
+  if (threadIdx.x == 0) {
+    if (Q > 1)
+      *second = 0;
+    else
+      *first = 0;
+    if (s.with_n && blockIdx.y == 0) s.sums[2 * s.C] = (double)(s.N * s.HW);
+  }
+}
+
 // thread 0 gets the block's totals of u and w, summed in a fixed order
 __device__ __forceinline__ void block_sum2(double& u, double& w) {
   __shared__ double su[WARPS], sw[WARPS];
@@ -292,32 +501,48 @@ __device__ __forceinline__ void block_sum2(double& u, double& w) {
 // NCHW: block (slice, channel)
 // ---------------------------------------------------------------------------
 
+// K8a / K9a: slice blockIdx.x holds the items [x per, (x + 1) per) of the
+// channel's N * ceil(HW / ITEM) items; a thread loads U vectors of an item
+// at once
 template <typename T, int V, class Op>
 __global__ void __launch_bounds__(THREADS) reduce_nchw(Site s) {
+  constexpr int U = unroll<T, V>();
+  constexpr long long ITEM = (long long)THREADS * V * U;
   const int c = blockIdx.y;
-  const Chan h = chan_of<T>(s, c, inv_count(s));
-  constexpr long long CH = (long long)THREADS * V * ITEM_VECS;
-  const long long per_plane = (s.HW + CH - 1) / CH;
+  Chan hv[V];  // the channel's terms, once an element of a load
+  hv[0] = chan_of<T>(s, c, inv_count(s));
+#pragma unroll
+  for (int e = 1; e < V; ++e) hv[e] = hv[0];
+  const long long per_plane = (s.HW + ITEM - 1) / ITEM;
   const long long items = s.N * per_plane;
+  const long long i0 = (long long)blockIdx.x * s.per;
+  const long long i1 = min(items, i0 + s.per);
   const T* y = static_cast<const T*>(s.y);
   const T* dy = static_cast<const T*>(s.dy);
   double u = 0.0, w = 0.0;
-  for (long long i = blockIdx.x; i < items; i += gridDim.x) {
+  for (long long i = i0; i < i1; ++i) {
     const long long n = i / per_plane;
-    const long long p0 = (i - n * per_plane) * CH;
+    const long long p0 =
+        (i - n * per_plane) * ITEM + (long long)threadIdx.x * V;
     const long long base = (n * s.C + c) * s.HW;
-    const long long end = min(s.HW, p0 + CH);
-    for (long long p = p0 + (long long)threadIdx.x * V; p < end;
-         p += (long long)THREADS * V) {
-      float yv[V], dv[V] = {};
-      load<T, V>(y + base + p, yv);
-      if constexpr (Op::kDy) load<T, V>(dy + base + p, dv);
+    Raw<T, V> ry[U], rd[U];
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        double a, b;
-        Op::pair(yv[k], dv[k], h, a, b);
-        u = __dadd_rn(u, a);
-        w = __dadd_rn(w, b);
+    for (int k = 0; k < U; ++k) {
+      const long long p = p0 + (long long)k * THREADS * V;
+      const bool ok = p < s.HW;
+      ry[k] = ok ? raw_load<T, V>(y + base + p) : Raw<T, V>{};
+      if constexpr (Op::kDy)
+        rd[k] = ok ? raw_load<T, V>(dy + base + p) : Raw<T, V>{};
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (p0 + (long long)k * THREADS * V >= s.HW) continue;
+      double a[V], b[V];
+      terms<T, V, Op>(ry[k], rd[k], hv, a, b);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        u = __dadd_rn(u, a[e]);
+        w = __dadd_rn(w, b[e]);
       }
     }
   }
@@ -327,6 +552,7 @@ __global__ void __launch_bounds__(THREADS) reduce_nchw(Site s) {
     ws[c] = u;
     ws[s.C + c] = w;
   }
+  finish(s, c, 1);
 }
 
 template <typename T, int V, class Op>
@@ -369,37 +595,72 @@ __device__ __forceinline__ void nhwc_shape(int C, int V, int& tr, int& r) {
   r = THREADS / tr;
 }
 
+// a reduction's channels-last group: threads a row (up to GROUP_LANES
+// channel vectors of V channels) and rows a pass
+__device__ __forceinline__ void group_shape(int C, int V, int& tr, int& r) {
+  const int cv = C / V;
+  tr = cv < GROUP_LANES ? cv : GROUP_LANES;
+  r = THREADS / tr;
+}
+
+// K8a / K9a: slice blockIdx.x holds the rows [x per, (x + 1) per), group
+// blockIdx.y the channels [y tr V, (y + 1) tr V); a thread loads V channels
+// of U rows at once (rows R apart), holds its V channels' terms in
+// registers and their sums in f64
 template <typename T, int V, class Op>
 __global__ void __launch_bounds__(THREADS) reduce_nhwc(Site s) {
+  constexpr int U = unroll<T, V>();
   __shared__ double su[THREADS * V], sw[THREADS * V];
   int tr, R;
-  nhwc_shape(s.C, V, tr, R);
+  group_shape(s.C, V, tr, R);
   const int lane = threadIdx.x % tr, r0 = threadIdx.x / tr;
+  const int c0 = blockIdx.y * tr * V;  // the group's first channel
+  const int width = min(tr * V, s.C - c0);
   const int cv = blockIdx.y * tr + lane;  // this thread's channel vector
   const bool active = r0 < R && cv * V < s.C;
   const long long rows = s.N * s.HW;
-  const long long per = (rows + gridDim.x - 1) / gridDim.x;
-  const long long rbeg = (long long)blockIdx.x * per;
-  const long long rend = min(rows, rbeg + per);
-  const T* y = static_cast<const T*>(s.y);
-  const T* dy = static_cast<const T*>(s.dy);
+  const long long rbeg = (long long)blockIdx.x * s.per;
+  const long long rend = min(rows, rbeg + s.per);
   double u[V] = {}, w[V] = {};
   if (active) {
+    const T* y = static_cast<const T*>(s.y) + (long long)cv * V;
+    const T* dy = static_cast<const T*>(s.dy) + (long long)cv * V;
+    const long long step = (long long)R * U;
+    // the loads of trip r (rows r, r + R, ...; past rend none)
+    auto fetch = [&](long long r, Raw<T, V>(&a)[U], Raw<T, V>(&b)[U]) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const long long e = (r + (long long)k * R) * s.C;
+        const bool ok = r + (long long)k * R < rend;
+        a[k] = ok ? raw_load<T, V>(y + e) : Raw<T, V>{};
+        if constexpr (Op::kDy)
+          b[k] = ok ? raw_load<T, V>(dy + e) : Raw<T, V>{};
+      }
+    };
+    Raw<T, V> ry[U], rd[U];
+    fetch(rbeg + r0, ry, rd);  // in flight while the terms are made
     Chan h[V];
     const double rn = inv_count(s);
 #pragma unroll
     for (int k = 0; k < V; ++k) h[k] = chan_of<T>(s, cv * V + k, rn);
-    for (long long r = rbeg + r0; r < rend; r += R) {
-      const long long e = r * s.C + (long long)cv * V;
-      float yv[V], dv[V] = {};
-      load<T, V>(y + e, yv);
-      if constexpr (Op::kDy) load<T, V>(dy + e, dv);
+    for (long long r = rbeg + r0; r < rend; r += step) {
+      Raw<T, V> ny[U], nd[U];
+      fetch(r + step, ny, nd);  // the next trip's loads, before these adds
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        double a, b;
-        Op::pair(yv[k], dv[k], h[k], a, b);
-        u[k] = __dadd_rn(u[k], a);
-        w[k] = __dadd_rn(w[k], b);
+      for (int k = 0; k < U; ++k) {
+        if (r + (long long)k * R >= rend) continue;
+        double a[V], b[V];
+        terms<T, V, Op>(ry[k], rd[k], h, a, b);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          u[j] = __dadd_rn(u[j], a[j]);
+          w[j] = __dadd_rn(w[j], b[j]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        ry[k] = ny[k];
+        if constexpr (Op::kDy) rd[k] = nd[k];
       }
     }
     const int j = r0 * tr * V + lane * V;
@@ -410,19 +671,18 @@ __global__ void __launch_bounds__(THREADS) reduce_nhwc(Site s) {
     }
   }
   __syncthreads();
-  // the R rows of the block's channels, summed in row order
-  for (int j = threadIdx.x; j < tr * V; j += THREADS) {
-    const int c = blockIdx.y * tr * V + j;
-    if (c >= s.C) continue;
+  // the R rows of the group's channels, summed in row order: the partial
+  for (int j = threadIdx.x; j < width; j += THREADS) {
     double a = 0.0, b = 0.0;
     for (int r = 0; r < R; ++r) {
       a = __dadd_rn(a, su[r * tr * V + j]);
       b = __dadd_rn(b, sw[r * tr * V + j]);
     }
     double* ws = s.ws + (long long)blockIdx.x * 2 * s.C;
-    ws[c] = a;
-    ws[s.C + c] = b;
+    ws[c0 + j] = a;
+    ws[s.C + c0 + j] = b;
   }
+  finish(s, c0, width);
 }
 
 template <typename T, int V, class Op>
@@ -458,81 +718,65 @@ __global__ void __launch_bounds__(THREADS) apply_nhwc(Site s) {
   }
 }
 
-// the second stage: the S partial sums of each of the 2C sums, in a fixed
-// order: a block takes 32 of the 2C sums, its 8 warps the slices k = g,
-// g + 8, ... in order (lane j one sum, neighbouring lanes on neighbouring
-// addresses), then warp 0 adds the 8 warps' totals in order
-constexpr int FINISH_LANES = 32;
-constexpr int FINISH_GROUPS = THREADS / FINISH_LANES;
-
-__global__ void __launch_bounds__(THREADS) finish_sums(Site s, int with_n) {
-  __shared__ double part[FINISH_GROUPS][FINISH_LANES];
-  const int lane = threadIdx.x % FINISH_LANES;
-  const int g = threadIdx.x / FINISH_LANES;
-  const int j = blockIdx.x * FINISH_LANES + lane;
-  double a = 0.0;
-  if (j < 2 * s.C)
-    for (int k = g; k < s.S; k += FINISH_GROUPS)
-      a = __dadd_rn(a, s.ws[(long long)k * 2 * s.C + j]);
-  part[g][lane] = a;
-  __syncthreads();
-  if (g == 0 && j < 2 * s.C) {
-    double t = part[0][lane];
-#pragma unroll
-    for (int k = 1; k < FINISH_GROUPS; ++k) t = __dadd_rn(t, part[k][lane]);
-    s.sums[j] = t;
-  }
-  if (with_n && blockIdx.x == 0 && threadIdx.x == 0)
-    s.sums[2 * s.C] = (double)(s.N * s.HW);
-}
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 constexpr int VEC_BYTES = 16;
 
+// the kernels this file has launched in the process (host side; read by
+// insarseg_bn_kernel_launches)
+int launched = 0;
+
+// K8b / K9b: up to THREADS channel vectors a block
 template <typename T, int V>
-dim3 grid_of(const Site& s, int layout) {
+dim3 apply_grid(const Site& s, int layout) {
   if (layout == 0) return dim3((unsigned)s.S, (unsigned)s.C);
   const int cv = s.C / V;
   return dim3((unsigned)s.S, (unsigned)((cv + THREADS - 1) / THREADS));
 }
 
+// K8a / K9a: channels (NCHW) or GROUP_LANES channel vectors (NHWC) a block
+template <typename T, int V>
+unsigned reduce_groups(const Site& s, int layout) {
+  if (layout == 0) return (unsigned)s.C;
+  const int cv = s.C / V;
+  const int tr = cv < GROUP_LANES ? cv : GROUP_LANES;
+  return (unsigned)((cv + tr - 1) / tr);
+}
+
 template <typename T, int V, template <typename> class Op>
-cudaError_t reduce_as(const Site& s, int layout, int with_n,
+cudaError_t reduce_as(const Site& s, int layout, int groups,
                       cudaStream_t st) {
-  const dim3 g = grid_of<T, V>(s, layout);
+  const dim3 g((unsigned)s.S, reduce_groups<T, V>(s, layout));
+  if ((int)g.y != groups) return cudaErrorInvalidValue;
   if (layout == 0)
     reduce_nchw<T, V, Op<T>><<<g, THREADS, 0, st>>>(s);
   else
     reduce_nhwc<T, V, Op<T>><<<g, THREADS, 0, st>>>(s);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  finish_sums<<<(2 * s.C + FINISH_LANES - 1) / FINISH_LANES, THREADS, 0,
-                st>>>(s, with_n);
+  ++launched;
   return cudaGetLastError();
 }
 
 template <typename T, int V, template <typename> class Op>
 cudaError_t apply_as(const Site& s, int layout, cudaStream_t st) {
-  const dim3 g = grid_of<T, V>(s, layout);
+  const dim3 g = apply_grid<T, V>(s, layout);
   if (layout == 0)
     apply_nchw<T, V, Op<T>><<<g, THREADS, 0, st>>>(s);
   else
     apply_nhwc<T, V, Op<T>><<<g, THREADS, 0, st>>>(s);
+  ++launched;
   return cudaGetLastError();
 }
 
 template <template <typename> class Op>
 cudaError_t reduce_site(const Site& s, int bf16, int layout, int vec,
-                        int with_n, cudaStream_t st) {
+                        int groups, cudaStream_t st) {
   if (bf16)
-    return vec ? reduce_as<__nv_bfloat16, VEC_BYTES / 2, Op>(s, layout,
-                                                             with_n, st)
-               : reduce_as<__nv_bfloat16, 1, Op>(s, layout, with_n, st);
-  return vec ? reduce_as<float, VEC_BYTES / 4, Op>(s, layout, with_n, st)
-             : reduce_as<float, 1, Op>(s, layout, with_n, st);
+    return vec ? reduce_as<__nv_bfloat16, RED_V, Op>(s, layout, groups, st)
+               : reduce_as<__nv_bfloat16, 1, Op>(s, layout, groups, st);
+  return vec ? reduce_as<float, RED_V, Op>(s, layout, groups, st)
+             : reduce_as<float, 1, Op>(s, layout, groups, st);
 }
 
 template <template <typename> class Op>
@@ -559,26 +803,39 @@ bool bad_shape(long long N, long long HW, int C, int S) {
   return N < 0 || HW < 0 || C < 1 || C > 65535 || S < 1;
 }
 
+// a reduction's partition and scratch: S slices of per rows or items;
+// ws ((S + ceil(S / TREE)) 2C doubles) and counters ((ceil(S / TREE) + 1)
+// groups, zero) from the wrapper's cached workspace
+void plan_of(Site& s, long long per, void* ws, void* counters) {
+  s.per = per;
+  s.ws = static_cast<double*>(ws);
+  s.counters = static_cast<unsigned*>(counters);
+}
+
 }  // namespace
 
 // Every entry point: y (and dy) (N, C, H, W) f32 or bf16 (bf16 != 0),
 // NCHW (layout 0) or channels-last (layout 1) memory, HW = H * W; vec != 0
-// takes 16-byte vectors (the wrapper checks the sizes and alignment); S the
-// slices of the plan; ws an f64 workspace of S * 2C; the sums f64; the
-// per-channel parameters and statistics f32.
+// takes vectors (the wrapper checks the sizes and alignment: 16 bytes for
+// K8b / K9b, RED_V elements for K8a / K9a); S the slices of the plan; the
+// sums f64; the per-channel parameters and statistics f32. K8a / K9a also
+// take per (rows or items a slice), groups (grid.y, checked against the
+// kernel's own) and the workspace.
 
 // K8a: stats (2C + 1) = [sum t, sum t^2, n]
 extern "C" int insarseg_bn_stats(const void* y, const void* bias, void* ws,
-                                 void* stats, long long N, long long HW,
-                                 int C, int S, int bf16, int layout, int vec,
+                                 void* counters, void* stats, long long N,
+                                 long long HW, int C, int S, long long per,
+                                 int groups, int bf16, int layout, int vec,
                                  void* stream) {
-  if (bad_shape(N, HW, C, S)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(N, HW, C, S) || per < 1) return (int)cudaErrorInvalidValue;
   Site s = site_of(N, HW, C, S, 0.0f);
+  plan_of(s, per, ws, counters);
   s.y = y;
   s.bias = static_cast<const float*>(bias);
-  s.ws = static_cast<double*>(ws);
   s.sums = static_cast<double*>(stats);
-  return (int)reduce_site<StatsOp>(s, bf16, layout, vec, 1,
+  s.with_n = 1;
+  return (int)reduce_site<StatsOp>(s, bf16, layout, vec, groups,
                                    reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -609,20 +866,20 @@ extern "C" int insarseg_bn_apply_relu(const void* y, const void* bias,
 // K9a: gstats (2C) = [sum g, sum g * xhat]
 extern "C" int insarseg_bn_relu_grad_stats(
     const void* dy, const void* y, const void* bias, const void* stats,
-    const void* gamma, const void* beta, void* ws, void* gstats,
-    long long N, long long HW, int C, int S, float eps, int bf16, int layout,
-    int vec, void* stream) {
-  if (bad_shape(N, HW, C, S)) return (int)cudaErrorInvalidValue;
+    const void* gamma, const void* beta, void* ws, void* counters,
+    void* gstats, long long N, long long HW, int C, int S, long long per,
+    int groups, float eps, int bf16, int layout, int vec, void* stream) {
+  if (bad_shape(N, HW, C, S) || per < 1) return (int)cudaErrorInvalidValue;
   Site s = site_of(N, HW, C, S, eps);
+  plan_of(s, per, ws, counters);
   s.y = y;
   s.dy = dy;
   s.bias = static_cast<const float*>(bias);
   s.stats = static_cast<const double*>(stats);
   s.gamma = static_cast<const float*>(gamma);
   s.beta = static_cast<const float*>(beta);
-  s.ws = static_cast<double*>(ws);
   s.sums = static_cast<double*>(gstats);
-  return (int)reduce_site<GradStatsOp>(s, bf16, layout, vec, 0,
+  return (int)reduce_site<GradStatsOp>(s, bf16, layout, vec, groups,
                                        reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -644,4 +901,76 @@ extern "C" int insarseg_bn_relu_grad_apply(
   s.out = dt;
   return (int)apply_site<GradApplyOp>(s, bf16, layout, vec,
                                       reinterpret_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <typename F>
+cudaError_t info_of(F* f, int bytes, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, THREADS, 0);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = blocks;
+  out[4] = THREADS;
+  out[5] = bytes;
+  return cudaSuccess;
+}
+
+// the bytes a thread has in flight: U loads of V elements an operand
+template <typename T, int V, template <typename> class Op>
+cudaError_t reduce_info(int layout, int* out) {
+  constexpr int b = (int)sizeof(T) * V * unroll<T, V>() * (Op<T>::kDy ? 2 : 1);
+  return layout ? info_of(reduce_nhwc<T, V, Op<T>>, b, out)
+                : info_of(reduce_nchw<T, V, Op<T>>, b, out);
+}
+
+// one load of V elements an operand
+template <typename T, int V, template <typename> class Op>
+cudaError_t apply_info(int layout, int* out) {
+  constexpr int b = (int)sizeof(T) * V * (Op<T>::kDy ? 2 : 1);
+  return layout ? info_of(apply_nhwc<T, V, Op<T>>, b, out)
+                : info_of(apply_nchw<T, V, Op<T>>, b, out);
+}
+
+using bf = __nv_bfloat16;
+
+}  // namespace
+
+// The kernels the entry points above have launched in this process, into
+// *count.
+extern "C" int insarseg_bn_kernel_launches(int* count) {
+  *count = launched;
+  return 0;
+}
+
+// The resources of kernel k into out[0..5]: its registers a thread,
+// local-memory (spill) bytes a thread, static shared bytes a block,
+// resident blocks an SM at THREADS threads, THREADS, and the bytes of
+// device memory a thread has in flight in one trip of its loop. k = 0-7
+// the reductions K8a / K9a in bf16 channels-last, f32 NCHW, bf16 NCHW and
+// f32 channels-last (vectors); 8-11 the applies K8b / K9b in bf16
+// channels-last and f32 NCHW (16-byte vectors).
+extern "C" int insarseg_bn_kernel_info(int k, int* out) {
+  constexpr int bv = VEC_BYTES / 2, fv = VEC_BYTES / 4;
+  switch (k) {
+    case 0: return (int)reduce_info<bf, RED_V, StatsOp>(1, out);
+    case 1: return (int)reduce_info<bf, RED_V, GradStatsOp>(1, out);
+    case 2: return (int)reduce_info<float, RED_V, StatsOp>(0, out);
+    case 3: return (int)reduce_info<float, RED_V, GradStatsOp>(0, out);
+    case 4: return (int)reduce_info<bf, RED_V, StatsOp>(0, out);
+    case 5: return (int)reduce_info<bf, RED_V, GradStatsOp>(0, out);
+    case 6: return (int)reduce_info<float, RED_V, StatsOp>(1, out);
+    case 7: return (int)reduce_info<float, RED_V, GradStatsOp>(1, out);
+    case 8: return (int)apply_info<bf, bv, ApplyOp>(1, out);
+    case 9: return (int)apply_info<bf, bv, GradApplyOp>(1, out);
+    case 10: return (int)apply_info<float, fv, ApplyOp>(0, out);
+    case 11: return (int)apply_info<float, fv, GradApplyOp>(0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -73,13 +73,16 @@ _SIGNATURES = {
                                 _vp),
     "insarseg_up_concat_i8": (_vp,) * 5 + (_i,) * 7 + (_f, _vp),
     "insarseg_stem_pool_i8": (_vp, _vp, _i, _i, _i, _i, _i, _f, _vp),
-    "insarseg_bn_stats": (_vp,) * 4 + (_ll, _ll) + (_i,) * 5 + (_vp,),
+    "insarseg_bn_stats": (_vp,) * 5 + (_ll, _ll, _i, _i, _ll) + (_i,) * 4
+    + (_vp,),
     "insarseg_bn_apply_relu": (_vp,) * 8 + (_ll, _ll, _i, _i, _f, _f, _f)
     + (_i,) * 3 + (_vp,),
-    "insarseg_bn_relu_grad_stats": (_vp,) * 8 + (_ll, _ll, _i, _i, _f)
-    + (_i,) * 3 + (_vp,),
+    "insarseg_bn_relu_grad_stats": (_vp,) * 9 + (_ll, _ll, _i, _i, _ll, _i,
+                                                 _f) + (_i,) * 3 + (_vp,),
     "insarseg_bn_relu_grad_apply": (_vp,) * 8 + (_ll, _ll, _i, _i, _f)
     + (_i,) * 3 + (_vp,),
+    "insarseg_bn_kernel_info": (_i, _vp),
+    "insarseg_bn_kernel_launches": (_vp,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -40,8 +40,9 @@ raises.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,11 +55,32 @@ from insarseg_torch.kernels._lib import (
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
-# the plan: about this many blocks a launch (8 per SM of an H100), and at
-# least this many elements a slice
+# K8b / K9b's plan: about this many blocks a launch (8 per SM of an H100),
+# and at least this many elements a slice
 TARGET_BLOCKS = 1056
 MIN_SLICE = 8192
 THREADS = 256
+# K8a / K9a's plan (csrc/bn_act.cu: RED_V, GROUP_LANES, TREE, RED_BYTES):
+# RED_V channels (channels-last) or elements (NCHW) a load, RED_BYTES of
+# loads an operand a thread's trip, GROUP_LANES channel vectors a
+# channels-last block, TREE partial sums a first-stage combine; at least
+# RED_MIN_TRIPS trips a thread, and about one wave of blocks a launch:
+# K8a's kernels hold 4 blocks an SM of an H100 (132 SMs), K9a's 2 (their
+# registers; chip_smoke.py::bn_kernel_info), and a grid of one wave beat
+# two (PERF.md, PR 14)
+RED_V = 4
+GROUP_LANES = 16
+TREE = 32
+RED_BYTES = 32
+RED_MIN_TRIPS = 4
+STATS_BLOCKS = 4 * 132
+GRAD_BLOCKS = 2 * 132
+# per (device, stream): the reductions' partial sums and their counters
+# (zero between launches: each launch's last blocks reset theirs), at
+# least the sizes a bf16 512^2 b8 U-Net step's largest site needs
+WORK_SUMS = 1 << 19
+WORK_COUNTERS = 1 << 12
+_WORK: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -163,8 +185,8 @@ def layout_of(y: torch.Tensor) -> int:
 
 
 def plan(y: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
-    """(layout, vec, S) of a launch over ``y`` (and ``others``, in the
-    same layout): 16-byte vectors when a plane (NCHW) or a row
+    """(layout, vec, S) of a K8b / K9b launch over ``y`` (and ``others``,
+    in the same layout): 16-byte vectors when a plane (NCHW) or a row
     (channels-last) is a whole number of them and every pointer is
     16-byte aligned; S slices, from the shape alone, so the sums of one
     tensor are the same at every call."""
@@ -185,6 +207,92 @@ def plan(y: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
                 math.ceil(rows * min(cv, THREADS) * v / MIN_SLICE),
                 math.ceil(rows / rows_a_pass))
     return layout, vec, max(1, s)
+
+
+class ReducePlan(NamedTuple):
+    """A launch of K8a / K9a: ``layout`` (0 NCHW, 1 channels-last),
+    ``vec`` (RED_V-element loads), ``groups`` (grid.y: channels, or
+    channel groups of ``lanes`` threads a row), ``slices`` (grid.x), each
+    of ``per`` units (rows, or NCHW items of ``item`` elements) of
+    ``units`` a group, ``trip`` units a thread's loop trip, ``runs`` the
+    first-stage combines a group (``ceil(slices / TREE)``)."""
+    layout: int
+    vec: int
+    groups: int
+    slices: int
+    per: int
+    units: int
+    trip: int
+    item: int
+    lanes: int
+    runs: int
+
+    def workspace(self, c: int) -> Tuple[int, int]:
+        """(f64 partial sums, counters) a launch over C = ``c`` needs."""
+        return ((self.slices + self.runs) * 2 * c,
+                self.groups * (self.runs + 1))
+
+
+def unroll(element_size: int, v: int) -> int:
+    """Loads an operand a thread issues before its first add: RED_BYTES of
+    V-element vectors, 4 single elements."""
+    return 4 if v == 1 else RED_BYTES // (v * element_size)
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_partition(n: int, c: int, h: int, w: int, element_size: int,
+                     layout: int, vec: int, blocks: int) -> ReducePlan:
+    """K8a / K9a's partition of an (n, c, h, w) tensor into about
+    ``blocks`` blocks: from the shape, the element size, the layout and
+    whether vectors fit, never from the card, so one tensor gives the same
+    sums at every call."""
+    v = RED_V if vec else 1
+    u = unroll(element_size, v)
+    if layout == 0:
+        item = THREADS * v * u
+        units, groups, trip, lanes = n * math.ceil(h * w / item), c, 1, 0
+    else:
+        cv = c // v
+        lanes = min(cv, GROUP_LANES)
+        item, units = 0, n * h * w
+        groups, trip = math.ceil(cv / lanes), (THREADS // lanes) * u
+    trips = max(RED_MIN_TRIPS,
+                math.ceil(math.ceil(units / trip)
+                          / math.ceil(blocks / groups)))
+    per = trips * trip
+    slices = max(1, math.ceil(units / per))
+    return ReducePlan(layout, vec, groups, slices, per, units, trip, item,
+                      lanes, math.ceil(slices / TREE))
+
+
+def reduce_plan(y: torch.Tensor, *others: torch.Tensor) -> ReducePlan:
+    """K8a's (``y`` alone) or K9a's (``y`` and dout) launch over ``y``
+    (``others`` in the same layout): RED_V-element vectors when a plane
+    (NCHW) or a row (channels-last) is a whole number of them and every
+    pointer is aligned to one."""
+    n, c, h, w = y.shape
+    layout = layout_of(y)
+    size = y.element_size()
+    whole = (h * w if layout == 0 else c) % RED_V == 0
+    vec = int(whole and all(t.data_ptr() % (RED_V * size) == 0
+                            for t in (y,) + others))
+    return reduce_partition(n, c, h, w, size, layout, vec,
+                            GRAD_BLOCKS if others else STATS_BLOCKS)
+
+
+def _workspace(y: torch.Tensor, stream: int, n_sums: int,
+               n_counters: int) -> Tuple[int, int]:
+    """Pointers to the cached partial sums and counters of (y's device,
+    stream), grown to at least the sizes asked (the counters zeroed)."""
+    key = (y.device.index, stream)
+    sums, counters = _WORK.get(key, (None, None))
+    if sums is None or sums.numel() < n_sums:
+        sums = y.new_empty(max(n_sums, WORK_SUMS), dtype=torch.float64)
+    if counters is None or counters.numel() < n_counters:
+        counters = y.new_zeros(max(n_counters, WORK_COUNTERS),
+                               dtype=torch.int32)
+    _WORK[key] = sums, counters
+    return sums.data_ptr(), counters.data_ptr()
 
 
 def _cuda_args(name, y, bias, *vectors):
@@ -226,14 +334,16 @@ def bn_stats(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     if _is_plain("bn_stats", y):
         return bn_stats_plain(y, bias)
     _cuda_args("bn_stats", y, bias)
-    layout, vec, s = plan(y)
+    p = reduce_plan(y)
     n, hw, c = _sizes(y)
     stats = y.new_empty(2 * c + 1, dtype=torch.float64)
-    ws = y.new_empty(s * 2 * c, dtype=torch.float64)
     with device_guard(y.device):
+        stream = stream_of(y)
+        ws, counters = _workspace(y, stream, *p.workspace(c))
         launch("bn_stats", "insarseg_bn_stats", y.data_ptr(),
-               bias.data_ptr(), ws.data_ptr(), stats.data_ptr(), n, hw, c, s,
-               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+               bias.data_ptr(), ws, counters, stats.data_ptr(), n, hw, c,
+               p.slices, p.per, p.groups, int(y.dtype == torch.bfloat16),
+               p.layout, p.vec, stream)
     return stats
 
 
@@ -274,16 +384,18 @@ def bn_relu_grad_stats(dy, y, bias, stats, gamma, beta,
     _cuda_args("bn_relu_grad_stats", y, bias, ("stats", stats),
                ("gamma", gamma), ("beta", beta))
     dy = _like(dy, y)
-    layout, vec, s = plan(y, dy)
+    p = reduce_plan(y, dy)
     n, hw, c = _sizes(y)
     gstats = y.new_empty(2 * c, dtype=torch.float64)
-    ws = y.new_empty(s * 2 * c, dtype=torch.float64)
     with device_guard(y.device):
+        stream = stream_of(y)
+        ws, counters = _workspace(y, stream, *p.workspace(c))
         launch("bn_relu_grad_stats", "insarseg_bn_relu_grad_stats",
                dy.data_ptr(), y.data_ptr(), bias.data_ptr(), stats.data_ptr(),
-               gamma.data_ptr(), beta.data_ptr(), ws.data_ptr(),
-               gstats.data_ptr(), n, hw, c, s, float(eps),
-               int(y.dtype == torch.bfloat16), layout, vec, stream_of(y))
+               gamma.data_ptr(), beta.data_ptr(), ws, counters,
+               gstats.data_ptr(), n, hw, c, p.slices, p.per, p.groups,
+               float(eps), int(y.dtype == torch.bfloat16), p.layout, p.vec,
+               stream)
     return gstats
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BN_SHAPES
 from insarseg.ops.blocks import DoubleConv as JaxDoubleConv
 from insarseg.ops.layers import BatchNorm2d as JaxBatchNorm2d
 from insarseg_torch.kernels import bn_act
@@ -314,3 +315,134 @@ class _Elsewhere(torch.Tensor):
     @property
     def device(self):
         return torch.device("xpu", 0)
+
+
+# K8a / K9a's launch plan (``bn_act.reduce_partition``): the shapes of a
+# bf16 512^2 b8 U-Net-CA train step (levels 0-4, channels-last, as cuDNN's
+# bf16 convs return them), the f32 step's NCHW forms of the same levels,
+# and chip_smoke.py's edge shapes
+STEP_LEVELS = [(8, 64 * 2 ** k, 512 >> k, 512 >> k) for k in range(5)]
+PLAN_CASES = ([(s, 2, 1) for s in STEP_LEVELS]
+              + [(s, 4, 0) for s in STEP_LEVELS]
+              + [((n, c, h, w), 2 if dt == "bfloat16" else 4,
+                  int(cl and h * w > 1 and c > 1))
+                 for n, c, h, w, dt, cl in BN_SHAPES])
+
+
+def _cover(p, n, c, h, w, size):
+    """How often the kernel's loops (csrc/bn_act.cu reduce_nchw /
+    reduce_nhwc) visit each (unit element, channel): every count must be
+    1. Mirrors the index arithmetic of the kernels."""
+    v = bn_act.RED_V if p.vec else 1
+    u = bn_act.unroll(size, v)
+    threads = bn_act.THREADS
+    if p.layout == 0:  # an item: THREADS * V * U elements of one plane
+        off = (np.arange(threads)[:, None] * v
+               + np.arange(u)[None, :] * threads * v).ravel()
+        assert sorted(off) == list(range(0, p.item, v))
+        per_plane = -(-h * w // p.item)
+        seen = np.zeros(p.units, np.int64)
+        for s in range(p.slices):
+            seen[s * p.per:min(p.units, (s + 1) * p.per)] += 1
+        assert p.units == n * per_plane
+        return seen, np.ones(c, np.int64)  # one block a channel (grid.y)
+    lanes = p.lanes
+    rows_a_pass = threads // lanes
+    assert p.trip == rows_a_pass * u
+    seen = np.zeros(p.units, np.int64)
+    start = (np.arange(rows_a_pass)[:, None]
+             + np.arange(u)[None, :] * rows_a_pass).ravel()
+    for s in range(p.slices):
+        beg, end = s * p.per, min(p.units, (s + 1) * p.per)
+        rows = (beg + start[None, :]
+                + np.arange(0, end - beg, p.trip)[:, None]).ravel()
+        np.add.at(seen, rows[rows < end], 1)
+    chans = np.zeros(c, np.int64)
+    for g in range(p.groups):
+        for lane in range(lanes):
+            cv = g * lanes + lane
+            if cv * v < c:
+                chans[cv * v:cv * v + v] += 1
+    return seen, chans
+
+
+@pytest.mark.parametrize("shape,size,layout", PLAN_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{z}-{lt}"
+                              for s, z, lt in PLAN_CASES])
+def test_reduce_plan_covers_each_unit_once(shape, size, layout):
+    n, c, h, w = shape
+    whole = (h * w if layout == 0 else c) % bn_act.RED_V == 0
+    for vec, blocks in ((v, b) for v in sorted({0, int(whole)})
+                        for b in (bn_act.STATS_BLOCKS, bn_act.GRAD_BLOCKS)):
+        p = bn_act.reduce_partition(n, c, h, w, size, layout, vec, blocks)
+        assert p.layout == layout and p.vec == vec
+        assert p.per % p.trip == 0 and p.slices >= 1
+        assert (p.slices - 1) * p.per < max(p.units, 1) <= p.slices * p.per
+        assert p.runs == -(-p.slices // bn_act.TREE)
+        seen, chans = _cover(p, n, c, h, w, size)
+        assert (seen == 1).all() and (chans == 1).all()
+        # from the shape alone: a second computation (no cache) agrees
+        assert bn_act.reduce_partition.__wrapped__(
+            n, c, h, w, size, layout, vec, blocks) == p
+        # about the target: at most ceil(blocks / groups) slices a group
+        assert p.slices <= -(-blocks // p.groups)
+
+
+def test_reduce_plan_depends_on_the_shape_not_the_address():
+    shape = (2, 48, 5, 7)
+    numel = int(np.prod(shape))
+    strides = (5 * 7 * 48, 1, 7 * 48, 48)
+
+    def at(offset):  # channels-last views of one storage, `offset` in
+        base = torch.empty(numel + 8, dtype=torch.bfloat16)
+        return base.as_strided(shape, strides, offset)
+
+    aligned = [at(0), at(4), torch.empty(shape, dtype=torch.bfloat16)
+               .contiguous(memory_format=torch.channels_last)]
+    assert len({t.data_ptr() for t in aligned}) == 3
+    plans = {bn_act.reduce_plan(t) for t in aligned}
+    assert len(plans) == 1 and plans.pop().vec == 1
+    # a pointer off the 8-byte bf16 vector: one element a load
+    assert bn_act.reduce_plan(at(1)).vec == 0
+    assert bn_act.reduce_plan(aligned[0], at(1)).vec == 0
+
+
+def test_reduce_workspace_holds_the_largest_site_and_is_reused():
+    targets = (bn_act.STATS_BLOCKS, bn_act.GRAD_BLOCKS)
+    need = [bn_act.reduce_partition(*s, size, layout, 1, b).workspace(s[1])
+            for s in STEP_LEVELS for size, layout in ((2, 1), (4, 0))
+            for b in targets]
+    sums, counters = max(k[0] for k in need), max(k[1] for k in need)
+    # K8a at level 0 in bf16: one group of slices, then their runs
+    p0 = bn_act.reduce_partition(*STEP_LEVELS[0], 2, 1, 1, max(targets))
+    assert p0.groups == 1 and p0.slices <= max(targets)
+    assert sums == (p0.slices + p0.runs) * 2 * 64
+    assert sums <= bn_act.WORK_SUMS and counters <= bn_act.WORK_COUNTERS
+    y = torch.empty(1)
+    key = (y.device.index, 12345)
+    try:
+        first = bn_act._workspace(y, 12345, sums, counters)
+        assert bn_act._workspace(y, 12345, 10, 10) == first
+        work = bn_act._WORK[key]
+        assert work[0].numel() == bn_act.WORK_SUMS
+        assert not work[1].any() and work[1].dtype == torch.int32
+        grown = bn_act._workspace(y, 12345, bn_act.WORK_SUMS + 1, 1)
+        assert bn_act._WORK[key][0].numel() == bn_act.WORK_SUMS + 1
+        assert grown[1] == first[1]
+    finally:
+        bn_act._WORK.pop(key, None)
+
+
+def test_reduce_constants_match_the_kernels():
+    from pathlib import Path
+    import re
+
+    src = (Path(bn_act.__file__).parent.parent / "csrc" / "bn_act.cu") \
+        .read_text()
+    for name in ("THREADS", "RED_V", "GROUP_LANES", "TREE", "RED_BYTES"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(bn_act, name), name
+    assert "return V == 1 ? 4 : RED_BYTES / (V * (int)sizeof(T));" in src
+    assert [bn_act.unroll(2, 4), bn_act.unroll(4, 4), bn_act.unroll(2, 1),
+            bn_act.unroll(4, 1)] == [bn_act.RED_BYTES // 8,
+                                     bn_act.RED_BYTES // 16, 4, 4]

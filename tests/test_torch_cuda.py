@@ -21,7 +21,10 @@ train epilogue K8a-K9b (``kernels/bn_act.py``) at NCHW and channels-last,
 C 1 / 3 / 64, a 1x1 map and an odd H*W, bf16 and f32: K8a's and K9a's
 f64 sums within 1e-10 of their largest value (another order), K8b and K9b
 on the same buffers equal to their plain versions, every kernel equal
-to itself on a second run; a train-mode ``DoubleConv`` on the card
+to itself on a second run; K8a and K9a at the U-Net's five levels
+(batch 2, bf16 channels-last and f32 NCHW) bit-equal over ten calls
+queued back to back, on a second stream and with dout in the other
+layout; a train-mode ``DoubleConv`` on the card
 launches all four and never a plain version.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
@@ -701,6 +704,53 @@ def test_bn_act_equals_plain(dev, n, c, h, w, dtype, layout):
     assert torch.equal(stats, B.bn_stats(y, bias))
     assert torch.equal(gs, B.bn_relu_grad_stats(dy, y, bias, stats, gamma,
                                                 beta, 1e-5))
+
+
+BN_LEVELS = [(2, 64 * 2 ** k, 512 >> k, 512 >> k) for k in range(5)]
+
+
+@pytest.mark.parametrize("n,c,h,w", BN_LEVELS)
+@pytest.mark.parametrize("form", ["bf16-channels_last", "f32-nchw"])
+def test_bn_reductions_at_the_step_levels(dev, n, c, h, w, form):
+    """K8a / K9a at the U-Net's five levels (batch 2) against their plain
+    versions; bit-equal over two runs, over ten calls queued back to back
+    on one stream (the last-block counters reset themselves), on a second
+    stream, and with dout in the other layout."""
+    from insarseg_torch.kernels import bn_act as B
+
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    g = torch.Generator(device=dev).manual_seed(c + h)
+    y = (torch.randn(n, c, h, w, generator=g, device=dev) * 2 + 0.5) \
+        .to(dtype)
+    dy = torch.randn(n, c, h, w, generator=g, device=dev).to(dtype)
+    if form.endswith("channels_last"):
+        y = y.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    bias, beta = (torch.randn(c, generator=g, device=dev) for _ in range(2))
+    gamma = torch.rand(c, generator=g, device=dev) + 0.5
+    stats = B.bn_stats(y, bias)
+    _bn_close(stats, B.bn_stats_plain(y, bias))
+    gs = B.bn_relu_grad_stats(dy, y, bias, stats, gamma, beta, 1e-5)
+    _bn_close(gs, B.bn_relu_grad_stats_plain(dy, y, bias, stats, gamma, beta,
+                                             1e-5))
+
+    def both():
+        return (B.bn_stats(y, bias),
+                B.bn_relu_grad_stats(dy, y, bias, stats, gamma, beta, 1e-5))
+
+    runs = [both() for _ in range(10)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(both())
+    torch.cuda.current_stream().wait_stream(side)
+    other = dy.contiguous() if B.layout_of(y) else \
+        dy.contiguous(memory_format=torch.channels_last)
+    runs.append((stats, B.bn_relu_grad_stats(other, y, bias, stats, gamma,
+                                             beta, 1e-5)))
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(runs):
+        assert torch.equal(a, stats) and torch.equal(b, gs), k
 
 
 def test_train_double_conv_launches_the_kernels(dev, monkeypatch):
