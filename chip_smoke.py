@@ -183,16 +183,38 @@ only (no JAX, nothing of ``insarseg``) and:
    checked on a strip first.
    ``python3 chip_smoke.py --only mesh`` builds the kernels and runs
    this phase alone;
-9. prints the kernel table as one JSON line (each row with
+9. runs the ``spatial`` mesh axis (the image H axis sharded,
+   ``insarseg_torch/parallel/spatial.py``), the ``spatial`` phase
+   (``chip_smoke.py::spatial_path``): ``parallel.launch`` world 2 on the
+   card (gloo), data 1 x spatial 2, U-Net-CA and U-Net-SA (base 64,
+   512^2, global b8: 256-row slabs), two SGD 0.1 f32 steps each under
+   ``cudnn.deterministic`` held to one process's at ``MESH_BARS`` (a
+   count may move by at most the pixels whose logits lie within
+   ``TIE_BAR`` = 1e-5 x max|logit|: 2,097,152 pixels a step); the
+   bf16 step's every K8a-K9b call held against its plain version, its
+   launches a rank a step equal to the one-card step's; a 2-epoch
+   ``fit`` (``mesh_spatial=2``) with a resume; then the forward over
+   ``make_mesh(data=1, spatial=2, devices=[cuda:0, cuda:0])`` (one
+   thread a slab) against one device, U-Net-CA, U-Net-SA and
+   U-Net-fast-CA at 512^2 b8, f32 within 1e-5 x max|logit|, bf16
+   counted; on a machine with more cards, also (``spatial_cards``) the
+   NCCL bf16 step at data 1 x spatial 2, 1 x 4 and 2 x 2 timed against
+   one card by CUDA events, rank 0's halo exchanges and all-reduces from
+   a profiler window, the peak memory a card at 1024^2 global b8, and
+   the CLI's ``train --mesh-spatial 2`` over the cards.
+   ``python3 chip_smoke.py --only spatial`` builds the kernels and runs
+   this phase alone;
+10. prints the kernel table as one JSON line (each row with
    ``cli_launches``, its launches in the cli phase's predicts, and
    ``cli_checked`` / ``cli_max_abs_err``, its calls checked in the cli
    phase and their largest difference from the plain version;
    ``stream_launches``, its launches in the stream phase's streams, each
    counted from 0, and ``stream_checked``; ``mesh_launches``, its
-   launches in the mesh phase's int8 forwards), the ``nvidia-smi`` name
+   launches in the mesh phase's int8 forwards; ``spatial_launches``, its
+   launches a rank in the spatial bf16 step), the ``nvidia-smi`` name
    and power-limit line, and last ``{"ok": true, "device": {...}}``
-   (with ``--only mesh``: the mesh launches as one JSON line in place of
-   the kernel table).
+   (with ``--only mesh`` / ``--only spatial``: that phase's launches as
+   one JSON line in place of the kernel table).
 """
 
 from __future__ import annotations
@@ -3217,6 +3239,10 @@ MESH_LR = 0.1  # SGD: the update is linear in the summed gradient
 # statistics' atol; that step's counts equal
 MESH_BARS = (1e-5, 1e-4, 1e-5)
 MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
+# x max|logit|: a pixel whose two logits lie this close is a near tie,
+# which the spatial steps' counts may flip (``mesh_hold``): at 512^2 b8,
+# 2,097,152 pixels, f32 sums in another order flipped one of U-Net-SA's
+TIE_BAR = 1e-5
 MESH_CARD_TILES = 128  # tiles a card: the serving timing's engine batch
 MESH_STEP_TILES = 8  # tiles a card: the multi-card train step's batch
 # the CLI's default train (every card) at two presets, each (preset, image
@@ -3317,28 +3343,46 @@ def _cpu_tree(tree):
     return tree
 
 
-def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR, starts=None):
-    """One rank (or, without a group, one process) of U-Net-CA (``base``
-    features, the seeded init) on ``device`` taking one SGD step on each
-    global batch in turn, in f32 under ``cudnn.deterministic``: each
+def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR, starts=None,
+                  spatial: int = 1, attention: str = "channel",
+                  ties: bool = False):
+    """One rank (or, without a group, one process) of U-Net-CA (with
+    ``attention`` "spatial", U-Net-SA; ``base`` features, the seeded init)
+    on ``device`` taking one SGD step on each global batch in turn, in f32
+    under ``cudnn.deterministic``, its H axis over ``spatial`` ranks: each
     step's outputs and the state_dict after each step. Given ``starts``,
     step k first loads ``starts[k]`` (a state_dict; ``None`` keeps the
-    state it has)."""
+    state it has). With ``ties`` each step's outputs also hold
+    ``"ties"``: the pixels of its forward whose two logits lie within
+    ``TIE_BAR`` x max|logit| of each other (``mesh_hold``)."""
     import torch
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.train.engine import create_state, make_train_step
 
     _deterministic()
-    model = UNet(num_classes=2, base_features=base, use_se=True)
+    model = UNet(num_classes=2, base_features=base,
+                 use_se=attention == "channel",
+                 use_sa=attention == "spatial")
     state = create_state(model, seed=SEED, device=device)
     state.optimizer = torch.optim.SGD(model.parameters(), lr=lr)
-    step = make_train_step(model, 2)
+    step = make_train_step(model, 2, spatial=spatial)
+    seen = []
+    if ties:
+        def near(mod, inp, out):
+            out = out.detach()
+            margin = (out[:, 1] - out[:, 0]).abs()
+            seen.append(int((margin <= TIE_BAR * float(out.abs().max()))
+                            .sum()))
+
+        model.outc.register_forward_hook(near)
     outs, states = [], []
     for k, b in enumerate(batches):
         if starts is not None and starts[k] is not None:
             model.load_state_dict(starts[k])
         outs.append(_cpu_tree(step(state, torch.from_numpy(b["image"]),
                                    torch.from_numpy(b["mask"]))))
+        if ties:
+            outs[-1]["ties"] = seen.pop()
         states.append(_cpu_tree(model.state_dict()))
     return outs, states
 
@@ -3357,11 +3401,11 @@ def mesh_bf16_rank(batch, base, device, steps: int = 3):
     return [float(step(state, x, m)["loss"]) for _ in range(steps)]
 
 
-def mesh_fit_rank(train, val, directory, base, device):
-    """``fit`` of U-Net-CA for 2 epochs at ``TRAIN_PRESET``'s settings on
-    ``train`` / ``val`` with a ``Checkpointer`` in ``directory``, then a
-    resume to epoch 3: the two histories, the steps and the state after
-    the resume."""
+def mesh_fit_rank(train, val, directory, base, device, spatial: int = 1):
+    """``fit`` of U-Net-CA for 2 epochs at ``TRAIN_PRESET``'s settings
+    (``mesh_spatial`` ``spatial``) on ``train`` / ``val`` with a
+    ``Checkpointer`` in ``directory``, then a resume to epoch 3: the two
+    histories, the steps and the state after the resume."""
     import dataclasses
 
     from insarseg_torch.config import get_preset
@@ -3370,7 +3414,8 @@ def mesh_fit_rank(train, val, directory, base, device):
     from insarseg_torch.train.checkpoint import Checkpointer
     from insarseg_torch.train.engine import create_state, fit
 
-    cfg = get_preset(TRAIN_PRESET, num_epochs=2, log_every_steps=2)
+    cfg = get_preset(TRAIN_PRESET, num_epochs=2, log_every_steps=2,
+                     mesh_spatial=spatial)
     out = {"rank": rank()}
     for epochs, resume in ((2, False), (3, True)):
         model = UNet(num_classes=2, base_features=base, use_se=True)
@@ -3392,25 +3437,37 @@ def mesh_gloo_rank(batches, fit_data, directory, base, device):
             "fit": mesh_fit_rank(*fit_data, directory, base, device)}
 
 
-def mesh_hold(got, batches, device, label) -> None:
+def mesh_hold(got, batches, device, label, attention: str = "channel",
+              want=None) -> None:
     """A mesh's SGD steps (``mesh_sgd_rank``) against one process's at
     ``MESH_BARS``, each step one step from equal parameters: step k of
     the one process on ``device`` starts from the mesh's state after step
     k-1 (the first from the seeded init). Every step's loss and counts
-    (equal), the parameters and the BN statistics after it."""
+    (equal), the parameters and the BN statistics after it. ``want``: the
+    one process's steps, already run from those states."""
     import torch
 
     g_outs, g_sds = got
     saved = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
-    w_outs, w_sds = mesh_sgd_rank(batches, BASE, device,
-                                  starts=[None] + g_sds[:-1])
+    w_outs, w_sds = want or mesh_sgd_rank(batches, BASE, device,
+                                          starts=[None] + g_sds[:-1],
+                                          attention=attention)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     loss_rel = max(abs(float(g["loss"]) - float(w["loss"]))
                    / abs(float(w["loss"])) for g, w in zip(g_outs, w_outs))
     keys = ("tp", "fp", "fn", "correct", "valid")
     moved = [{k: (g[k] - w[k]).tolist() for k in keys
               if not torch.equal(g[k], w[k])} for g, w in zip(g_outs, w_outs)]
+    # where the one process's steps counted their near ties, a count may
+    # move by at most as many pixels: a pixel whose logits lie within
+    # TIE_BAR x max|logit| flips with the float sums' order
+    if all("ties" in w for w in w_outs):
+        ties = [w["ties"] for w in w_outs]
+        over = [{k: v for k, v in m.items() if k == "valid" or
+                 float(np.abs(v).max()) > t} for m, t in zip(moved, ties)]
+    else:
+        ties, over = None, moved
     stats = ("running_mean", "running_var")
     p_err = max(float((g_sd[k] - w_sd[k]).abs().max())
                 for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
@@ -3421,15 +3478,20 @@ def mesh_hold(got, batches, device, label) -> None:
     tracked = all(torch.equal(g_sd[k], w_sd[k])
                   for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
                   if k.endswith("num_batches_tracked"))
-    log(f"  {label} vs one process (U-Net-CA base {BASE}, "
-        f"{MESH_TRAIN[0]}^2 global b{MESH_TRAIN[1]}, {len(w_outs)} SGD "
+    b, size = batches[0]["image"].shape[:2]
+    net = "U-Net-CA" if attention == "channel" else "U-Net-SA"
+    log(f"  {label} vs one process ({net} base {BASE}, "
+        f"{size}^2 global b{b}, {len(w_outs)} SGD "
         f"{MESH_LR} f32 steps, each from the mesh's parameters, "
         f"cudnn.deterministic, TF32 off): loss rel {loss_rel:.3g} (bar "
         f"{MESH_BARS[0]}), counts "
-        f"{'equal' if not any(moved) else 'moved ' + json.dumps(moved)}, "
-        f"parameters {p_err:.3g} (bar {MESH_BARS[1]}), BN statistics "
+        f"{'equal' if not any(moved) else 'moved ' + json.dumps(moved)}"
+        + ("" if ties is None else
+           f" (bar: at most the near ties a step, {ties} pixels within "
+           f"{TIE_BAR} x max|logit|)")
+        + f", parameters {p_err:.3g} (bar {MESH_BARS[1]}), BN statistics "
         f"{s_err:.3g} (bar {MESH_BARS[2]})")
-    if not (loss_rel <= MESH_BARS[0] and not any(moved)
+    if not (loss_rel <= MESH_BARS[0] and not any(over)
             and p_err <= MESH_BARS[1] and s_err <= MESH_BARS[2]
             and tracked):
         raise AssertionError(f"{label}: the mesh's steps differ from one "
@@ -3875,6 +3937,362 @@ def mesh_path(dev, power_line: str, phase) -> dict:
     return launches
 
 
+SPATIAL_TRAIN = (512, 8)  # the spatial steps' tiles and global batch
+SPATIAL_BIG = 1024  # the peak-memory reading's tiles, global b8
+# (data, spatial) of the multi-card steps, timed against one card
+SPATIAL_MESHES = ((1, 2), (1, 4), (2, 2))
+SPATIAL_STEPS, SPATIAL_REPS = 5, 3  # warm steps a timing, timings
+SPATIAL_FLOAT_BAR = 1e-5  # x max|logit|: the f32 H-sharded forward
+HALO_MARK = "spatial halo exchange"  # the profiler range of an exchange
+
+
+def spatial_bf16_rank(batch, base, device, spatial: int):
+    """One rank of U-Net-CA's bf16 train step with its H axis over
+    ``spatial`` ranks (or, without a group, the one-card step): a warm
+    step, then one step with the launch counters from 0 and every K8a-K9b
+    call held against its plain version (``checked_bn_calls``). Returns
+    the launches, the checked calls and the two losses."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    model = UNet(num_classes=2, base_features=base, use_se=True)
+    state = create_state(model, seed=SEED, device=device)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16,
+                           spatial=spatial)
+    x, m = torch.from_numpy(batch["image"]), torch.from_numpy(batch["mask"])
+    losses = [float(step(state, x, m)["loss"])]
+    torch.cuda.synchronize()
+    checked = {}
+    K.reset_launches()
+    with checked_bn_calls(checked):
+        losses.append(float(step(state, x, m)["loss"]))
+    torch.cuda.synchronize()
+    return {"launches": {k: K.LAUNCHES[k] for k in BN_KERNELS},
+            "checked": {k: {"calls": c["calls"],
+                            "max_abs_err": c["max_abs_err"]}
+                        for k, c in checked.items()},
+            "losses": losses}
+
+
+def spatial_gloo_rank(batches, fit_data, directory, base, device):
+    """The one-card spatial checks in one process a rank (world 2, 1 x 2):
+    U-Net-CA's and U-Net-SA's f32 SGD steps, the checked bf16 step and
+    ``fit`` with its resume."""
+    return {"ca": mesh_sgd_rank(batches, base, device, spatial=2),
+            "sa": mesh_sgd_rank(batches, base, device, spatial=2,
+                                attention="spatial"),
+            "bf16": spatial_bf16_rank(batches[0], base, device, 2),
+            "fit": mesh_fit_rank(*fit_data, directory, base, device,
+                                 spatial=2)}
+
+
+def spatial_training(dev) -> dict:
+    """``launch`` world 2 on ``cuda:0`` (gloo), data 1 x spatial 2:
+    U-Net-CA and U-Net-SA (base ``BASE``, ``SPATIAL_TRAIN``, f32, TF32
+    off) held to one process's SGD steps at ``MESH_BARS`` (``mesh_hold``;
+    each count may move by at most the one process's near-tie pixels,
+    ``TIE_BAR``); the bf16 step's every K8a-K9b call held against its
+    plain version, its launches a rank equal to the one-card step's; a
+    2-epoch ``fit`` with a resume (finite, the ranks equal). Returns the
+    bf16 step's launches a rank."""
+    import os
+    import tempfile
+
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.parallel import launch
+
+    size, b = SPATIAL_TRAIN
+    batches = [synthetic_batch(b, size, seed=SEED + 100 + i)
+               for i in range(2)]
+    fit_data = ([synthetic_batch(MESH_TRAIN[1], MESH_TRAIN[0],
+                                 seed=SEED + 10 + i) for i in range(2)],
+                [synthetic_batch(MESH_TRAIN[1], MESH_TRAIN[0],
+                                 seed=SEED + 20)])
+    one = spatial_bf16_rank(batches[0], BASE, dev, 1)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = launch(spatial_gloo_rank, 2, [dev, dev],
+                       args=(batches, fit_data, d, BASE, dev))
+        log(f"  launch world 2 (gloo, data 1 x spatial 2 on one card): "
+            f"{time.perf_counter() - t0:.1f} s")
+        files = sorted(os.listdir(d))
+    for attention, key in (("channel", "ca"), ("spatial", "sa")):
+        _same_state(ranks[0][key][1][-1], ranks[1][key][1][-1],
+                    f"the ranks' {key} states")
+        want = mesh_sgd_rank(batches, BASE, dev, attention=attention,
+                             starts=[None] + ranks[0][key][1][:-1],
+                             ties=True)
+        for r in ranks:
+            mesh_hold(r[key], batches, dev,
+                      f"spatial 2 on gloo, rank {r['fit']['rank']}",
+                      attention, want)
+    launches = {}
+    for i, r in enumerate(ranks):
+        bf = r["bf16"]
+        log(f"  rank {i} bf16 step (U-Net-CA base {BASE}, {size}^2 global "
+            f"b{b}, {size // 2}-row slabs): losses {bf['losses']}; K8a-K9b "
+            f"launches {bf['launches']} against one card's "
+            f"{one['launches']}; checked against their plain versions "
+            + json.dumps(bf["checked"]))
+        for k, n in bf["launches"].items():
+            if n != one["launches"][k] or n == 0:
+                raise AssertionError(f"{k}: {n} launches a rank a step, one "
+                                     f"card {one['launches'][k]}")
+            if bf["checked"].get(k, {}).get("calls") != n:
+                raise AssertionError(f"{k}: {n} launches, "
+                                     f"{bf['checked'].get(k)} checked")
+        if not np.all(np.isfinite(bf["losses"])):
+            raise AssertionError(f"bf16 spatial losses {bf['losses']}")
+        launches = bf["launches"]
+    fits = [r["fit"] for r in ranks]
+    hist2, step2 = fits[0][2]
+    hist3, step3 = fits[0][3]
+    log(f"  spatial 2 fit: 2 epochs (step {step2}), resumed to epoch "
+        f"{[h['epoch'] for h in hist3]} (step {step3}); files {files}; "
+        "history " + json.dumps(hist2 + hist3))
+    losses = [h[k] for h in hist2 + hist3 for k in ("train_loss", "val_loss")]
+    if not (np.all(np.isfinite(losses)) and step2 == 4 and step3 == 6
+            and [h["epoch"] for h in hist3] == [3]
+            and files == ["best.pt", "best_miou.json", "latest.pt"]):
+        raise AssertionError("the spatial fit or its resume went wrong")
+    if fits[1][2] != fits[0][2] or fits[1][3] != fits[0][3]:
+        raise AssertionError("the ranks' fit histories differ")
+    _same_state(fits[0]["state"], fits[1]["state"], "the ranks' states")
+    return launches
+
+
+def spatial_forward(dev) -> None:
+    """``make_predict_fn`` over ``make_mesh(data=1, spatial=2, devices=
+    [cuda:0, cuda:0])`` (one thread a slab) against one device at
+    ``HW``^2 b``BATCH``: U-Net-CA, U-Net-SA (base ``BASE``) and
+    U-Net-fast-CA (level 1 = 128) in f32 within ``SPATIAL_FLOAT_BAR`` x
+    max|logit|; in bf16 the differing logits counted (no bar)."""
+    import torch
+    from insarseg_torch.parallel import make_mesh, make_predict_fn
+
+    mesh = make_mesh(data=1, spatial=2, devices=[dev, dev])
+    x = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 110),
+                                      BATCH, HW, HW)).to(dev)
+    for label, name, attention in (
+            (f"U-Net-CA base {BASE}", "unet", "channel"),
+            (f"U-Net-SA base {BASE}", "unet", "spatial"),
+            ("U-Net-fast-CA", "unet-fast", "channel")):
+        model = build_model(name, attention)
+        for dtype in (None, torch.bfloat16):
+            a = make_predict_fn(model, input_dtype=dtype, device=dev)(x)
+            t0 = time.perf_counter()
+            b = make_predict_fn(model, input_dtype=dtype, mesh=mesh)(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            a, b = a.float(), b.float()
+            scale, err = float(a.abs().max()), float((a - b).abs().max())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            what = "bf16" if dtype else "f32"
+            log(f"  {label} {what} {HW}^2 b{BATCH}, H over two slabs on one "
+                f"card vs one device: {int((a != b).sum())} of {a.numel()} "
+                f"logits differ, max {err:.3g} ({err / scale:.3g} x "
+                f"max|logit|{'' if dtype else f', bar {SPATIAL_FLOAT_BAR}'})"
+                f", argmax agreement {agree:.6f}; first call {secs:.2f} s")
+            if dtype is None and err > SPATIAL_FLOAT_BAR * scale:
+                raise AssertionError(f"{label}: the H-sharded forward "
+                                     "differs from one device")
+        del model
+        torch.cuda.empty_cache()
+
+
+def spatial_step_rank(size, batch, spatial, steps, reps, trace):
+    """One rank of U-Net-CA's bf16 train step (base ``BASE``, global b
+    ``batch`` at ``size``^2) with its H axis over ``spatial`` ranks (or,
+    without a group, the one-card step): ms a step by CUDA events
+    (``reps`` timings of ``steps`` warm steps) and the peak memory; with
+    ``trace``, a 3-step profiler window on rank 0: the NCCL kernels'
+    device ms a step in all, the device time under the halo exchanges
+    (each ``GroupComm.exchange`` marked by a ``record_function`` here),
+    and the device idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.parallel import rank
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    torch.backends.cudnn.deterministic = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = UNet(num_classes=2, base_features=BASE, use_se=True)
+    state = create_state(model, seed=SEED, device=dev)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16,
+                           spatial=spatial)
+    data = synthetic_batch(batch, size, seed=SEED + 120)
+    x = torch.from_numpy(data["image"]).to(dev)
+    m = torch.from_numpy(data["mask"]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, x, m)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            step(state, x, m)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / steps)
+    out = {"ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if trace and rank() == 0:
+        from insarseg_torch.parallel.spatial import GroupComm
+
+        exchange = GroupComm.exchange
+
+        def marked(comm, up, down):
+            with torch.profiler.record_function(HALO_MARK):
+                return exchange(comm, up, down)
+
+        GroupComm.exchange = marked
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step(state, x, m)
+                torch.cuda.synchronize()
+        finally:
+            GroupComm.exchange = exchange
+        events = prof.events()
+        nccl = [(e.name, e.time_range.end - e.time_range.start)
+                for e in events
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and "nccl" in e.name.lower()]
+        # the range's host event (the profiler also draws it on the
+        # device's timeline); its device time is that of the kernels
+        # launched inside it: the buffer's fill and copies and the
+        # all-reduce
+        halo = [getattr(e, "device_time_total", None) for e in events
+                if e.name == HALO_MARK
+                and str(getattr(e, "device_type", "")).endswith("CPU")]
+        out["halo_ms"] = sum(halo) / 3 / 1e3 if halo and None not in halo \
+            else None
+        out["halo_calls"] = len(halo) / 3
+        out["nccl_ms"] = sum(t for _, t in nccl) / 3 / 1e3
+        out["nccl_names"] = sorted({n[:48] for n, _ in nccl})
+        out["idle"] = device_idle_share(prof)
+    elif trace:
+        for _ in range(3):
+            step(state, x, m)
+        torch.cuda.synchronize()
+    return out
+
+
+def spatial_cli(root, devices_flag):
+    """``python -m insarseg_torch.cli train --mesh-spatial 2`` of U-Net-CA
+    (``TRAIN_PRESET``, 2 epochs) on the VOC tree under ``root``, as a user
+    runs it: the history."""
+    from insarseg_torch import cli
+
+    hist = f"{root}/spatial.json"
+    if cli.main(["train", "--preset", TRAIN_PRESET, "--voc-root",
+                 f"{root}/voc", "--num-epochs", "2", "--model-save-path",
+                 f"{root}/m/best.ckpt", "--metrics-save-path", hist,
+                 "--mesh-spatial", "2", *devices_flag]):
+        raise AssertionError("train --mesh-spatial 2 failed")
+    with open(hist) as f:
+        return json.load(f)
+
+
+def spatial_cards(power_line) -> None:
+    """On every card (more than one): U-Net-CA's bf16 step at
+    ``HW``^2 global b``BATCH`` over each of ``SPATIAL_MESHES`` that fits
+    the cards, timed against one card with CUDA events, with rank 0's
+    halo and all-reduce device ms from a profiler window; the peak memory
+    a card at ``SPATIAL_BIG``^2 global b``BATCH``; the CLI's ``train
+    --mesh-spatial 2`` over the cards."""
+    import tempfile
+
+    import torch
+    from insarseg_torch.data.synthetic import make_synthetic_voc
+    from insarseg_torch.parallel import launch
+
+    n = torch.cuda.device_count()
+    one = spatial_step_rank(HW, BATCH, 1, SPATIAL_STEPS, SPATIAL_REPS, True)
+    torch.cuda.empty_cache()  # rank 0 shares this process's card
+    ms1 = float(np.median(one["ms"]))
+    log(f"  U-Net-CA bf16 step {HW}^2 b{BATCH} on one card: {ms1:.3f} ms "
+        f"({one['ms']}), peak {one['peak_gib']:.3f} GiB; on {power_line}")
+    for data, spatial in SPATIAL_MESHES:
+        w = data * spatial
+        if w > n:
+            continue
+        t0 = time.perf_counter()
+        ranks = launch(spatial_step_rank, w, args=(
+            HW, BATCH, spatial, SPATIAL_STEPS, SPATIAL_REPS, True))
+        r0 = ranks[0]
+        msw = float(np.median(r0["ms"]))
+        idle, halo = r0.get("idle"), r0["halo_ms"]
+        log(f"  data {data} x spatial {spatial} (NCCL, {w} cards, launch "
+            f"{time.perf_counter() - t0:.1f} s): {msw:.3f} ms a step "
+            f"({r0['ms']}) against one card's {ms1:.3f}, x{ms1 / msw:.3f}; "
+            "halo exchanges "
+            + ("not measured" if halo is None else
+               f"{halo:.3f} ms of device time a step "
+               f"({100 * halo / msw:.2f}% of the step)")
+            + f" over {r0['halo_calls']:.0f} exchanges; NCCL kernels "
+            f"{r0['nccl_ms']:.3f} ms in all ({r0['nccl_names']}); rank 0 "
+            "idle share "
+            + ("not measured" if idle is None else f"{100 * idle:.2f}%")
+            + "; peak GiB a card "
+            + json.dumps([round(r["peak_gib"], 3) for r in ranks])
+            + f"; on {power_line}")
+        del ranks
+    peaks = {"1 card": spatial_step_rank(SPATIAL_BIG, BATCH, 1, 1, 1,
+                                         False)["peak_gib"]}
+    torch.cuda.empty_cache()
+    for data, spatial in SPATIAL_MESHES:
+        if data * spatial <= n:
+            ranks = launch(spatial_step_rank, data * spatial, args=(
+                SPATIAL_BIG, BATCH, spatial, 1, 1, False))
+            peaks[f"{data} x {spatial}"] = max(r["peak_gib"] for r in ranks)
+    log(f"  U-Net-CA bf16 step {SPATIAL_BIG}^2 global b{BATCH}: peak "
+        f"max_memory_allocated GiB a card {json.dumps(peaks)}; on "
+        f"{power_line}")
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_voc(f"{root}/voc", n_train=32, n_val=8, size=128,
+                           seed=SEED + 40)
+        t0 = time.perf_counter()
+        hist = spatial_cli(root, ["--mesh-data", "-1"])
+        log(f"  train --mesh-spatial 2 --mesh-data -1 ({n} cards: data "
+            f"{n // 2} x spatial 2), {TRAIN_PRESET}, 2 epochs: "
+            f"{time.perf_counter() - t0:.1f} s; history "
+            + json.dumps(hist))
+    if not all(np.isfinite(h["train_loss"]) for h in hist):
+        raise AssertionError(f"train --mesh-spatial 2: {hist}")
+
+
+def spatial_path(dev, power_line: str, phase) -> dict:
+    """The ``spatial`` phase (the H axis sharded): the one-card launches
+    and the in-process forward, and on a machine with more cards the
+    multi-card runs. Returns the K8a-K9b launches a rank of the spatial
+    bf16 step."""
+    import torch
+
+    log(f"spatial phase on {power_line}, {torch.cuda.device_count()} "
+        "card(s)")
+    t0 = time.perf_counter()
+    launches = spatial_training(dev)
+    phase("spatial: launch world 2 on one card (f32 steps, bf16 step, fit)")
+    spatial_forward(dev)
+    phase("spatial: the H-sharded forward over two slabs on one card")
+    if torch.cuda.device_count() > 1:
+        spatial_cards(power_line)
+        phase("spatial: every card")
+    log(f"  spatial launches a rank a step {launches}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run(dev, power_line: str, phase) -> list:
     """Phases 2-4 on ``dev``; returns the kernel table."""
     import torch
@@ -3981,7 +4399,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on "
                                      "the card (every phase by default).")
-    parser.add_argument("--only", choices=["mesh", "train"], default=None,
+    parser.add_argument("--only", choices=["mesh", "spatial", "train"],
+                        default=None,
                         help="build the kernels and run this phase alone")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4032,6 +4451,9 @@ def main(argv=None) -> int:
     if only == "mesh":
         mesh_launches = mesh_path(dev, power_line, phase)
         return finish({"mesh_launches": mesh_launches})
+    if only == "spatial":
+        return finish({"spatial_launches": spatial_path(dev, power_line,
+                                                        phase)})
     if only == "train":
         table = train_path(dev, power_line, phase)
         return finish({"kernels": table})
@@ -4056,6 +4478,9 @@ def main(argv=None) -> int:
     mesh_launches = mesh_path(dev, power_line, phase)
     for row in table:
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
+    spatial_launches = spatial_path(dev, power_line, phase)
+    for row in table:
+        row["spatial_launches"] = spatial_launches.get(row["name"], 0)
     return finish({"kernels": table})
 
 

@@ -46,9 +46,15 @@ on. Under ``torchrun`` (or inside a process group its caller made)
 ``train`` runs as one rank, on ``LOCAL_RANK``'s card (or the caller's).
 With ``--device cpu``, ``--mesh-data N`` gives N gloo ranks (``train``)
 or N CPU replicas. The module engine's ``eval`` runs on one device, as
-the JAX CLI's does. ``--mesh-data`` above the visible cards raises;
-``--mesh-spatial`` above 1 raises ``NotImplementedError`` (ROADMAP Queue
-1 item 21).
+the JAX CLI's does. ``--mesh-data`` above the visible cards raises.
+
+``train --mesh-spatial S`` shards the image H axis over S ranks (the
+U-Net families; ``parallel/spatial.py``): ``--mesh-data D`` rows of S
+ranks, D x S in all (``--mesh-data -1``: every card, D = cards / S; on
+the CPU, D = 1), ``--device cpu`` giving gloo ranks and ``--device
+cuda:K`` cards K onward. A ResNet family raises ``NotImplementedError``
+(ROADMAP Queue 1 item 21b). ``eval`` and ``predict`` ignore
+``--mesh-spatial``, as the JAX CLI's do.
 """
 
 from __future__ import annotations
@@ -77,7 +83,6 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
 
 def _build_cfg(args):
     from insarseg_torch.config import Config, compute_dtype, get_preset
-    from insarseg_torch.parallel.mesh import SPATIAL_TODO
 
     overrides = {}
     for f in dataclasses.fields(Config):
@@ -87,26 +92,29 @@ def _build_cfg(args):
     cfg = (get_preset(args.preset, **overrides) if args.preset
            else Config(**overrides))
     compute_dtype(cfg)  # an unknown dtype ends the command here
-    if cfg.mesh_spatial > 1:
-        raise NotImplementedError(SPATIAL_TODO)
     return cfg
 
 
-def _mesh_devices(cfg, dev: torch.device) -> List[torch.device]:
-    """The devices a command may use: ``--mesh-data`` N cards from ``dev``'s
-    on (``--device cuda``: from the first; -1: every visible card, or
-    ``dev`` alone when ``--device`` names one); ``dev`` alone for 1; on the
-    CPU, N replicas of it (one for -1). More than the cards there are
-    raises."""
+def _mesh_devices(cfg, dev: torch.device,
+                  spatial: int = 1) -> List[torch.device]:
+    """The devices a command may use, ``spatial`` a data row (``train``:
+    ``--mesh-spatial``; ``eval`` and ``predict``: 1): ``--mesh-data`` N rows
+    of cards from ``dev``'s on (``--device cuda``: from the first; -1:
+    every visible card, or one row when ``--device`` names one); ``dev``
+    alone for one device; on the CPU, N rows of replicas of it (one row
+    for -1). More than the cards there are raises."""
     from insarseg_torch.parallel.mesh import make_mesh
 
+    data = cfg.mesh_data
     if dev.type == "cpu":
-        return [dev] * max(cfg.mesh_data, 1)
-    if cfg.mesh_data == 1 or (cfg.mesh_data == -1 and dev.index is not None):
+        return [dev] * (max(data, 1) * spatial)
+    if data == -1 and dev.index is not None:
+        data = 1
+    if data * spatial == 1:
         return [dev]
     cards = [torch.device("cuda", i)
              for i in range(dev.index or 0, torch.cuda.device_count())]
-    return list(make_mesh(cfg.mesh_data, devices=cards).devices)
+    return list(make_mesh(data, spatial, devices=cards).devices)
 
 
 def _eval_mesh(cfg, devices):
@@ -175,11 +183,15 @@ def cmd_train(args) -> int:
         print(f"error: dataset not found under {cfg.voc_root!r} "
               "(expected VOC layout with JPEGImages/)", file=sys.stderr)
         return 2
+    if cfg.mesh_spatial > 1:
+        from insarseg_torch.models.registry import check_spatial
+
+        check_spatial(cfg.model)
     if grouped() or env_rank():
         # a rank that torchrun (or the caller's group) started
         with joined(dev) as rank_dev:
             return _train(args, cfg, rank_dev)
-    devices = _mesh_devices(cfg, dev)
+    devices = _mesh_devices(cfg, dev, cfg.mesh_spatial)
     if len(devices) > 1:
         from insarseg_torch.parallel.mesh import launch
 
@@ -189,8 +201,8 @@ def cmd_train(args) -> int:
 
 
 def _train_rank(args, devices: List[torch.device]) -> None:
-    """``train`` as rank r of a data mesh over ``devices``, on
-    ``devices[r]`` (``parallel/mesh.py::launch`` starts one a device;
+    """``train`` as rank r of a ('data', 'spatial') mesh over ``devices``,
+    on ``devices[r]`` (``parallel/mesh.py::launch`` starts one a device;
     ``fit`` is SPMD)."""
     from insarseg_torch.parallel.mesh import rank
 

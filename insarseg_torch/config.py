@@ -15,8 +15,10 @@ U-Net families' DoubleConvs (``models/registry.py::build_model``).
 as the JAX package's. ``train/engine.py::fit`` runs as one rank of a
 process group of that size (-1 or the group's), and the CLI starts the
 ranks (``train``) or serves over the devices (``eval``, ``predict``).
-``mesh_spatial`` above 1 raises where it is read (ROADMAP Queue 1 item
-21).
+``mesh_spatial`` is the spatial axis: ``fit`` and the CLI's ``train``
+shard the image H axis over that many ranks a data row (the U-Net
+families; ``parallel/spatial.py``); ``eval`` and ``predict`` ignore it,
+as the JAX CLI's do.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ class Config:
     # -- execution --
     compute_dtype: str = "float32"  # float32 | bfloat16
     mesh_data: int = -1  # -1 = all devices on the data axis
-    mesh_spatial: int = 1  # spatial partitioning of H (not ported)
+    mesh_spatial: int = 1  # ranks a data row sharding H (train)
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

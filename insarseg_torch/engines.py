@@ -30,7 +30,10 @@ dim 0 and the outputs gathered in order on the first device
 of the mesh. The int8 engines are batch-invariant, so a mesh's int8
 logits equal one device's bit for bit; the module and serve engines are
 not (cuDNN picks its kernels by the batch), and differ within float
-rounding.
+rounding. Given a mesh with a ``spatial`` axis, the serve and int8
+engines split the batch over its data axis alone (``Mesh.over_data``),
+as the JAX package's ``jit_engine`` does; the module engine shards H as
+``parallel/inference.py::make_predict_fn`` does.
 """
 
 from __future__ import annotations
@@ -141,11 +144,14 @@ def make_engine(
 
 def _placed(build, tree: Mapping[str, Any], dev: torch.device,
             mesh: Optional[Mesh]):
-    """``build(tree, device)``'s predict on ``dev``, or one a mesh device
-    over copies of ``tree`` (``replicate_arrays``), split and gathered by
-    ``mesh_engine``."""
+    """``build(tree, device)``'s predict on ``dev``, or one a device of the
+    mesh's data axis over copies of ``tree`` (``replicate_arrays``), split
+    and gathered by ``mesh_engine``: a packed engine never shards H, as
+    the JAX package's ``jit_engine`` shards its batch over ``data``
+    alone."""
     if mesh is None:
         return build(tree, dev)
+    mesh = mesh.over_data()
     return mesh_engine([build(t, d) for t, d in
                         zip(replicate_arrays(tree, mesh),
                             mesh.devices)], mesh)

@@ -472,6 +472,8 @@ def bn_relu_train(y: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
     process): called on K8a's buffer in the forward pass and on K9a's in
     the backward pass, so the moments and the input gradient are the
     global batch's, and the running variance's factor comes from the
-    global count."""
+    global count. Under a spatial mesh ``y`` is a rank's H slab and the
+    count in K8a's buffer the slab's N x H_slab x W, so the same sum over
+    every rank gives the whole batch's moments (``parallel/spatial.py``)."""
     return _BNReLU.apply(y, bias.detach(), gamma, beta, running_mean,
                          running_var, eps, momentum, reduce)

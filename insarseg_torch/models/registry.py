@@ -11,12 +11,30 @@ families raise the JAX package's ``ValueError``."""
 
 from __future__ import annotations
 
+from typing import Union
+
 from torch import nn
 
 from insarseg_torch.models.deeplab import DeepLabV3
 from insarseg_torch.models.fcn import FCN
 from insarseg_torch.models.pspnet import PSPNet
 from insarseg_torch.models.unet import UNet
+
+
+SHARDS_H = ("unet", "unet-fast")  # the families a spatial mesh runs
+
+
+def check_spatial(model: Union[str, nn.Module]) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 21b unless
+    ``model`` (a name, or a module) is of a family whose H axis a spatial
+    mesh shards: the U-Net families (``parallel/spatial.py``)."""
+    from insarseg_torch.models.unet_stem import UNetFastS2D
+    from insarseg_torch.parallel.mesh import SPATIAL_TODO
+
+    ok = isinstance(model, (UNet, UNetFastS2D)) if isinstance(
+        model, nn.Module) else model.lower().replace("_", "-") in SHARDS_H
+    if not ok:
+        raise NotImplementedError(SPATIAL_TODO)
 
 
 def build_model(cfg) -> nn.Module:

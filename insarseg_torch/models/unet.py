@@ -19,6 +19,13 @@ the encoder and decoder DoubleConvs (``inc``, ``down{i}[1]``,
 puts ``nn.remat`` (``insarseg/models/unet.py:74-75``); the SA gates'
 ``compress_and_map`` is not rematerialized there either. The module
 computes in its input's dtype (``ops/layers.py``).
+
+Under a spatial context (``parallel/spatial.py``: the H axis sharded,
+``x`` one slab of it) the 3x3 convs exchange halo rows and the SE
+squeezes sum over the slabs; the max-pools, the 2x2 / 2 transposed convs
+and the skip concats stay inside the slab when its height is a multiple
+of 16 (four halvings), which is checked: the JAX package's GSPMD pads any
+H, the port does not (ROADMAP Queue 1 item 21b).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 from insarseg_torch.ops.blocks import DoubleConv, SpatialAttentionDC
 from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d
 from insarseg_torch.ops.resize import resize_bilinear
+from insarseg_torch.parallel import spatial
 
 
 class UNet(nn.Module):
@@ -63,6 +71,11 @@ class UNet(nn.Module):
         self.outc = Conv2d(plan[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] % 16 and spatial.current() is not None:
+            raise ValueError(
+                f"under a spatial mesh each slab's height (H / spatial) must "
+                f"be a multiple of 16 (the U-Net halves it four times); this "
+                f"slab has {x.shape[2]} rows")
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)

@@ -27,6 +27,7 @@ from torch import nn
 from insarseg_torch.engines import check_hw
 from insarseg_torch.models.unet import UNet
 from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.parallel import spatial
 
 
 def space_to_depth(x: torch.Tensor, f: int = 2) -> torch.Tensor:
@@ -46,7 +47,9 @@ def depth_to_space(x: torch.Tensor, f: int = 2) -> torch.Tensor:
 
 class UNetFastS2D(nn.Module):
     """Space-to-depth-stem UNet. NCHW in and out, as the port's UNet;
-    H and W divisible by ``16 * factor``."""
+    H and W divisible by ``16 * factor``. Under a spatial mesh
+    (``parallel/spatial.py``) the stem and its inverse are local to a slab
+    whose height is a multiple of ``16 * factor``, which is checked."""
 
     def __init__(self, num_classes: int = 2, level1_features: int = 128,
                  use_se: bool = False, use_sa: bool = False, factor: int = 2,
@@ -63,6 +66,11 @@ class UNetFastS2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.factor
+        if x.shape[2] % (16 * f) and spatial.current() is not None:
+            raise ValueError(
+                f"under a spatial mesh each slab's height (H / spatial) must "
+                f"be a multiple of {16 * f} (space-to-depth by {f}, then the "
+                f"U-Net's four halvings); this slab has {x.shape[2]} rows")
         y = self.unet(nhwc_to_nchw(space_to_depth(nchw_to_nhwc(x), f)))
         return nhwc_to_nchw(depth_to_space(nchw_to_nhwc(y), f))
 

@@ -36,12 +36,15 @@ from insarseg_torch.ops.layers import (
     follow,
     global_avg_pool,
     global_max_pool,
+    spatial_mean,
 )
+from insarseg_torch.parallel import spatial
 
 
 class SELayer(nn.Module):
     """GAP -> Linear(C, C/r) -> ReLU -> Linear(C/r, C) -> sigmoid ->
-    channelwise rescale."""
+    channelwise rescale; the GAP over every slab under a spatial context
+    (``ops/layers.py::spatial_mean``)."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -53,7 +56,7 @@ class SELayer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc(x.mean(dim=(2, 3)))
+        y = self.fc(spatial_mean(x))
         return x * y[:, :, None, None]
 
 
@@ -90,7 +93,15 @@ class DoubleConv(nn.Module):
     second run uses the same batch statistics and computes the same
     values; its BN running statistics and ``num_batches_tracked`` are put
     back as the first run left them (the JAX recompute updates no
-    state). Eval mode never checkpoints."""
+    state). The recompute runs under the spatial context of the first
+    run (``parallel/spatial.py``), so a slab exchanges the same halo rows
+    and sums again, in the same order on every rank. Eval mode never
+    checkpoints.
+
+    Under a spatial context the 3x3 convs take their halo rows from the
+    neighbouring slabs (``ops/layers.py::Conv2d``), the synced BatchNorm
+    sums each slab's moments over every rank, and the SE squeeze sums over
+    the slabs (``SELayer``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_se: bool = False, remat: bool = False):
@@ -126,6 +137,7 @@ class DoubleConv(nn.Module):
         if not (self.remat and self.training and torch.is_grad_enabled()):
             return self._run(x)
         first = [True]
+        comm = spatial.current()
 
         def run(t: torch.Tensor) -> torch.Tensor:
             if first[0]:
@@ -135,7 +147,8 @@ class DoubleConv(nn.Module):
             # backward needs are back), so the statistics go back in any case
             kept = {k: v.clone() for k, v in self.named_buffers()}
             try:
-                return self._run(t)
+                with spatial.active(comm):
+                    return self._run(t)
             finally:
                 with torch.no_grad():
                     for k, v in self.named_buffers():

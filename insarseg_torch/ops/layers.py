@@ -46,18 +46,59 @@ def follow(x: torch.Tensor, p: Optional[torch.Tensor]
     return p if p is None or p.dtype == x.dtype else p.to(x.dtype)
 
 
+def _spatial():
+    """The active spatial context (``parallel/spatial.py``), or None: the
+    H axis is then sharded and ``x`` is a slab of it."""
+    from insarseg_torch.parallel.spatial import current
+
+    return current()
+
+
+def _not_local(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} reaches across the H slabs of a spatial mesh; "
+        "insarseg_torch shards H for the U-Net families only (ROADMAP "
+        "Queue 1 item 21b)")
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in its input's dtype (f32 parameters cast per call)."""
+    """``nn.Conv2d`` in its input's dtype (f32 parameters cast per call).
+
+    Under a spatial context (``parallel/spatial.py``) a conv of H extent
+    above 1 takes its H padding from the neighbouring slabs
+    (``spatial.halo``) and convolves with padding ``(0, pw)``: the slab's
+    rows of the unsharded conv. It must be a "same" conv of stride 1."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, follow(x, self.weight),
                                   follow(x, self.bias))
 
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        comm = _spatial()
+        if comm is None:
+            return super()._conv_forward(x, weight, bias)
+        from insarseg_torch.parallel.spatial import halo
+
+        (sh, _), (ph, pw), (dh, _) = self.stride, self.padding, self.dilation
+        if sh != 1 or 2 * ph != dh * (self.kernel_size[0] - 1) \
+                or self.padding_mode != "zeros":
+            raise _not_local(f"a conv of kernel {self.kernel_size}, stride "
+                             f"{self.stride}, padding {self.padding}")
+        return F.conv2d(halo(x, ph, comm), weight, bias, self.stride,
+                        (0, pw), self.dilation, self.groups)
+
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` in its input's dtype (no ``output_size``)."""
+    """``nn.ConvTranspose2d`` in its input's dtype (no ``output_size``).
+    Under a spatial context only its slab-local form runs (kernel equal to
+    the stride along H, no padding: the U-Net's 2x2 / 2)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _spatial() is not None and (
+                self.kernel_size[0] != self.stride[0] or self.padding[0]):
+            raise _not_local(f"a transposed conv of kernel "
+                             f"{self.kernel_size}, stride {self.stride}")
         return F.conv_transpose2d(
             x, follow(x, self.weight), follow(x, self.bias), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation)
@@ -183,17 +224,39 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,
                 padding: int = 0) -> torch.Tensor:
     """``nn.MaxPool2d(window, stride, padding)`` (floor mode; the padding
-    acts as -inf) over NCHW float tensors."""
+    acts as -inf) over NCHW float tensors; under a spatial context only
+    its slab-local form (window = stride, no padding)."""
+    if _spatial() is not None and (stride not in (None, window) or padding):
+        raise _not_local(f"a {window}x{window} / {stride} max-pool")
     return F.max_pool2d(x, window, stride, padding)
 
 
+def spatial_mean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The mean over H and W of NCHW ``x``: ``x.mean(dim=(2, 3))``, or under
+    a spatial context the slab's sum in at least f32 summed over the slabs
+    (``spatial.spatial_sum``), divided by the whole image's H·W and
+    rounded to ``x``'s dtype once."""
+    comm = _spatial()
+    if comm is None:
+        return x.mean(dim=(2, 3), keepdim=keepdim)
+    from insarseg_torch.parallel.spatial import spatial_sum
+
+    acc = torch.promote_types(x.dtype, torch.float32)
+    total = spatial_sum(x.sum(dim=(2, 3), keepdim=keepdim, dtype=acc), comm)
+    return (total / (x.shape[2] * x.shape[3] * comm.size)).to(x.dtype)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """``AdaptiveAvgPool2d(1)`` over NCHW: (B, C, 1, 1)."""
-    return x.mean(dim=(2, 3), keepdim=True)
+    """``AdaptiveAvgPool2d(1)`` over NCHW: (B, C, 1, 1) (over every slab
+    under a spatial context, :func:`spatial_mean`)."""
+    return spatial_mean(x, keepdim=True)
 
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
-    """``AdaptiveMaxPool2d(1)`` over NCHW: (B, C, 1, 1)."""
+    """``AdaptiveMaxPool2d(1)`` over NCHW: (B, C, 1, 1) (CBAM's channel
+    attention, a ResNet family's: not under a spatial context)."""
+    if _spatial() is not None:
+        raise _not_local("a global max-pool")
     return x.amax(dim=(2, 3), keepdim=True)
 
 
@@ -263,8 +326,11 @@ def adaptive_avg_pools(x: torch.Tensor,
     order."""
     ii = None
     out = []
+    sharded = _spatial() is not None
     for size in sizes:
         o = _pair(size)
+        if sharded and o != (1, 1):
+            raise _not_local(f"an adaptive average pool to {o}")
         if tuple(x.shape[-2:]) == o:
             out.append(x)
         elif o == (1, 1):

@@ -11,8 +11,17 @@ import torch.nn.functional as F
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Resize an NCHW tensor to spatial ``size``."""
+    """Resize an NCHW tensor to spatial ``size`` (under a spatial context,
+    ``parallel/spatial.py``, along W alone: the slab keeps its rows)."""
     if tuple(x.shape[-2:]) == tuple(size):
         return x
+    if x.shape[-2] != size[0]:
+        from insarseg_torch.parallel.spatial import current
+
+        if current() is not None:
+            raise NotImplementedError(
+                "a resize along H reaches across the H slabs of a spatial "
+                "mesh; insarseg_torch shards H for the U-Net families only "
+                "(ROADMAP Queue 1 item 21b)")
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=False)

@@ -1,6 +1,6 @@
 """Batched inference over the ``nn.Module`` graph (counterpart of
 ``insarseg/parallel/inference.py::make_predict_fn``), on one device or
-over a ``data`` mesh (``parallel/mesh.py``)."""
+over a ('data', 'spatial') mesh (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,12 @@ from torch import nn
 
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
-from insarseg_torch.parallel.mesh import Mesh, mesh_engine, replicate
+from insarseg_torch.parallel.mesh import (
+    Mesh,
+    mesh_engine,
+    replicate,
+    spatial_engine,
+)
 
 
 def make_predict_fn(
@@ -32,11 +37,22 @@ def make_predict_fn(
 
     With ``mesh`` (``device`` is then not read) there is one eval-mode
     copy of ``model`` a mesh device (``replicate``), and the batch is
-    split over them and gathered on the first (``mesh_engine``)."""
+    split over them and gathered on the first (``mesh_engine``). On a
+    mesh with ``spatial`` above 1 the H axis is sharded too, as the JAX
+    package's ``make_predict_fn`` shards it (``spatial_engine``: one
+    thread a slab, each entering inference mode itself); the U-Net
+    families only (``models/registry.py::check_spatial``), their slabs
+    a multiple of 16 rows (32 for ``unet-fast``)."""
     if mesh is not None:
-        return mesh_engine([make_predict_fn(m, argmax, input_dtype, d)
-                            for m, d in zip(replicate(model, mesh),
-                                            mesh.devices)], mesh)
+        engine = mesh_engine
+        if mesh.spatial > 1:
+            from insarseg_torch.models.registry import check_spatial
+
+            check_spatial(model)
+            engine = spatial_engine
+        return engine([make_predict_fn(m, argmax, input_dtype, d)
+                       for m, d in zip(replicate(model, mesh),
+                                       mesh.devices)], mesh)
     dev = resolve_device(device)
     model = model.to(dev).eval()
 

@@ -21,9 +21,17 @@ paths need.
   :func:`sync_batchnorm`), the loss's valid count summed over the ranks,
   the gradients summed (:func:`all_reduce_grads`), and the counts summed.
 
-The JAX package's ``spatial`` axis (the image H axis sharded, GSPMD's
-halo exchanges at every conv and pool) is not ported: ``spatial > 1``
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 21.
+The ``spatial`` axis (the image H axis sharded over S ranks, a
+:class:`Mesh` of ``data x spatial`` devices) runs the U-Net families:
+device ``(d, s)`` of the mesh (rank ``d * S + s``, :func:`coords`) holds
+rows :func:`rows_of` ``d`` of ``data`` of the global batch and their slab
+:func:`slab_of` ``s`` of ``S``; the convs exchange halo rows and the
+SE squeezes sum over the slabs (``parallel/spatial.py``). Training makes one
+process group a data row (:func:`spatial_comm`); serving runs one thread
+a slab (``parallel/inference.py::make_predict_fn``). The packed engines
+split the batch over ``data`` alone, as the JAX package's ``jit_engine``
+does. The ResNet families raise ``NotImplementedError`` under a spatial
+mesh (:data:`SPATIAL_TODO`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -44,28 +53,44 @@ from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.engines_io import to_torch_tree
 from insarseg_torch.ops.layers import MomentBatchNorm2d
 
-SPATIAL_TODO = ("insarseg_torch does not shard the image H axis "
-                "(mesh_spatial > 1, ROADMAP Queue 1 item 21) yet")
+SPATIAL_TODO = ("insarseg_torch shards the image H axis (mesh_spatial > 1) "
+                "for the U-Net families only; the ResNet families' strided "
+                "and dilated halos, global pools and resizes are ROADMAP "
+                "Queue 1 item 21b")
 # a collective that waits this long has lost a rank: the launch fails
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
-NEEDS_LAUNCH = ("mesh_data > 1 trains one process per device: run fit "
-                "inside insarseg_torch.parallel.launch (or torchrun), or "
-                "set mesh_data to -1 or 1")
+NEEDS_LAUNCH = ("mesh_data > 1 or mesh_spatial > 1 trains one process per "
+                "device: run fit inside insarseg_torch.parallel.launch (or "
+                "torchrun), or set mesh_data to -1 or 1 and mesh_spatial "
+                "to 1")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The devices of the ``data`` axis, in order (repeats allowed)."""
+    """A ('data', 'spatial') grid of devices: ``devices`` in the JAX
+    package's ``reshape(data, spatial)`` order (row d holds
+    ``devices[d * spatial:(d + 1) * spatial]``, its slabs top to bottom);
+    repeats allowed."""
 
     devices: Tuple[torch.device, ...]
+    spatial: int = 1
+
+    @property
+    def data(self) -> int:
+        return len(self.devices) // self.spatial
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices), "spatial": 1}
+        return {"data": self.data, "spatial": self.spatial}
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def over_data(self) -> "Mesh":
+        """The data axis alone: each row's first device (the packed
+        engines split the batch over it and never shard H)."""
+        return Mesh(self.devices[::self.spatial])
 
 
 def _device(d: DeviceLike) -> torch.device:
@@ -80,12 +105,12 @@ def _device(d: DeviceLike) -> torch.device:
 def make_mesh(data: int = -1, spatial: int = 1,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """A ('data', 'spatial') mesh over ``devices`` (default: every visible
-    card; without one this raises, as ``device.resolve_device`` does).
-    ``data=-1`` takes all of them; ``data`` larger than the devices given
-    raises, as the JAX package's ``make_mesh`` asserts."""
-    if spatial > 1:
-        raise NotImplementedError(SPATIAL_TODO)
-    if spatial != 1:
+    card; without one this raises, as ``device.resolve_device`` does), the
+    first ``data * spatial`` of them. ``data=-1`` takes ``n // spatial``,
+    where ``spatial`` must divide the ``n`` devices; a mesh larger than
+    the devices given raises, as the JAX package's ``make_mesh``
+    asserts."""
+    if spatial < 1:
         raise ValueError(f"mesh spatial must be >= 1, got {spatial}")
     if devices is None:
         resolve_device(None)
@@ -95,18 +120,22 @@ def make_mesh(data: int = -1, spatial: int = 1,
         devs = [_device(d) for d in devices]
     n = len(devs)
     if data == -1:
-        data = n
-    if not 1 <= data <= n:
+        if n % spatial:
+            raise ValueError(f"{n} devices do not split into groups of "
+                             f"spatial={spatial}")
+        data = n // spatial
+    if data < 1 or data * spatial > n:
         raise ValueError(f"a mesh of data={data} x spatial={spatial} needs "
                          f"{data * spatial} devices; {n} are given")
-    return Mesh(tuple(devs[:data]))
+    return Mesh(tuple(devs[:data * spatial]), spatial)
 
 
 def rows_of(n: int, r: Optional[int] = None,
             w: Optional[int] = None) -> slice:
     """The rows of an ``n``-row global batch that rank ``r`` of ``w``
     holds (default: this process's), ``torch.tensor_split``'s split: the
-    first ``n % w`` ranks take one row more."""
+    first ``n % w`` ranks take one row more. On a spatial mesh ``r`` and
+    ``w`` are the data coordinate and the data axis (:func:`coords`)."""
     r = rank() if r is None else r
     w = world() if w is None else w
     q, m = divmod(n, w)
@@ -114,14 +143,28 @@ def rows_of(n: int, r: Optional[int] = None,
     return slice(start, start + q + (r < m))
 
 
+def slab_of(h: int, s: int, spatial: int) -> slice:
+    """The rows of an image of height ``h`` that slab ``s`` of
+    ``spatial`` holds: equal slabs, so ``spatial`` must divide ``h``."""
+    if h % spatial:
+        raise ValueError(f"an image of height {h} does not split into "
+                         f"{spatial} equal slabs")
+    q = h // spatial
+    return slice(s * q, (s + 1) * q)
+
+
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """A host batch dict with its 'image' (and 'mask') split along dim 0
-    into one shard per mesh device, each on its device (a tuple);
-    other entries pass through."""
+    """A host batch dict with its 'image' (NHWC) and 'mask' (NHW) split
+    into one shard a mesh device, each on its device (a tuple, in
+    ``mesh.devices`` order): B over ``data`` (``torch.tensor_split``) and
+    H over ``spatial`` (:func:`slab_of`); other entries pass through."""
     out = dict(batch)
     for k in ("image", "mask"):
         if k in batch:
-            parts = torch.tensor_split(torch.as_tensor(batch[k]), mesh.size)
+            a = torch.as_tensor(batch[k])
+            parts = [rows[:, slab_of(a.shape[1], s, mesh.spatial)]
+                     for rows in torch.tensor_split(a, mesh.data)
+                     for s in range(mesh.spatial)]
             out[k] = tuple(p.to(d) for p, d in zip(parts, mesh.devices))
     return out
 
@@ -187,6 +230,63 @@ def mesh_engine(predicts: Sequence[Callable], mesh: Mesh) -> Callable:
     return predict
 
 
+def spatial_engine(predicts: Sequence[Callable], mesh: Mesh) -> Callable:
+    """``predict(images)`` over one per-device ``predict`` a device of a
+    spatial mesh, the H axis sharded: the batch splits over ``data``
+    (``torch.tensor_split``) and each row's images into ``spatial`` slabs
+    (:func:`slab_of`), one thread a slab runs its device's ``predict``
+    under a ``parallel/spatial.py::ThreadComm`` of its row (the halo rows
+    and the pools' sums pass between the row's threads), and the NHWC
+    outputs (logits, or the (B, H, W) class map) are joined along H, then
+    along B, on the first device. A thread that raises breaks its row's
+    barrier, and the first error is raised here."""
+    if len(predicts) != mesh.size:
+        raise ValueError(f"{len(predicts)} predicts for a mesh of "
+                         f"{mesh.size} devices")
+    from insarseg_torch.parallel import spatial
+
+    first, n_s = mesh.devices[0], mesh.spatial
+
+    def predict(images):
+        x = torch.as_tensor(images)
+        if x.device.type == "cpu" and first.type == "cuda":
+            x = x.to(first)
+        h = x.shape[1]
+        rows = [(d, r) for d, r in enumerate(torch.tensor_split(x, mesh.data))
+                if len(r)]
+        outs: Dict[Tuple[int, int], torch.Tensor] = {}
+        errors: List[BaseException] = []
+
+        def work(i, dev, part, shared, s):
+            try:
+                with _on(dev), spatial.active(
+                        spatial.ThreadComm(shared, s, dev)):
+                    outs[i, s] = predicts[i](part.to(dev))
+            except Exception as e:  # raised in the caller below
+                errors.append(e)
+                shared.barrier.abort()
+
+        threads = []
+        for d, r in rows:
+            shared = spatial.ThreadExchange(n_s)
+            for s in range(n_s):
+                i = d * n_s + s
+                threads.append(threading.Thread(target=work, args=(
+                    i, mesh.devices[i], r[:, slab_of(h, s, n_s)], shared,
+                    s)))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return torch.cat([torch.cat([outs[d * n_s + s, s].to(first)
+                                     for s in range(n_s)], dim=1)
+                          for d, _ in rows])
+
+    return predict
+
+
 def _on(dev: torch.device):
     """The current-device context of ``dev`` (none off the card)."""
     if dev.type == "cuda":
@@ -209,6 +309,39 @@ def rank() -> int:
 
 def world() -> int:
     return dist.get_world_size() if grouped() else 1
+
+
+def coords(spatial: int = 1, r: Optional[int] = None) -> Tuple[int, int]:
+    """(data, spatial) coordinates of rank ``r`` (default: this process)
+    on a mesh of ``spatial`` slabs a row: ``divmod(r, spatial)``, so a
+    row's ranks are consecutive, as the JAX mesh's devices are."""
+    return divmod(rank() if r is None else r, spatial)
+
+
+_SPATIAL_COMMS: Dict[Tuple[int, Any], Any] = {}
+
+
+def spatial_comm(spatial: int):
+    """This rank's spatial group on a mesh of ``world() // spatial`` rows
+    of ``spatial`` ranks (``parallel/spatial.py::GroupComm``). The first
+    call under a process group makes every row's group, on every rank in
+    the same order (``dist.new_group`` is collective), so every rank must
+    make the call; later calls return the same group."""
+    if not grouped():
+        raise ValueError(NEEDS_LAUNCH)
+    w = world()
+    if w % spatial:
+        raise ValueError(f"a process group of {w} ranks does not split into "
+                         f"groups of spatial={spatial}")
+    key = (spatial, dist.group.WORLD)
+    if key not in _SPATIAL_COMMS:
+        from insarseg_torch.parallel.spatial import GroupComm
+
+        d, s = coords(spatial)
+        groups = [dist.new_group(list(range(i * spatial, (i + 1) * spatial)))
+                  for i in range(w // spatial)]
+        _SPATIAL_COMMS[key] = GroupComm(groups[d], spatial, s)
+    return _SPATIAL_COMMS[key]
 
 
 def barrier() -> None:

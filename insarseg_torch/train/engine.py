@@ -31,8 +31,20 @@ the global batch from the step's seed on every rank, each rank taking its
 columns, so the mesh augments as one device does; dropout draws rank 0's
 mask from the one-device seed and rank r's from ``SeedSequence([seed,
 step, r])``, so a mesh step equals a one-device step only with dropout
-off. ``mesh_spatial`` above 1 (the H axis sharded) raises, ROADMAP
-Queue 1 item 21.
+off.
+
+With ``spatial`` S above 1 (``fit``: ``cfg.mesh_spatial``; the JAX
+package's ``spatial`` mesh axis) the ranks form ``world / S`` data rows
+of S ranks, rank ``d * S + s`` holding rows ``rows_of(n, d, world / S)``
+of the global batch and slab ``s`` of their H axis (``slab_of``). The
+rank's rows are copied, normalized and augmented at full H x W (the D4
+flips and the transpose move rows between slabs), and then cut to the
+slab; the forward and backward run under the row's spatial group
+(``parallel/mesh.py::spatial_comm``): the convs exchange halo rows and
+the SE squeezes sum over the slabs (``parallel/spatial.py``). The BN
+moments, the loss's valid count, the gradients and the counts are
+summed over every rank as on a data mesh, which sums the slabs too. The
+U-Net families only (``models/registry.py::check_spatial``).
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from insarseg_torch.data.augment import normalize_u8, random_dihedral
 from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.ops.layers import nhwc_to_nchw
 from insarseg_torch.parallel import mesh as P
+from insarseg_torch.parallel.spatial import active as spatial_context
 from insarseg_torch.train import metrics as M
 from insarseg_torch.train.losses import cross_entropy_terms
 
@@ -131,6 +144,16 @@ def _cast(image: torch.Tensor, dtype: Optional[torch.dtype]
     return image if dtype is None else image.to(dtype)
 
 
+def augment_flags(aug_seed: int, n: int, dev: torch.device
+                  ) -> torch.Tensor:
+    """The D4 flags (3, n) of a global batch of ``n`` for the augment seed
+    ``aug_seed`` (``step_seeds``), drawn on ``dev`` (the same on every
+    rank)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(aug_seed)
+    return torch.rand((3, n), generator=g, device=dev) < 0.5
+
+
 def step_seeds(seed: int, step: int, rank: int = 0) -> Tuple[int, int]:
     """(augment seed, dropout seed) of step ``step`` of a run with base
     ``seed``: a resumed run redraws the stream the first run drew. The
@@ -194,21 +217,49 @@ def _put(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def _local(image, mask, dev: torch.device, grouped: bool):
+def _local(image, mask, dev: torch.device, grouped: bool,
+           spatial: int = 1):
     """The image and mask on ``dev``; ``grouped``, this rank's rows of the
-    global batch, taken before the copy (a host batch sends each card its
-    rows alone)."""
+    global batch (by its data coordinate on a mesh of ``spatial`` slabs a
+    row), taken before the copy (a host batch sends each card its rows
+    alone)."""
     if grouped:
-        rows = P.rows_of(len(image))
+        rows = _data_rows(len(image), spatial)
         image, mask = image[rows], mask[rows]
     return _put(image, dev), _put(mask, dev)
+
+
+def _data_rows(n: int, spatial: int) -> slice:
+    """This rank's rows of an ``n``-row global batch: its data row's
+    (``rows_of`` by the data coordinate)."""
+    return P.rows_of(n, P.coords(spatial)[0], P.world() // spatial)
+
+
+def _slab(image: torch.Tensor, mask: torch.Tensor, comm
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's slab of the NHWC image and NHW mask (both whole
+    without a spatial group)."""
+    if comm is None:
+        return image, mask
+    rows = P.slab_of(image.shape[1], comm.index, comm.size)
+    return image[:, rows], mask[:, rows]
+
+
+def _spatial_comm(model: nn.Module, spatial: int):
+    """The spatial group of the steps of ``model`` (None for 1)."""
+    if spatial == 1:
+        return None
+    from insarseg_torch.models.registry import check_spatial
+
+    check_spatial(model)
+    return P.spatial_comm(spatial)
 
 
 def make_train_step(model: nn.Module, num_classes: int,
                     ignore_index: int = 255, augment: bool = False,
                     normalize: Optional[Tuple[float, float]] = (0.5, 0.5),
-                    compute_dtype: Optional[torch.dtype] = None
-                    ) -> Callable:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    spatial: int = 1) -> Callable:
     """``step(state, image, mask, seed=0) -> {loss, tp, fp, fn, correct,
     valid}``: one Adam step of ``model`` (``state.model``) on an NHWC batch
     (uint8 images are normalized on the device), in train mode (BN batch
@@ -223,28 +274,29 @@ def make_train_step(model: nn.Module, num_classes: int,
     Under a process group (made when the step is built) ``image`` and
     ``mask`` are the global batch, the model's BatchNorms are synced
     (``parallel/mesh.py::sync_batchnorm``) and the step is the global
-    batch's (the module docstring)."""
+    batch's (the module docstring); with ``spatial`` above 1 each rank
+    holds a slab of its rows' H axis (building the step makes the spatial
+    groups: every rank builds it)."""
     grouped = P.grouped()
     if grouped:
         P.sync_batchnorm(model)
+    comm = _spatial_comm(model, spatial)
 
     def step(state: TrainState, image, mask, seed: int = 0):
         dev = next(model.parameters()).device
         aug_seed, drop_seed = step_seeds(seed, state.step, P.rank())
         flags = None
         if augment:
-            g = torch.Generator(device=dev)
-            g.manual_seed(aug_seed)
-            flags = torch.rand((3, len(image)), generator=g, device=dev) \
-                < 0.5
+            flags = augment_flags(aug_seed, len(image), dev)
             if grouped:
-                flags = flags[:, P.rows_of(len(image))]
-        image, mask = _local(image, mask, dev, grouped)
+                flags = flags[:, _data_rows(len(image), spatial)]
+        image, mask = _local(image, mask, dev, grouped, spatial)
         image = _to_float(image, normalize)
         if augment:
             image, mask = random_dihedral(image, mask, flags=flags)
+        image, mask = _slab(image, mask, comm)
         model.train()
-        with _f32(), torch.random.fork_rng(
+        with _f32(), spatial_context(comm), torch.random.fork_rng(
                 devices=[dev] if dev.type == "cuda" else []):
             _default_generator(dev).manual_seed(drop_seed)
             logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
@@ -271,23 +323,25 @@ def make_train_step(model: nn.Module, num_classes: int,
 def make_eval_step(model: nn.Module, num_classes: int,
                    ignore_index: int = 255,
                    normalize: Optional[Tuple[float, float]] = (0.5, 0.5),
-                   compute_dtype: Optional[torch.dtype] = None
-                   ) -> Callable:
+                   compute_dtype: Optional[torch.dtype] = None,
+                   spatial: int = 1) -> Callable:
     """``step(image, mask) -> {loss, counts}`` of ``model`` in eval mode
     (BN running statistics, no dropout), on the model's device, the image
     entering the model in ``compute_dtype`` (as in
     :func:`make_train_step`). Under a process group (made when the step
-    is built) each rank scores its rows of the global batch and the loss
-    and counts are the global batch's."""
+    is built) each rank scores its rows of the global batch (with
+    ``spatial`` above 1, their slab) and the loss and counts are the
+    global batch's."""
     grouped = P.grouped()
+    comm = _spatial_comm(model, spatial)
 
     @torch.no_grad()
     def step(image, mask):
         dev = next(model.parameters()).device
-        image, mask = _local(image, mask, dev, grouped)
-        image = _to_float(image, normalize)
+        image, mask = _local(image, mask, dev, grouped, spatial)
+        image, mask = _slab(_to_float(image, normalize), mask, comm)
         model.eval()
-        with _f32():
+        with _f32(), spatial_context(comm):
             logits = model(nhwc_to_nchw(_cast(image, compute_dtype))) \
                 .permute(0, 2, 3, 1)
         return _scores(logits, mask, num_classes, ignore_index,
@@ -406,22 +460,37 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     resumed epochs only).
 
     ``fit`` is SPMD: inside a ``torch.distributed`` group (``launch``,
-    ``torchrun``) it runs as one rank of a ``data`` mesh, every rank
-    iterating the same loader (the global batches) and ``device`` this
-    rank's; ``cfg.mesh_data`` must then be -1 or the group's size. Only
-    rank 0 prints and saves checkpoints, every rank restores on resume,
-    and the ranks meet after each save. Without a group ``fit`` runs on
-    one device, and ``mesh_data`` above 1 raises. ``mesh_spatial`` above
-    1 raises (ROADMAP Queue 1 item 21)."""
+    ``torchrun``) it runs as one rank of a ('data', 'spatial') mesh of
+    ``world / cfg.mesh_spatial`` rows of ``cfg.mesh_spatial`` ranks,
+    every rank iterating the same loader (the global batches) and
+    ``device`` this rank's; ``cfg.mesh_data`` must then be -1 or ``world /
+    mesh_spatial``. Only rank 0 prints and saves checkpoints, every rank
+    restores on resume, and the ranks meet after each save. Without a
+    group ``fit`` runs on one device, and ``mesh_data`` or
+    ``mesh_spatial`` above 1 raises ``ValueError``, as ``mesh_spatial``
+    above the ranks does; under ``mesh_spatial`` above 1 a model outside
+    the U-Net families raises ``NotImplementedError`` (ROADMAP Queue 1
+    item 21b). A batch that the data axis does not divide splits
+    unevenly (``rows_of``), as on a data mesh, where the JAX package
+    shrinks its data axis to a divisor."""
     dev = resolve_device(device)
     dtype = cfg_dtype(cfg)
-    if cfg.mesh_spatial > 1:
-        raise NotImplementedError(P.SPATIAL_TODO)
+    n_s = cfg.mesh_spatial
+    if n_s > 1:
+        from insarseg_torch.models.registry import check_spatial
+
+        check_spatial(cfg.model)
     if P.grouped():
-        if cfg.mesh_data not in (-1, P.world()):
+        w = P.world()
+        if n_s > w or w % n_s:
+            raise ValueError(f"mesh_spatial={n_s} in a process group of {w} "
+                             "ranks: the ranks must split into groups of "
+                             "mesh_spatial")
+        if cfg.mesh_data not in (-1, w // n_s):
             raise ValueError(f"mesh_data={cfg.mesh_data} in a process "
-                             f"group of {P.world()} ranks")
-    elif cfg.mesh_data > 1:
+                             f"group of {w} ranks"
+                             + (f" at mesh_spatial={n_s}" if n_s > 1 else ""))
+    elif cfg.mesh_data > 1 or n_s > 1:
         raise ValueError(P.NEEDS_LAUNCH)
     verbose = verbose and P.rank() == 0
     if iter(train_loader) is train_loader:
@@ -442,10 +511,11 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     norm = (cfg.normalize_mean, cfg.normalize_std)
     train_step = make_train_step(state.model, cfg.num_classes,
                                  cfg.ignore_index, augment=cfg.augment,
-                                 normalize=norm, compute_dtype=dtype)
+                                 normalize=norm, compute_dtype=dtype,
+                                 spatial=n_s)
     eval_step = make_eval_step(state.model, cfg.num_classes,
                                cfg.ignore_index, normalize=norm,
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, spatial=n_s)
     place = _placer(dev)
 
     history: List[Dict[str, Any]] = []

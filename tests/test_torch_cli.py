@@ -343,11 +343,25 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["predict", "--input", "scene.png", "--mesh-spatial", "2"], "item 21"),
+    (["train", "--preset", "deeplabv3", "--image-size", "32", "--voc-root",
+      "voc", "--mesh-spatial", "2"], "item 21b"),
 ])
 def test_cli_unported_flags_raise(cwd, flags, item):
+    """A ResNet family's H axis is not sharded yet; the U-Net families'
+    is (``train --mesh-spatial``, ``tests/test_torch_spatial.py``)."""
     with pytest.raises(NotImplementedError, match=item):
-        port(*flags, *BASE)
+        port(*flags)
+
+
+def test_cli_predict_mesh_spatial_runs_as_jax(cwd):
+    """``predict --mesh-spatial 2`` runs as the JAX CLI's does, which
+    serves over a data mesh and ignores the spatial axis: the PNG of a run
+    without the flag."""
+    flags = ["predict", *BASE, "--input", "scene.png", "--tile", "32",
+             "--overlap", "8"]
+    assert port(*flags, "--output", "a.png") == 0
+    assert port(*flags, "--mesh-spatial", "2", "--output", "b.png") == 0
+    np.testing.assert_array_equal(_png("a.png"), _png("b.png"))
 
 
 BF16 = ["--compute-dtype", "bfloat16"]

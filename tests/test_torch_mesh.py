@@ -6,7 +6,9 @@ package's engines on ``make_mesh(data=4)`` (the 8 virtual CPU devices of
 
 - ``make_mesh`` / ``shard_batch`` / ``replicate`` / ``replicate_arrays``
   with the JAX helpers' semantics: the ``data=-1`` arithmetic, the checks,
-  Python scalars kept; ``spatial > 1`` raises naming ROADMAP item 21;
+  Python scalars kept; a ``spatial`` axis gives the JAX helper's shape
+  (``tests/test_torch_spatial.py`` runs it), and a ResNet family under it
+  raises naming ROADMAP item 21b;
   the CLI's ``_eval_mesh`` picks the JAX CLI's data axis (the cases of
   ``tests/test_engines_mesh.py:198-210``);
 - U-Net-CA (base 16, 32^2, global b8) on the module, serve and int8
@@ -81,8 +83,16 @@ def test_make_mesh_follows_the_jax_helper():
         make_mesh(9, devices=["cpu"] * 8)
     with pytest.raises(ValueError):
         make_mesh(0, devices=CPUS)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        make_mesh(2, spatial=2, devices=CPUS)
+    # the spatial axis: the JAX helper's shapes; a ResNet family raises
+    # naming item 21b where a spatial mesh would run it
+    assert make_mesh(2, spatial=2, devices=CPUS).shape == \
+        dict(jax_make_mesh(data=2, spatial=2).shape)
+    assert make_mesh(-1, spatial=4, devices=["cpu"] * 8).shape == \
+        dict(jax_make_mesh(data=-1, spatial=4).shape)
+    from insarseg_torch.models.registry import check_spatial
+
+    with pytest.raises(NotImplementedError, match="item 21b"):
+        check_spatial("deeplabv3")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()  # the default devices are the cards: none here
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -15,7 +15,9 @@ in ``tmp_path``, then a resume to epoch 3:
   state the ranks trained, no temporary file left, and a Checkpointer
   on another rank writes nothing;
 - ``mesh_data`` other than -1 or the group's size raises in a group, and
-  above 1 without one (the ``ValueError`` naming ``launch``).
+  above 1 without one (the ``ValueError`` naming ``launch``), as
+  ``mesh_spatial`` above 1 does; a ResNet family with ``mesh_spatial``
+  above 1 raises naming ROADMAP item 21b.
 """
 
 import dataclasses
@@ -104,6 +106,12 @@ def test_fit_checks_mesh_data(runs):
     with pytest.raises(ValueError, match="launch"):
         R.TE.fit(model, dataclasses.replace(CFG, mesh_data=2), train,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
+    # mesh_spatial > 1 also needs a group (tests/test_torch_spatial_train.py
+    # runs it in one), and a ResNet family raises naming item 21b
+    with pytest.raises(ValueError, match="launch"):
         R.TE.fit(model, dataclasses.replace(CFG, mesh_spatial=2), train,
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="item 21b"):
+        R.TE.fit(model, dataclasses.replace(CFG, model="fcn",
+                                            mesh_spatial=2), train,
                  device="cpu")
