@@ -197,11 +197,22 @@ only (no JAX, nothing of ``insarseg``) and:
    ``make_mesh(data=1, spatial=2, devices=[cuda:0, cuda:0])`` (one
    thread a slab) against one device, U-Net-CA, U-Net-SA and
    U-Net-fast-CA at 512^2 b8, f32 within 1e-5 x max|logit|, bf16
-   counted; on a machine with more cards, also (``spatial_cards``) the
-   NCCL bf16 step at data 1 x spatial 2, 1 x 4 and 2 x 2 timed against
-   one card by CUDA events, rank 0's halo exchanges and all-reduces from
-   a profiler window, the peak memory a card at 1024^2 global b8, and
-   the CLI's ``train --mesh-spatial 2`` over the cards.
+   counted; the ResNet families (``SPATIAL_RESNETS``: FCN-ResNet50-CA,
+   DeepLabV3-ResNet50, PSPNet-ResNet50-CA, dropout off) take the same two
+   f32 SGD steps on the two gloo ranks, held to one process's at
+   ``MESH_BARS`` and ``TIE_BAR`` (a loss, count, parameter or statistic
+   that misses its bar no further from the float64 steps' than
+   ``FLOAT_NOISE`` x one process's f32 one), and their forward over the
+   two slabs within 1e-4 x max|logit| in f32, bf16 counted; on a machine
+   with more cards, also (``spatial_cards``) the NCCL bf16 step at data
+   1 x spatial 2, 1 x 4 and 2 x 2 (U-Net-CA) and 1 x 2, 1 x 4
+   (DeepLabV3-ResNet50, whose ASPP halos reach past a 16-row slab at 1 x
+   4) timed against one card by CUDA events, rank 0's halo exchanges and
+   all-reduces from a profiler window, the peak memory a card at 1024^2
+   (U-Net-CA global b8; DeepLabV3 at the largest global batch that one
+   card and spatial 2 and 4 all hold), and the CLI's ``train
+   --mesh-spatial 2`` over the cards (``unet-channelattention`` and
+   ``deeplabv3``).
    ``python3 chip_smoke.py --only spatial`` builds the kernels and runs
    this phase alone;
 10. prints the kernel table as one JSON line (each row with
@@ -3238,6 +3249,17 @@ MESH_LR = 0.1  # SGD: the update is linear in the summed gradient
 # from equal parameters): the loss's rtol, the parameters' and the BN
 # statistics' atol; that step's counts equal
 MESH_BARS = (1e-5, 1e-4, 1e-5)
+# a ResNet's f32 SGD step reproduces its parameters to about 1e-3 of the
+# step only (one process against itself at another thread count on the
+# CPU, tests/test_torch_spatial_resnet_fit.py), and DeepLabV3's pooled
+# BatchNorm (a batch variance ~1e-3 of its mean squared) moves its
+# forward by ~1e-4 for an ulp of the image mean: where a mesh's step
+# misses a bar of MESH_BARS / TIE_BAR, that quantity must lie no further
+# from the float64 step's than this many times one process's f32 one does
+# (``mesh_hold``). On two H100s the ratio read up to 1.93 (DeepLabV3's BN
+# statistics: the mesh's 3.36e-5 against one process's 1.74e-5 and
+# 2.18e-5 on another card), where a fault moves a step by orders more
+FLOAT_NOISE = 4.0
 MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
 # x max|logit|: a pixel whose two logits lie this close is a near tie,
 # which the spatial steps' counts may flip (``mesh_hold``): at 512^2 b8,
@@ -3345,27 +3367,44 @@ def _cpu_tree(tree):
 
 def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR, starts=None,
                   spatial: int = 1, attention: str = "channel",
-                  ties: bool = False):
+                  ties: bool = False, resnet=None, dtype=None):
     """One rank (or, without a group, one process) of U-Net-CA (with
     ``attention`` "spatial", U-Net-SA; ``base`` features, the seeded init)
     on ``device`` taking one SGD step on each global batch in turn, in f32
     under ``cudnn.deterministic``, its H axis over ``spatial`` ranks: each
-    step's outputs and the state_dict after each step. Given ``starts``,
-    step k first loads ``starts[k]`` (a state_dict; ``None`` keeps the
-    state it has). With ``ties`` each step's outputs also hold
+    step's outputs and the state_dict after each step. ``resnet`` (a
+    (model, attention) cell of the ResNet families) trains that cell in
+    place of the U-Net: ``build_model``'s seeded weights, dropout off (each
+    rank draws its own mask), every BatchNorm the JAX package's moment
+    rule in one process as under a group (``sync_batchnorm``); ``dtype``
+    ``torch.float64``: the model and its steps in float64. Given
+    ``starts``, step k first loads ``starts[k]`` (a state_dict; ``None``
+    keeps the state it has). With ``ties`` each step's outputs also hold
     ``"ties"``: the pixels of its forward whose two logits lie within
     ``TIE_BAR`` x max|logit| of each other (``mesh_hold``)."""
     import torch
     from insarseg_torch.models.unet import UNet
+    from insarseg_torch.parallel import sync_batchnorm
     from insarseg_torch.train.engine import create_state, make_train_step
 
     _deterministic()
-    model = UNet(num_classes=2, base_features=base,
-                 use_se=attention == "channel",
-                 use_sa=attention == "spatial")
-    state = create_state(model, seed=SEED, device=device)
+    if resnet is None:
+        model = UNet(num_classes=2, base_features=base,
+                     use_se=attention == "channel",
+                     use_sa=attention == "spatial")
+        state = create_state(model, seed=SEED, device=device)
+        head = model.outc
+    else:
+        model = sync_batchnorm(build_model(*resnet).train())
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        state = create_state(model, device=device)
+        head = model
+    if dtype is not None:
+        model.to(dtype)
     state.optimizer = torch.optim.SGD(model.parameters(), lr=lr)
-    step = make_train_step(model, 2, spatial=spatial)
+    step = make_train_step(model, 2, spatial=spatial, compute_dtype=dtype)
     seen = []
     if ties:
         def near(mod, inp, out):
@@ -3374,7 +3413,7 @@ def mesh_sgd_rank(batches, base, device, lr: float = MESH_LR, starts=None,
             seen.append(int((margin <= TIE_BAR * float(out.abs().max()))
                             .sum()))
 
-        model.outc.register_forward_hook(near)
+        head.register_forward_hook(near)
     outs, states = [], []
     for k, b in enumerate(batches):
         if starts is not None and starts[k] is not None:
@@ -3438,13 +3477,19 @@ def mesh_gloo_rank(batches, fit_data, directory, base, device):
 
 
 def mesh_hold(got, batches, device, label, attention: str = "channel",
-              want=None) -> None:
+              want=None, net=None, exact=None) -> None:
     """A mesh's SGD steps (``mesh_sgd_rank``) against one process's at
     ``MESH_BARS``, each step one step from equal parameters: step k of
     the one process on ``device`` starts from the mesh's state after step
     k-1 (the first from the seeded init). Every step's loss and counts
     (equal), the parameters and the BN statistics after it. ``want``: the
-    one process's steps, already run from those states."""
+    one process's steps, already run from those states. ``exact``: the
+    same one-process steps in float64 from the same states: where the
+    loss, the counts, the parameters or the BN statistics miss their bar,
+    they pass if they lie no further from the float64 steps' than
+    ``FLOAT_NOISE`` times the one process's f32 ones do (a step that f32
+    reproduces only to about 1e-3 of itself, as a ResNet-50's, is no
+    fault of the mesh's)."""
     import torch
 
     g_outs, g_sds = got
@@ -3478,9 +3523,42 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
     tracked = all(torch.equal(g_sd[k], w_sd[k])
                   for g_sd, w_sd in zip(g_sds, w_sds) for k in w_sd
                   if k.endswith("num_batches_tracked"))
+    ok = {"loss": loss_rel <= MESH_BARS[0], "counts": not any(over),
+          "parameters": p_err <= MESH_BARS[1],
+          "BN statistics": s_err <= MESH_BARS[2]}
+    noise = ""
+    if exact is not None:
+        x_outs, x_sds = exact
+
+        def off(sds, is_stat):
+            return max(float((sd[k].double() - x_sd[k]).abs().max())
+                       for sd, x_sd in zip(sds, x_sds) for k in x_sd
+                       if x_sd[k].is_floating_point()
+                       and k.endswith(stats) == is_stat)
+
+        def dist(outs, sds):
+            return {"loss": max(abs(float(o["loss"]) - float(x["loss"]))
+                                / abs(float(x["loss"]))
+                                for o, x in zip(outs, x_outs)),
+                    "counts": max(float((o[k].double() - x[k].double())
+                                        .abs().max())
+                                  for o, x in zip(outs, x_outs)
+                                  for k in keys),
+                    "parameters": off(sds, False),
+                    "BN statistics": off(sds, True)}
+
+        d_mesh, d_one = dist(g_outs, g_sds), dist(w_outs, w_sds)
+        for k, good in ok.items():
+            ok[k] = good or d_mesh[k] <= FLOAT_NOISE * d_one[k]
+        noise = ("; from the f64 steps, the mesh's / one process's f32: "
+                 + ", ".join(f"{k} {d_mesh[k]:.3g} / {d_one[k]:.3g}"
+                             for k in d_mesh)
+                 + f" (where a bar is missed: at most {FLOAT_NOISE} x one "
+                 "process's)")
     b, size = batches[0]["image"].shape[:2]
-    net = "U-Net-CA" if attention == "channel" else "U-Net-SA"
-    log(f"  {label} vs one process ({net} base {BASE}, "
+    net = net or ("U-Net-CA" if attention == "channel" else "U-Net-SA") \
+        + f" base {BASE}"
+    log(f"  {label} vs one process ({net}, "
         f"{size}^2 global b{b}, {len(w_outs)} SGD "
         f"{MESH_LR} f32 steps, each from the mesh's parameters, "
         f"cudnn.deterministic, TF32 off): loss rel {loss_rel:.3g} (bar "
@@ -3490,10 +3568,8 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
            f" (bar: at most the near ties a step, {ties} pixels within "
            f"{TIE_BAR} x max|logit|)")
         + f", parameters {p_err:.3g} (bar {MESH_BARS[1]}), BN statistics "
-        f"{s_err:.3g} (bar {MESH_BARS[2]})")
-    if not (loss_rel <= MESH_BARS[0] and not any(over)
-            and p_err <= MESH_BARS[1] and s_err <= MESH_BARS[2]
-            and tracked):
+        f"{s_err:.3g} (bar {MESH_BARS[2]}){noise}")
+    if not (all(ok.values()) and tracked):
         raise AssertionError(f"{label}: the mesh's steps differ from one "
                              "process's")
 
@@ -3941,8 +4017,19 @@ SPATIAL_TRAIN = (512, 8)  # the spatial steps' tiles and global batch
 SPATIAL_BIG = 1024  # the peak-memory reading's tiles, global b8
 # (data, spatial) of the multi-card steps, timed against one card
 SPATIAL_MESHES = ((1, 2), (1, 4), (2, 2))
+SPATIAL_RESNET_MESHES = ((1, 2), (1, 4))  # DeepLabV3's, timed likewise
+# of one card's memory: the largest global batch whose peak it holds
+# (``largest_batch``)
+SPATIAL_BIG_SHARE = 0.8
 SPATIAL_STEPS, SPATIAL_REPS = 5, 3  # warm steps a timing, timings
 SPATIAL_FLOAT_BAR = 1e-5  # x max|logit|: the f32 H-sharded forward
+# x max|logit|: the ResNet families' f32 H-sharded forward (the port's
+# ResNet bar, tests/test_torch_resnet.py)
+SPATIAL_RESNET_BAR = 1e-4
+# the ResNet cells of the spatial phase: (label, model, attention)
+SPATIAL_RESNETS = (("FCN-ResNet50-CA", "fcn", "channel"),
+                   ("DeepLabV3-ResNet50", "deeplabv3", "none"),
+                   ("PSPNet-ResNet50-CA", "pspnet", "channel"))
 HALO_MARK = "spatial halo exchange"  # the profiler range of an exchange
 
 
@@ -3979,19 +4066,28 @@ def spatial_bf16_rank(batch, base, device, spatial: int):
 def spatial_gloo_rank(batches, fit_data, directory, base, device):
     """The one-card spatial checks in one process a rank (world 2, 1 x 2):
     U-Net-CA's and U-Net-SA's f32 SGD steps, the checked bf16 step and
-    ``fit`` with its resume."""
-    return {"ca": mesh_sgd_rank(batches, base, device, spatial=2),
-            "sa": mesh_sgd_rank(batches, base, device, spatial=2,
-                                attention="spatial"),
-            "bf16": spatial_bf16_rank(batches[0], base, device, 2),
-            "fit": mesh_fit_rank(*fit_data, directory, base, device,
-                                 spatial=2)}
+    ``fit`` with its resume; the ResNet cells' f32 SGD steps
+    (``SPATIAL_RESNETS``)."""
+    import torch
+
+    out = {"ca": mesh_sgd_rank(batches, base, device, spatial=2),
+           "sa": mesh_sgd_rank(batches, base, device, spatial=2,
+                               attention="spatial"),
+           "bf16": spatial_bf16_rank(batches[0], base, device, 2),
+           "fit": mesh_fit_rank(*fit_data, directory, base, device,
+                                spatial=2)}
+    for label, name, attention in SPATIAL_RESNETS:
+        torch.cuda.empty_cache()
+        out[label] = mesh_sgd_rank(batches, base, device, spatial=2,
+                                   resnet=(name, attention))
+    return out
 
 
 def spatial_training(dev) -> dict:
     """``launch`` world 2 on ``cuda:0`` (gloo), data 1 x spatial 2:
-    U-Net-CA and U-Net-SA (base ``BASE``, ``SPATIAL_TRAIN``, f32, TF32
-    off) held to one process's SGD steps at ``MESH_BARS`` (``mesh_hold``;
+    U-Net-CA and U-Net-SA (base ``BASE``) and the ResNet cells of
+    ``SPATIAL_RESNETS`` (dropout off), ``SPATIAL_TRAIN``, f32, TF32 off,
+    held to one process's SGD steps at ``MESH_BARS`` (``mesh_hold``;
     each count may move by at most the one process's near-tie pixels,
     ``TIE_BAR``); the bf16 step's every K8a-K9b call held against its
     plain version, its launches a rank equal to the one-card step's; a
@@ -4030,6 +4126,20 @@ def spatial_training(dev) -> dict:
             mesh_hold(r[key], batches, dev,
                       f"spatial 2 on gloo, rank {r['fit']['rank']}",
                       attention, want)
+    for label, name, attention in SPATIAL_RESNETS:
+        torch.cuda.empty_cache()
+        _same_state(ranks[0][label][1][-1], ranks[1][label][1][-1],
+                    f"the ranks' {label} states")
+        starts = [None] + ranks[0][label][1][:-1]
+        want = mesh_sgd_rank(batches, BASE, dev, resnet=(name, attention),
+                             starts=starts, ties=True)
+        torch.cuda.empty_cache()
+        exact = mesh_sgd_rank(batches, BASE, dev, resnet=(name, attention),
+                              starts=starts, dtype=torch.float64)
+        for r in ranks:
+            mesh_hold(r[label], batches, dev,
+                      f"spatial 2 on gloo, rank {r['fit']['rank']}",
+                      want=want, net=f"{label}, dropout off", exact=exact)
     launches = {}
     for i, r in enumerate(ranks):
         bf = r["bf16"]
@@ -4070,7 +4180,9 @@ def spatial_forward(dev) -> None:
     [cuda:0, cuda:0])`` (one thread a slab) against one device at
     ``HW``^2 b``BATCH``: U-Net-CA, U-Net-SA (base ``BASE``) and
     U-Net-fast-CA (level 1 = 128) in f32 within ``SPATIAL_FLOAT_BAR`` x
-    max|logit|; in bf16 the differing logits counted (no bar)."""
+    max|logit|, the ResNet cells of ``SPATIAL_RESNETS`` within
+    ``SPATIAL_RESNET_BAR``; in bf16 the differing logits counted (no
+    bar)."""
     import torch
     from insarseg_torch.parallel import make_mesh, make_predict_fn
 
@@ -4080,7 +4192,9 @@ def spatial_forward(dev) -> None:
     for label, name, attention in (
             (f"U-Net-CA base {BASE}", "unet", "channel"),
             (f"U-Net-SA base {BASE}", "unet", "spatial"),
-            ("U-Net-fast-CA", "unet-fast", "channel")):
+            ("U-Net-fast-CA", "unet-fast", "channel")) + SPATIAL_RESNETS:
+        bar = SPATIAL_FLOAT_BAR if name.startswith("unet") \
+            else SPATIAL_RESNET_BAR
         model = build_model(name, attention)
         for dtype in (None, torch.bfloat16):
             a = make_predict_fn(model, input_dtype=dtype, device=dev)(x)
@@ -4095,24 +4209,28 @@ def spatial_forward(dev) -> None:
             log(f"  {label} {what} {HW}^2 b{BATCH}, H over two slabs on one "
                 f"card vs one device: {int((a != b).sum())} of {a.numel()} "
                 f"logits differ, max {err:.3g} ({err / scale:.3g} x "
-                f"max|logit|{'' if dtype else f', bar {SPATIAL_FLOAT_BAR}'})"
+                f"max|logit|{'' if dtype else f', bar {bar}'})"
                 f", argmax agreement {agree:.6f}; first call {secs:.2f} s")
-            if dtype is None and err > SPATIAL_FLOAT_BAR * scale:
+            if dtype is None and err > bar * scale:
                 raise AssertionError(f"{label}: the H-sharded forward "
                                      "differs from one device")
         del model
         torch.cuda.empty_cache()
 
 
-def spatial_step_rank(size, batch, spatial, steps, reps, trace):
-    """One rank of U-Net-CA's bf16 train step (base ``BASE``, global b
-    ``batch`` at ``size``^2) with its H axis over ``spatial`` ranks (or,
-    without a group, the one-card step): ms a step by CUDA events
-    (``reps`` timings of ``steps`` warm steps) and the peak memory; with
-    ``trace``, a 3-step profiler window on rank 0: the NCCL kernels'
-    device ms a step in all, the device time under the halo exchanges
-    (each ``GroupComm.exchange`` marked by a ``record_function`` here),
-    and the device idle share."""
+def spatial_step_rank(size, batch, spatial, steps, reps, trace, cell=None):
+    """One rank of U-Net-CA's bf16 train step (base ``BASE``; ``cell``, a
+    ResNet family's (model, attention), that cell with ``build_model``'s
+    weights; global b ``batch`` at ``size``^2) with its H axis over
+    ``spatial`` ranks (or, without a group, the one-card step): ms a step
+    by CUDA events (``reps`` timings of ``steps`` warm steps) and the
+    peak memory; with ``trace``, a 3-step profiler window on rank 0: the
+    NCCL kernels' device ms a step in all, the device time under the
+    halo exchanges (each ``GroupComm.exchange`` and, for a halo past the
+    neighbours, ``GroupComm.gather`` and its backward's sum of rows,
+    marked by a ``record_function`` here: the range's host event alone,
+    whose device time is that of the kernels launched inside it) and the
+    bytes of their all-reduce buffers, and the device idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from insarseg_torch.data.synthetic import synthetic_batch
@@ -4122,8 +4240,12 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace):
 
     torch.backends.cudnn.deterministic = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    model = UNet(num_classes=2, base_features=BASE, use_se=True)
-    state = create_state(model, seed=SEED, device=dev)
+    if cell is None:
+        model = UNet(num_classes=2, base_features=BASE, use_se=True)
+        state = create_state(model, seed=SEED, device=dev)
+    else:
+        model = build_model(*cell).train()
+        state = create_state(model, device=dev)
     step = make_train_step(model, 2, compute_dtype=torch.bfloat16,
                            spatial=spatial)
     data = synthetic_batch(batch, size, seed=SEED + 120)
@@ -4147,13 +4269,25 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace):
     if trace and rank() == 0:
         from insarseg_torch.parallel.spatial import GroupComm
 
-        exchange = GroupComm.exchange
+        real = {k: getattr(GroupComm, k) for k in ("exchange", "gather",
+                                                    "sum")}
+        moved = []  # each exchange's all-reduce buffer, bytes
 
-        def marked(comm, up, down):
-            with torch.profiler.record_function(HALO_MARK):
-                return exchange(comm, up, down)
+        def marked(name):
+            def call(comm, *a):
+                # a sum of rows is a halo past the neighbours' backward
+                # (``spatial._Gather``); the pools' sums hold no rows
+                if name != "sum" or a[0].dim() == 4 and a[0].shape[2] > 1:
+                    moved.append((1 if name == "sum" else comm.size)
+                                 * sum(t.numel() * t.element_size()
+                                       for t in a))
+                    with torch.profiler.record_function(HALO_MARK):
+                        return real[name](comm, *a)
+                return real[name](comm, *a)
+            return call
 
-        GroupComm.exchange = marked
+        for k in real:
+            setattr(GroupComm, k, marked(k))
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -4161,7 +4295,8 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace):
                     step(state, x, m)
                 torch.cuda.synchronize()
         finally:
-            GroupComm.exchange = exchange
+            for k, fn in real.items():
+                setattr(GroupComm, k, fn)
         events = prof.events()
         nccl = [(e.name, e.time_range.end - e.time_range.start)
                 for e in events
@@ -4177,6 +4312,7 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace):
         out["halo_ms"] = sum(halo) / 3 / 1e3 if halo and None not in halo \
             else None
         out["halo_calls"] = len(halo) / 3
+        out["halo_mb"] = (sum(moved) / 3 / 1e6, max(moved, default=0) / 1e6)
         out["nccl_ms"] = sum(t for _, t in nccl) / 3 / 1e3
         out["nccl_names"] = sorted({n[:48] for n, _ in nccl})
         out["idle"] = device_idle_share(prof)
@@ -4187,59 +4323,58 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace):
     return out
 
 
-def spatial_cli(root, devices_flag):
-    """``python -m insarseg_torch.cli train --mesh-spatial 2`` of U-Net-CA
-    (``TRAIN_PRESET``, 2 epochs) on the VOC tree under ``root``, as a user
-    runs it: the history."""
+def spatial_cli(root, devices_flag, preset=TRAIN_PRESET):
+    """``python -m insarseg_torch.cli train --mesh-spatial 2`` of
+    ``preset`` (U-Net-CA's ``TRAIN_PRESET``, 2 epochs) on the VOC tree
+    under ``root``, as a user runs it: the history."""
     from insarseg_torch import cli
 
-    hist = f"{root}/spatial.json"
-    if cli.main(["train", "--preset", TRAIN_PRESET, "--voc-root",
-                 f"{root}/voc", "--num-epochs", "2", "--model-save-path",
-                 f"{root}/m/best.ckpt", "--metrics-save-path", hist,
+    hist = f"{root}/spatial_{preset}.json"
+    if cli.main(["train", "--preset", preset, "--voc-root", f"{root}/voc",
+                 "--num-epochs", "2", "--model-save-path",
+                 f"{root}/m_{preset}/best.ckpt", "--metrics-save-path", hist,
                  "--mesh-spatial", "2", *devices_flag]):
-        raise AssertionError("train --mesh-spatial 2 failed")
+        raise AssertionError(f"train --preset {preset} --mesh-spatial 2 "
+                             "failed")
     with open(hist) as f:
         return json.load(f)
 
 
-def spatial_cards(power_line) -> None:
-    """On every card (more than one): U-Net-CA's bf16 step at
-    ``HW``^2 global b``BATCH`` over each of ``SPATIAL_MESHES`` that fits
-    the cards, timed against one card with CUDA events, with rank 0's
-    halo and all-reduce device ms from a profiler window; the peak memory
-    a card at ``SPATIAL_BIG``^2 global b``BATCH``; the CLI's ``train
-    --mesh-spatial 2`` over the cards."""
-    import tempfile
-
+def spatial_timings(label, cell, meshes, power_line) -> None:
+    """``label``'s bf16 step (``spatial_step_rank``'s ``cell``) at
+    ``HW``^2 global b``BATCH`` over each (data, spatial) of ``meshes``
+    that fits the cards, timed against one card with CUDA events, with
+    rank 0's halo and all-reduce device ms from a profiler window."""
     import torch
-    from insarseg_torch.data.synthetic import make_synthetic_voc
     from insarseg_torch.parallel import launch
 
     n = torch.cuda.device_count()
-    one = spatial_step_rank(HW, BATCH, 1, SPATIAL_STEPS, SPATIAL_REPS, True)
+    one = spatial_step_rank(HW, BATCH, 1, SPATIAL_STEPS, SPATIAL_REPS, True,
+                            cell)
     torch.cuda.empty_cache()  # rank 0 shares this process's card
     ms1 = float(np.median(one["ms"]))
-    log(f"  U-Net-CA bf16 step {HW}^2 b{BATCH} on one card: {ms1:.3f} ms "
+    log(f"  {label} bf16 step {HW}^2 b{BATCH} on one card: {ms1:.3f} ms "
         f"({one['ms']}), peak {one['peak_gib']:.3f} GiB; on {power_line}")
-    for data, spatial in SPATIAL_MESHES:
+    for data, spatial in meshes:
         w = data * spatial
         if w > n:
             continue
         t0 = time.perf_counter()
         ranks = launch(spatial_step_rank, w, args=(
-            HW, BATCH, spatial, SPATIAL_STEPS, SPATIAL_REPS, True))
+            HW, BATCH, spatial, SPATIAL_STEPS, SPATIAL_REPS, True, cell))
         r0 = ranks[0]
         msw = float(np.median(r0["ms"]))
         idle, halo = r0.get("idle"), r0["halo_ms"]
-        log(f"  data {data} x spatial {spatial} (NCCL, {w} cards, launch "
-            f"{time.perf_counter() - t0:.1f} s): {msw:.3f} ms a step "
+        log(f"  {label} data {data} x spatial {spatial} (NCCL, {w} cards, "
+            f"launch {time.perf_counter() - t0:.1f} s): {msw:.3f} ms a step "
             f"({r0['ms']}) against one card's {ms1:.3f}, x{ms1 / msw:.3f}; "
-            "halo exchanges "
+            "halo exchanges (the range's host side) "
             + ("not measured" if halo is None else
                f"{halo:.3f} ms of device time a step "
                f"({100 * halo / msw:.2f}% of the step)")
-            + f" over {r0['halo_calls']:.0f} exchanges; NCCL kernels "
+            + f" over {r0['halo_calls']:.0f} exchanges, whose buffers hold "
+            f"{r0['halo_mb'][0]:.1f} MB a step, the largest "
+            f"{r0['halo_mb'][1]:.1f} MB; NCCL kernels "
             f"{r0['nccl_ms']:.3f} ms in all ({r0['nccl_names']}); rank 0 "
             "idle share "
             + ("not measured" if idle is None else f"{100 * idle:.2f}%")
@@ -4247,28 +4382,102 @@ def spatial_cards(power_line) -> None:
             + json.dumps([round(r["peak_gib"], 3) for r in ranks])
             + f"; on {power_line}")
         del ranks
-    peaks = {"1 card": spatial_step_rank(SPATIAL_BIG, BATCH, 1, 1, 1,
-                                         False)["peak_gib"]}
+
+
+def spatial_peaks(label, cell, batch, spatials) -> dict:
+    """The peak ``max_memory_allocated`` a card of ``label``'s bf16 step at
+    ``SPATIAL_BIG``^2 global b``batch``, on one card and over data 1 x
+    each of ``spatials`` that fits the cards."""
+    import torch
+    from insarseg_torch.parallel import launch
+
+    peaks = {"1 card": spatial_step_rank(SPATIAL_BIG, batch, 1, 1, 1,
+                                         False, cell)["peak_gib"]}
     torch.cuda.empty_cache()
-    for data, spatial in SPATIAL_MESHES:
-        if data * spatial <= n:
-            ranks = launch(spatial_step_rank, data * spatial, args=(
-                SPATIAL_BIG, BATCH, spatial, 1, 1, False))
-            peaks[f"{data} x {spatial}"] = max(r["peak_gib"] for r in ranks)
-    log(f"  U-Net-CA bf16 step {SPATIAL_BIG}^2 global b{BATCH}: peak "
-        f"max_memory_allocated GiB a card {json.dumps(peaks)}; on "
-        f"{power_line}")
+    for spatial in spatials:
+        if spatial <= torch.cuda.device_count():
+            ranks = launch(spatial_step_rank, spatial, args=(
+                SPATIAL_BIG, batch, spatial, 1, 1, False, cell))
+            peaks[f"1 x {spatial}"] = max(r["peak_gib"] for r in ranks)
+    log(f"  {label} bf16 step {SPATIAL_BIG}^2 global b{batch}: peak "
+        f"max_memory_allocated GiB a card {json.dumps(peaks)}")
+    return peaks
+
+
+def peaks_rank(size, batches, spatial, cell) -> list:
+    """The peak memory of one bf16 step at ``size``^2 and each global
+    batch of ``batches`` in turn (``spatial_step_rank``), in one process
+    (a rank, or one card)."""
+    return [spatial_step_rank(size, b, spatial, 1, 1, False, cell)["peak_gib"]
+            for b in batches]
+
+
+def largest_batch(label, cell, spatials) -> int:
+    """The largest global batch at ``SPATIAL_BIG``^2 whose bf16 step
+    ``SPATIAL_BIG_SHARE`` of a card holds on one card and over data 1 x
+    each of ``spatials`` that fits the cards, by each one's peaks at b1
+    and b2 (the peak grows linearly in the batch): the smallest of their
+    largest batches, each logged."""
+    import torch
+    from insarseg_torch.parallel import launch
+
+    peaks = {"1 card": peaks_rank(SPATIAL_BIG, (1, 2), 1, cell)}
+    torch.cuda.empty_cache()
+    for spatial in spatials:
+        if spatial <= torch.cuda.device_count():
+            ranks = launch(peaks_rank, spatial, args=(SPATIAL_BIG, (1, 2),
+                                                      spatial, cell))
+            peaks[f"1 x {spatial}"] = [max(r[i] for r in ranks)
+                                       for i in range(2)]
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    largest = {k: 1 + int((SPATIAL_BIG_SHARE * total - p1) // (p2 - p1))
+               for k, (p1, p2) in peaks.items()}
+    log(f"  {label} bf16 step {SPATIAL_BIG}^2: peak GiB a card at b1 and b2 "
+        + json.dumps({k: [round(p, 3) for p in v] for k, v in peaks.items()})
+        + f" of {total:.1f}: the largest batch in {SPATIAL_BIG_SHARE} of a "
+        "card " + json.dumps(largest))
+    return min(largest.values())
+
+
+def spatial_cards(power_line) -> None:
+    """On every card (more than one): U-Net-CA's bf16 step over
+    ``SPATIAL_MESHES`` and DeepLabV3-ResNet50's over
+    ``SPATIAL_RESNET_MESHES`` (``spatial_timings``); the peak memory a
+    card at ``SPATIAL_BIG``^2, U-Net-CA's at global b``BATCH`` and
+    DeepLabV3's at the largest global batch that one card and spatial 2
+    and 4 all hold (``largest_batch``), on one card and at spatial 2 and
+    4; the CLI's
+    ``train --mesh-spatial 2`` over the cards at U-Net-CA's preset and at
+    ``deeplabv3``'s."""
+    import tempfile
+
+    import torch
+    from insarseg_torch.data.synthetic import make_synthetic_voc
+
+    n = torch.cuda.device_count()
+    deeplab = ("deeplabv3", "none")
+    spatial_timings("U-Net-CA", None, SPATIAL_MESHES, power_line)
+    spatial_timings("DeepLabV3-ResNet50", deeplab, SPATIAL_RESNET_MESHES,
+                    power_line)
+    spatial_peaks("U-Net-CA", None, BATCH,
+                  sorted({s for _, s in SPATIAL_MESHES}))
+    spatial_peaks("DeepLabV3-ResNet50", deeplab,
+                  largest_batch("DeepLabV3-ResNet50", deeplab, (2, 4)),
+                  (2, 4))
+    log(f"  (peaks on {power_line})")
     with tempfile.TemporaryDirectory() as root:
         make_synthetic_voc(f"{root}/voc", n_train=32, n_val=8, size=128,
                            seed=SEED + 40)
-        t0 = time.perf_counter()
-        hist = spatial_cli(root, ["--mesh-data", "-1"])
-        log(f"  train --mesh-spatial 2 --mesh-data -1 ({n} cards: data "
-            f"{n // 2} x spatial 2), {TRAIN_PRESET}, 2 epochs: "
-            f"{time.perf_counter() - t0:.1f} s; history "
-            + json.dumps(hist))
-    if not all(np.isfinite(h["train_loss"]) for h in hist):
-        raise AssertionError(f"train --mesh-spatial 2: {hist}")
+        for preset in (TRAIN_PRESET, "deeplabv3"):
+            t0 = time.perf_counter()
+            hist = spatial_cli(root, ["--mesh-data", "-1"], preset)
+            log(f"  train --preset {preset} --mesh-spatial 2 --mesh-data "
+                f"-1 ({n} cards: data {n // 2} x spatial 2), 2 epochs: "
+                f"{time.perf_counter() - t0:.1f} s; history "
+                + json.dumps(hist))
+            if not all(np.isfinite(h["train_loss"]) for h in hist):
+                raise AssertionError(f"train --preset {preset} "
+                                     f"--mesh-spatial 2: {hist}")
 
 
 def spatial_path(dev, power_line: str, phase) -> dict:

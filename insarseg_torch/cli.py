@@ -48,13 +48,13 @@ With ``--device cpu``, ``--mesh-data N`` gives N gloo ranks (``train``)
 or N CPU replicas. The module engine's ``eval`` runs on one device, as
 the JAX CLI's does. ``--mesh-data`` above the visible cards raises.
 
-``train --mesh-spatial S`` shards the image H axis over S ranks (the
-U-Net families; ``parallel/spatial.py``): ``--mesh-data D`` rows of S
-ranks, D x S in all (``--mesh-data -1``: every card, D = cards / S; on
-the CPU, D = 1), ``--device cpu`` giving gloo ranks and ``--device
-cuda:K`` cards K onward. A ResNet family raises ``NotImplementedError``
-(ROADMAP Queue 1 item 21b). ``eval`` and ``predict`` ignore
-``--mesh-spatial``, as the JAX CLI's do.
+``train --mesh-spatial S`` shards the image H axis over S ranks (every
+family; ``parallel/spatial.py``): ``--mesh-data D`` rows of S ranks, D x
+S in all (``--mesh-data -1``: every card, D = cards / S; on the CPU, D =
+1), ``--device cpu`` giving gloo ranks and ``--device cuda:K`` cards K
+onward; ``H / S`` must be a multiple of 16 for the U-Nets (32 for
+``unet-fast``) and of 8 for the ResNet families. ``eval`` and
+``predict`` ignore ``--mesh-spatial``, as the JAX CLI's do.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ as the JAX package's. ``train/engine.py::fit`` runs as one rank of a
 process group of that size (-1 or the group's), and the CLI starts the
 ranks (``train``) or serves over the devices (``eval``, ``predict``).
 ``mesh_spatial`` is the spatial axis: ``fit`` and the CLI's ``train``
-shard the image H axis over that many ranks a data row (the U-Net
-families; ``parallel/spatial.py``); ``eval`` and ``predict`` ignore it,
+shard the image H axis over that many ranks a data row (every family;
+``parallel/spatial.py``); ``eval`` and ``predict`` ignore it,
 as the JAX CLI's do.
 """
 

@@ -14,6 +14,17 @@ ASPP: ``convs.0`` 1x1 + ``convs.1..3`` 3x3 atrous at rates 12/24/36
 package's batch statistics, ``ops/layers.py::MomentBatchNorm2d`` -> ReLU,
 then broadcast back), each 256 wide, concatenated (1280) -> ``project``
 1x1 -> BN -> ReLU -> Dropout(0.5).
+
+Under a spatial context (``parallel/spatial.py``, ``x`` a slab of the H
+axis) the backbone runs as ``models/resnet.py`` says; the atrous
+branches take halos of 12, 24 and 36 rows (from as many slabs as they
+reach), the pooled branch is the whole image's mean
+(``ops/layers.py::GlobalAvgPool2d``) on every slab, its BN marked
+``replicated``, broadcast to the slab's rows; the head's 3x3, CBAM
+channel (the global average and max over every slab) or spatial (a 7x7
+halo) and the final resize (``ops/resize.py``) read across the slabs.
+Dropout draws per rank, so a spatial step equals one device's only with
+it off.
 """
 
 from __future__ import annotations
@@ -27,7 +38,11 @@ from insarseg_torch.ops.blocks import (
     ChannelAttentionModule,
     SpatialAttentionConv,
 )
-from insarseg_torch.ops.layers import Conv2d, MomentBatchNorm2d
+from insarseg_torch.ops.layers import (
+    Conv2d,
+    GlobalAvgPool2d,
+    MomentBatchNorm2d,
+)
 from insarseg_torch.ops.resize import resize_bilinear
 
 
@@ -49,10 +64,11 @@ class ASPP(nn.Module):
         branches = [nn.Sequential(*_conv_bn_relu(in_channels, features))]
         branches += [nn.Sequential(*_conv_bn_relu(in_channels, features, 3, r))
                      for r in ASPP_RATES]
-        # the pooled branch has one value per channel at batch 1
-        branches.append(nn.Sequential(
-            nn.AdaptiveAvgPool2d(1),
-            *_conv_bn_relu(in_channels, features, bn=MomentBatchNorm2d)))
+        # the pooled branch has one value per channel at batch 1, and the
+        # same map on every slab of a spatial mesh
+        pooled = _conv_bn_relu(in_channels, features, bn=MomentBatchNorm2d)
+        pooled[1].replicated = True
+        branches.append(nn.Sequential(GlobalAvgPool2d(), *pooled))
         self.convs = nn.ModuleList(branches)
         self.project = nn.Sequential(
             *_conv_bn_relu(features * len(branches), features),

@@ -7,6 +7,13 @@ output before the head. The head is torchvision's ``FCNHead`` under the
 name ``classifier``: ``0`` conv3x3 (2048 -> 512, bias-free), ``1`` BN,
 ``2`` ReLU, ``3`` Dropout(0.1), ``4`` conv1x1 (512 -> num_classes); the
 logits are bilinearly resized to the input size (align_corners=False).
+
+Under a spatial context (``parallel/spatial.py``, ``x`` a slab of the H
+axis) the backbone runs as ``models/resnet.py`` says, and the head's 3x3
+(and CBAM-spatial's 7x7) take halos and the final resize reads the
+neighbouring slabs' edge rows (``ops/resize.py``). Dropout draws per
+rank, as on the data mesh, so a spatial step equals one device's only
+with dropout off.
 """
 
 from __future__ import annotations

@@ -13,6 +13,15 @@ which a 1x1 bin at batch 1 needs: ``ops/layers.py::MomentBatchNorm2d``)
 (4096 -> 512, bias-free) -> ``bottleneck_bn`` -> ReLU -> Dropout(0.1) ->
 ``classifier`` 1x1 -> bilinear resize to the input size.
 
+Under a spatial context (``parallel/spatial.py``, ``x`` a slab of the H
+axis) the backbone runs as ``models/resnet.py`` says; the pools read
+every slab and give each slab the whole bin maps (``ops/layers.py::
+adaptive_avg_pools``), whose convs run as they are and whose BNs are
+marked ``replicated``; each map is resized to the slab's rows of the
+global output (``resize_bilinear(..., replicated=True)``), and
+``bottleneck_conv`` takes a halo. Dropout draws per rank, so a spatial
+step equals one device's only with it off.
+
 The reference has no such model (its "PSPNet" scripts are FCN-ResNet50),
 so the module names follow the JAX package's parameter tree, and weights
 cross with ``compat.pspnet_variables_to_torch``.
@@ -45,8 +54,9 @@ class PyramidPooling(nn.Module):
         for b in self.bins:
             setattr(self, f"conv_bin{b}",
                     Conv2d(in_channels, branch_features, 1, bias=False))
-            setattr(self, f"bn_bin{b}",
-                    MomentBatchNorm2d(branch_features))
+            bn = MomentBatchNorm2d(branch_features)
+            bn.replicated = True  # the same map on every slab
+            setattr(self, f"bn_bin{b}", bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = x.shape[-2:]
@@ -54,7 +64,7 @@ class PyramidPooling(nn.Module):
         for b, pooled in zip(self.bins, adaptive_avg_pools(x, self.bins)):
             p = getattr(self, f"conv_bin{b}")(pooled)
             p = torch.relu(getattr(self, f"bn_bin{b}")(p))
-            outs.append(resize_bilinear(p, size))
+            outs.append(resize_bilinear(p, size, replicated=True))
         return torch.cat(outs, dim=1)
 
 

@@ -21,20 +21,25 @@ from insarseg_torch.models.pspnet import PSPNet
 from insarseg_torch.models.unet import UNet
 
 
-SHARDS_H = ("unet", "unet-fast")  # the families a spatial mesh runs
+# the families a spatial mesh runs (``parallel/spatial.py``)
+SHARDS_H = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
 
 
 def check_spatial(model: Union[str, nn.Module]) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 21b unless
-    ``model`` (a name, or a module) is of a family whose H axis a spatial
-    mesh shards: the U-Net families (``parallel/spatial.py``)."""
+    """Raise ``NotImplementedError`` unless ``model`` (a name, or a module)
+    is of a family whose H axis a spatial mesh shards: every family of the
+    registry (:data:`SHARDS_H`; the slab rules are the modules': a
+    multiple of 16 rows for the U-Nets, 32 for ``unet-fast``, 8 for the
+    ResNet families)."""
     from insarseg_torch.models.unet_stem import UNetFastS2D
-    from insarseg_torch.parallel.mesh import SPATIAL_TODO
 
-    ok = isinstance(model, (UNet, UNetFastS2D)) if isinstance(
-        model, nn.Module) else model.lower().replace("_", "-") in SHARDS_H
+    ok = isinstance(model, (UNet, UNetFastS2D, DeepLabV3, FCN, PSPNet)) \
+        if isinstance(model, nn.Module) \
+        else model.lower().replace("_", "-") in SHARDS_H
     if not ok:
-        raise NotImplementedError(SPATIAL_TODO)
+        raise NotImplementedError(
+            f"a spatial mesh (mesh_spatial > 1) shards the H axis of the "
+            f"registry's families {SHARDS_H}, not of {model!r}")
 
 
 def build_model(cfg) -> nn.Module:

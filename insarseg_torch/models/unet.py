@@ -25,7 +25,7 @@ Under a spatial context (``parallel/spatial.py``: the H axis sharded,
 squeezes sum over the slabs; the max-pools, the 2x2 / 2 transposed convs
 and the skip concats stay inside the slab when its height is a multiple
 of 16 (four halvings), which is checked: the JAX package's GSPMD pads any
-H, the port does not (ROADMAP Queue 1 item 21b).
+H, the port does not (ROADMAP Queue 1 item 21c).
 """
 
 from __future__ import annotations
@@ -36,9 +36,8 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import DoubleConv, SpatialAttentionDC
-from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d
+from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d, slab_rule
 from insarseg_torch.ops.resize import resize_bilinear
-from insarseg_torch.parallel import spatial
 
 
 class UNet(nn.Module):
@@ -71,11 +70,7 @@ class UNet(nn.Module):
         self.outc = Conv2d(plan[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[2] % 16 and spatial.current() is not None:
-            raise ValueError(
-                f"under a spatial mesh each slab's height (H / spatial) must "
-                f"be a multiple of 16 (the U-Net halves it four times); this "
-                f"slab has {x.shape[2]} rows")
+        slab_rule(x, 16, "the U-Net (it halves H four times)")
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)

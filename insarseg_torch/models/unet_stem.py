@@ -26,8 +26,7 @@ from torch import nn
 
 from insarseg_torch.engines import check_hw
 from insarseg_torch.models.unet import UNet
-from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
-from insarseg_torch.parallel import spatial
+from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw, slab_rule
 
 
 def space_to_depth(x: torch.Tensor, f: int = 2) -> torch.Tensor:
@@ -66,11 +65,8 @@ class UNetFastS2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.factor
-        if x.shape[2] % (16 * f) and spatial.current() is not None:
-            raise ValueError(
-                f"under a spatial mesh each slab's height (H / spatial) must "
-                f"be a multiple of {16 * f} (space-to-depth by {f}, then the "
-                f"U-Net's four halvings); this slab has {x.shape[2]} rows")
+        slab_rule(x, 16 * f, f"unet-fast (space-to-depth by {f}, then the "
+                  "U-Net's four halvings)")
         y = self.unet(nhwc_to_nchw(space_to_depth(nchw_to_nhwc(x), f)))
         return nhwc_to_nchw(depth_to_space(nchw_to_nhwc(y), f))
 

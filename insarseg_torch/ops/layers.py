@@ -32,6 +32,7 @@ rules, and neither list is the JAX package's "follow the input".
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -54,20 +55,41 @@ def _spatial():
     return current()
 
 
-def _not_local(what: str) -> NotImplementedError:
+def _not_sharded(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} reaches across the H slabs of a spatial mesh; "
-        "insarseg_torch shards H for the U-Net families only (ROADMAP "
-        "Queue 1 item 21b)")
+        f"{what} is not a layer the port runs with its H axis sharded: a "
+        "spatial mesh runs the registry's families (models/registry.py)")
+
+
+def slab_rule(x: torch.Tensor, multiple: int, family: str) -> None:
+    """Under a spatial context, raise ``ValueError`` naming ROADMAP item 21c
+    unless slab ``x``'s height is a multiple of ``multiple`` (every
+    stride and pool of ``family`` then leaves whole rows a slab)."""
+    if _spatial() is not None and x.shape[2] % multiple:
+        raise ValueError(
+            f"under a spatial mesh each slab's height (H / spatial) must be "
+            f"a multiple of {multiple} for {family}; this slab has "
+            f"{x.shape[2]} rows (slabs of any height: ROADMAP Queue 1 item "
+            "21c)")
+
+
+def _same_along_h(k: int, padding: int, dilation: int = 1) -> bool:
+    """Whether a window of ``k`` rows, dilation ``dilation`` and padding
+    ``padding`` is "same" along H (``2 p == d (k - 1)``): its H padding is
+    a halo of ``padding`` rows."""
+    return 2 * padding == dilation * (k - 1)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype (f32 parameters cast per call).
 
-    Under a spatial context (``parallel/spatial.py``) a conv of H extent
-    above 1 takes its H padding from the neighbouring slabs
-    (``spatial.halo``) and convolves with padding ``(0, pw)``: the slab's
-    rows of the unsharded conv. It must be a "same" conv of stride 1."""
+    Under a spatial context (``parallel/spatial.py``) a conv takes its H
+    padding from the slabs around it (``spatial.halo``, as many slabs as
+    it reaches) and convolves with padding ``(0, pw)``: the slab's rows of
+    the unsharded conv, at any stride and dilation. It must be "same"
+    along H (``2 ph == dh (kh - 1)``: the ResNets' stem 7x7 / 2, their
+    strided 3x3 and 1x1 / 2, the dilated 3x3s, every 3x3 / 1), and a
+    stride must divide the slab's height."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, follow(x, self.weight),
@@ -81,10 +103,12 @@ class Conv2d(nn.Conv2d):
         from insarseg_torch.parallel.spatial import halo
 
         (sh, _), (ph, pw), (dh, _) = self.stride, self.padding, self.dilation
-        if sh != 1 or 2 * ph != dh * (self.kernel_size[0] - 1) \
+        if not _same_along_h(self.kernel_size[0], ph, dh) \
                 or self.padding_mode != "zeros":
-            raise _not_local(f"a conv of kernel {self.kernel_size}, stride "
-                             f"{self.stride}, padding {self.padding}")
+            raise _not_sharded(f"a conv of kernel {self.kernel_size}, "
+                               f"padding {self.padding}, dilation "
+                               f"{self.dilation}")
+        slab_rule(x, sh, f"a conv of stride {sh}")
         return F.conv2d(halo(x, ph, comm), weight, bias, self.stride,
                         (0, pw), self.dilation, self.groups)
 
@@ -97,8 +121,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _spatial() is not None and (
                 self.kernel_size[0] != self.stride[0] or self.padding[0]):
-            raise _not_local(f"a transposed conv of kernel "
-                             f"{self.kernel_size}, stride {self.stride}")
+            raise _not_sharded(f"a transposed conv of kernel "
+                               f"{self.kernel_size}, stride {self.stride}")
         return F.conv_transpose2d(
             x, follow(x, self.weight), follow(x, self.bias), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation)
@@ -159,9 +183,18 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
     all-reduce (:class:`_AllReduceSum`), the running variance's factor
     from the global count. Uneven shards and empty ones are fine.
     ``nn.SyncBatchNorm`` takes no CPU tensors and would lose the moment
-    rule at one value per channel."""
+    rule at one value per channel.
+
+    ``replicated`` (the pooled maps' BatchNorms: DeepLabV3's ASPP pool,
+    the PSPNet's bins): under a spatial context its input is the same map
+    on every slab of a data row (``parallel/spatial.py``), so the synced
+    sums and count hold each data row S times; the mean, the variance and
+    their gradients are unchanged by that, and the running variance's
+    factor takes the count of the rows themselves, ``n / S``, as the JAX
+    package's mesh step counts them."""
 
     synced = False
+    replicated = False
 
     @classmethod
     def taking_over(cls, bn: nn.BatchNorm2d) -> "MomentBatchNorm2d":
@@ -214,7 +247,10 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
             n = sums[2 * c].detach()
             mean = sums[:c] / n
             var = (sums[c:2 * c] / n - mean.square()).clamp_min(0)
-            return mean, var, n / (n - 1).clamp_min(1)
+            comm = _spatial()
+            rows = n / comm.size if self.replicated and comm is not None \
+                else n
+            return mean, var, rows / (rows - 1).clamp_min(1)
         mean = xf.mean(dim=(0, 2, 3))
         var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
         n = xf.numel() // xf.shape[1]
@@ -224,18 +260,31 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,
                 padding: int = 0) -> torch.Tensor:
     """``nn.MaxPool2d(window, stride, padding)`` (floor mode; the padding
-    acts as -inf) over NCHW float tensors; under a spatial context only
-    its slab-local form (window = stride, no padding)."""
-    if _spatial() is not None and (stride not in (None, window) or padding):
-        raise _not_local(f"a {window}x{window} / {stride} max-pool")
-    return F.max_pool2d(x, window, stride, padding)
+    acts as -inf) over NCHW float tensors. Under a spatial context a pool
+    that is "same" along H (the ResNet stem's 3x3 / 2, padding 1) takes
+    its H padding from a -inf halo (``spatial.halo``); a window equal to
+    its stride with no padding stays inside the slab."""
+    comm = _spatial()
+    if comm is None:
+        return F.max_pool2d(x, window, stride, padding)
+    stride = window if stride is None else stride
+    slab_rule(x, stride, f"a max-pool of stride {stride}")
+    if _same_along_h(window, padding):
+        from insarseg_torch.parallel.spatial import halo
+
+        return F.max_pool2d(halo(x, padding, comm, fill=-math.inf), window,
+                            stride, (0, padding))
+    if stride == window and not padding:
+        return F.max_pool2d(x, window, stride)
+    raise _not_sharded(f"a {window}x{window} / {stride} max-pool, padding "
+                       f"{padding}")
 
 
 def spatial_mean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """The mean over H and W of NCHW ``x``: ``x.mean(dim=(2, 3))``, or under
     a spatial context the slab's sum in at least f32 summed over the slabs
     (``spatial.spatial_sum``), divided by the whole image's H·W and
-    rounded to ``x``'s dtype once."""
+    rounded to ``x``'s dtype once (replicated)."""
     comm = _spatial()
     if comm is None:
         return x.mean(dim=(2, 3), keepdim=keepdim)
@@ -252,12 +301,24 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return spatial_mean(x, keepdim=True)
 
 
+class GlobalAvgPool2d(nn.Module):
+    """:func:`global_avg_pool` as a module without parameters (in place of
+    ``nn.AdaptiveAvgPool2d(1)``, which would pool the slab alone)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return global_avg_pool(x)
+
+
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
     """``AdaptiveMaxPool2d(1)`` over NCHW: (B, C, 1, 1) (CBAM's channel
-    attention, a ResNet family's: not under a spatial context)."""
-    if _spatial() is not None:
-        raise _not_local("a global max-pool")
-    return x.amax(dim=(2, 3), keepdim=True)
+    attention; over every slab under a spatial context,
+    ``spatial.spatial_max``)."""
+    comm = _spatial()
+    if comm is None:
+        return x.amax(dim=(2, 3), keepdim=True)
+    from insarseg_torch.parallel.spatial import spatial_max
+
+    return spatial_max(x, comm)
 
 
 def gate_mlp(pk, v: torch.Tensor) -> torch.Tensor:
@@ -296,23 +357,62 @@ def integral_image(x: torch.Tensor) -> torch.Tensor:
     return F.pad(ii.cumsum(1).cumsum(2), (0, 0, 1, 0, 1, 0))
 
 
+def _bin_sums(ii: torch.Tensor, size: Tuple[int, int], h: int, row0: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 sums over each bin of an image ``h`` rows high whose rows
+    ``row0`` on the integral image ``ii`` holds (every row but a slab's
+    own clipped away), (N, oh, ow, C), and the bins' areas, (oh, ow):
+    the four corners gathered per bin."""
+    oh, ow = size
+    rows, w = ii.shape[1] - 1, ii.shape[2] - 1
+    hs, he = _bin_edges(h, oh, ii.device)
+    ws, we = _bin_edges(w, ow, ii.device)
+    area = ((he - hs)[:, None] * (we - ws)[None, :]).to(torch.float32)
+    if row0 or rows != h:
+        hs, he = (hs - row0).clamp(0, rows), (he - row0).clamp(0, rows)
+
+    def corner(r, c):
+        return ii.index_select(1, r).index_select(2, c)
+
+    s = corner(he, we) - corner(hs, we) - corner(he, ws) + corner(hs, ws)
+    return s, area
+
+
+def _bins_out(s: torch.Tensor, area: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    return (s / area[:, :, None]).permute(0, 3, 1, 2).to(dtype)
+
+
 def pool_from_integral(ii: torch.Tensor,
                        output_size: Union[int, Tuple[int, int]],
                        dtype: torch.dtype) -> torch.Tensor:
     """The adaptive average pool read from :func:`integral_image`: the four
     corners gathered per bin, the difference divided by the bin's area,
     NCHW in ``dtype``."""
-    oh, ow = _pair(output_size)
-    h, w = ii.shape[1] - 1, ii.shape[2] - 1
-    hs, he = _bin_edges(h, oh, ii.device)
-    ws, we = _bin_edges(w, ow, ii.device)
+    return _bins_out(*_bin_sums(ii, _pair(output_size), ii.shape[1] - 1, 0),
+                     dtype)
 
-    def corner(r, c):
-        return ii.index_select(1, r).index_select(2, c)
 
-    s = corner(he, we) - corner(hs, we) - corner(he, ws) + corner(hs, ws)
-    area = ((he - hs)[:, None] * (we - ws)[None, :]).to(torch.float32)
-    return (s / area[:, :, None]).permute(0, 3, 1, 2).to(dtype)
+def _sharded_pools(x: torch.Tensor, sizes: List[Tuple[int, int]],
+                   comm) -> List[torch.Tensor]:
+    """:func:`adaptive_avg_pools` of slab ``x`` at ``sizes`` (none of them
+    1 or the image's own): each slab sums its rows of every bin from its
+    own integral image, the parts of all sizes summed over the slabs in
+    one ``spatial_sum`` and divided by the bins' global areas; the whole
+    b x b maps on every slab (replicated)."""
+    from insarseg_torch.parallel.spatial import spatial_sum
+
+    ii = integral_image(x)
+    h = x.shape[2]
+    parts = [_bin_sums(ii, o, h * comm.size, comm.index * h) for o in sizes]
+    n = x.shape[0]
+    total = spatial_sum(torch.cat([s.reshape(n, -1) for s, _ in parts], 1),
+                        comm)
+    out = []
+    widths = [math.prod(s.shape[1:]) for s, _ in parts]
+    for (s, area), t in zip(parts, total.split(widths, 1)):
+        out.append(_bins_out(t.reshape(s.shape), area, x.dtype))
+    return out
 
 
 def adaptive_avg_pools(x: torch.Tensor,
@@ -323,22 +423,39 @@ def adaptive_avg_pools(x: torch.Tensor,
     input itself where the size is its own, the global mean at 1, else an
     f32 integral image (built once for all sizes) read per bin and cast
     back to ``x``'s dtype. ``F.adaptive_avg_pool2d`` sums in another
-    order."""
-    ii = None
-    out = []
-    sharded = _spatial() is not None
+    order.
+
+    Under a spatial context ``x`` is a slab and every pool is of the whole
+    image and replicated (the same map on every slab): the global mean by
+    :func:`spatial_mean`, the image's own size by
+    ``spatial.spatial_gather``, the other sizes by :func:`_sharded_pools`."""
+    comm = _spatial()
+    image = tuple(x.shape[-2:]) if comm is None else \
+        (x.shape[2] * comm.size, x.shape[3])
+    out: List[Optional[torch.Tensor]] = []
+    binned = []
     for size in sizes:
         o = _pair(size)
-        if sharded and o != (1, 1):
-            raise _not_local(f"an adaptive average pool to {o}")
-        if tuple(x.shape[-2:]) == o:
-            out.append(x)
+        if image == o:
+            if comm is None:
+                out.append(x)
+            else:
+                from insarseg_torch.parallel.spatial import spatial_gather
+
+                out.append(spatial_gather(x, comm))
         elif o == (1, 1):
             out.append(global_avg_pool(x))
         else:
-            if ii is None:
-                ii = integral_image(x)
-            out.append(pool_from_integral(ii, o, x.dtype))
+            out.append(None)
+            binned.append(o)
+    if binned:
+        if comm is None:
+            ii = integral_image(x)
+            pooled = [pool_from_integral(ii, o, x.dtype) for o in binned]
+        else:
+            pooled = _sharded_pools(x, binned, comm)
+        it = iter(pooled)
+        out = [next(it) if p is None else p for p in out]
     return out
 
 

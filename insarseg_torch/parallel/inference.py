@@ -40,9 +40,10 @@ def make_predict_fn(
     split over them and gathered on the first (``mesh_engine``). On a
     mesh with ``spatial`` above 1 the H axis is sharded too, as the JAX
     package's ``make_predict_fn`` shards it (``spatial_engine``: one
-    thread a slab, each entering inference mode itself); the U-Net
-    families only (``models/registry.py::check_spatial``), their slabs
-    a multiple of 16 rows (32 for ``unet-fast``)."""
+    thread a slab, each entering inference mode itself), for every family
+    of the registry (``models/registry.py::check_spatial``), their slabs
+    a multiple of 16 rows for the U-Nets, 32 for ``unet-fast`` and 8 for
+    the ResNet families."""
     if mesh is not None:
         engine = mesh_engine
         if mesh.spatial > 1:

@@ -22,16 +22,17 @@ paths need.
   the gradients summed (:func:`all_reduce_grads`), and the counts summed.
 
 The ``spatial`` axis (the image H axis sharded over S ranks, a
-:class:`Mesh` of ``data x spatial`` devices) runs the U-Net families:
+:class:`Mesh` of ``data x spatial`` devices) runs every family of the
+registry (``models/registry.py::check_spatial``):
 device ``(d, s)`` of the mesh (rank ``d * S + s``, :func:`coords`) holds
 rows :func:`rows_of` ``d`` of ``data`` of the global batch and their slab
-:func:`slab_of` ``s`` of ``S``; the convs exchange halo rows and the
-SE squeezes sum over the slabs (``parallel/spatial.py``). Training makes one
-process group a data row (:func:`spatial_comm`); serving runs one thread
-a slab (``parallel/inference.py::make_predict_fn``). The packed engines
-split the batch over ``data`` alone, as the JAX package's ``jit_engine``
-does. The ResNet families raise ``NotImplementedError`` under a spatial
-mesh (:data:`SPATIAL_TODO`).
+:func:`slab_of` ``s`` of ``S``; the convs and pools exchange halo rows,
+the SE squeezes sum over the slabs, and the ResNet families' global
+pools, pyramid pools and resizes read across the slabs too
+(``parallel/spatial.py``). Training makes one process group a data row
+(:func:`spatial_comm`); serving runs one thread a slab
+(``parallel/inference.py::make_predict_fn``). The packed engines split
+the batch over ``data`` alone, as the JAX package's ``jit_engine`` does.
 """
 
 from __future__ import annotations
@@ -53,10 +54,6 @@ from insarseg_torch.device import DeviceLike, resolve_device
 from insarseg_torch.engines_io import to_torch_tree
 from insarseg_torch.ops.layers import MomentBatchNorm2d
 
-SPATIAL_TODO = ("insarseg_torch shards the image H axis (mesh_spatial > 1) "
-                "for the U-Net families only; the ResNet families' strided "
-                "and dilated halos, global pools and resizes are ROADMAP "
-                "Queue 1 item 21b")
 # a collective that waits this long has lost a rank: the launch fails
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 NEEDS_LAUNCH = ("mesh_data > 1 or mesh_spatial > 1 trains one process per "

@@ -7,24 +7,37 @@ The layers read the active context (:func:`current`, set by
 :func:`active`); with none active every layer computes as it does on one
 device. Under a context:
 
-- a conv with an H extent above 1 takes its H padding from :func:`halo`
-  (``ops/layers.py::Conv2d``): k rows from the slab above and k from the
-  slab below, zeros at the image's own edges, as the conv's zero padding;
-  its backward sends each halo row's gradient back to the rank that holds
-  the row (GSPMD's collective-permute and its transpose);
+- a conv or pool with an H extent above 1 takes its H padding from
+  :func:`halo` (``ops/layers.py::Conv2d``, ``max_pool_2d``): k rows from
+  the slabs above and k from the slabs below (as many slabs as k rows
+  reach), ``fill`` past the image's own edges (zeros for a conv, -inf for
+  a max-pool); its backward sends each halo row's gradient back to the
+  rank that holds the row, summed where several slabs read one row
+  (GSPMD's collective-permute and its transpose);
 - a mean over H and W sums over the group (:func:`spatial_sum`, whose
   backward is the same sum of the gradients: every slab's output depends
-  on every slab's input).
+  on every slab's input), a max over H and W takes the group's max
+  (:func:`spatial_max`, its gradient split over the positions equal to
+  the max on every slab, as ``torch.amax`` and JAX's reduce-max split
+  ties), and a map a pool made whole on every slab comes from
+  :func:`spatial_gather`.
+
+Such pooled maps are *replicated*: every slab of a data row holds the
+same tensor, and each slab's part of the loss gives it a share of its
+gradient; the shares meet where the map was made (the backward of
+:func:`spatial_sum`, :func:`spatial_max` and :func:`spatial_gather` sums
+them over the slabs), and a replicated parameter's shares in the
+gradients' all-reduce over the ranks.
 
 A context is a :class:`Comm` of one of two transports, behind one
-interface (``exchange``, ``sum``):
+interface (``exchange``, ``gather``, ``sum``, ``max``):
 
 - :class:`GroupComm`, a spatial group of a ``torch.distributed`` process
   group (one process a rank, ``parallel/mesh.py::spatial_comm``) for the
-  train and eval steps: an exchange is one all-reduce of a zeroed buffer
-  with a slot a rank, which NCCL and gloo both run on CUDA tensors (gloo
-  has no point-to-point ops for them, and on four H100s it cost the host
-  less than ``batch_isend_irecv`` with the two neighbours:
+  train and eval steps: an exchange or a gather is one all-reduce of a
+  zeroed buffer with a slot a rank, which NCCL and gloo both run on CUDA
+  tensors (gloo has no point-to-point ops for them, and on four H100s it
+  cost the host less than ``batch_isend_irecv`` with the two neighbours:
   ``tools/spatial_ab.py``, PERF.md);
 - :class:`ThreadComm`, one thread a slab in one process, for the forward
   over a spatial :class:`~insarseg_torch.parallel.mesh.Mesh`
@@ -45,6 +58,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 _LOCAL = threading.local()
 # a slab's threads wait at most this long for each other: a thread that
@@ -67,8 +81,18 @@ class Comm:
         edges). Every member calls it with tensors of one shape."""
         raise NotImplementedError
 
+    def gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every member's ``t`` (one shape on all), top slab first, on
+        this member's device."""
+        raise NotImplementedError
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the group: the same tensor on every member."""
+        raise NotImplementedError
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s elementwise max over the group: the same tensor on every
+        member."""
         raise NotImplementedError
 
 
@@ -110,9 +134,21 @@ class GroupComm(Comm):
         return (buf[s - 1, 1] if s > 0 else None,
                 buf[s + 1, 0] if s + 1 < self.size else None)
 
+    def gather(self, t):
+        buf = t.new_zeros((self.size,) + tuple(t.shape))
+        buf[self.index] = t
+        if buf.numel():
+            dist.all_reduce(buf, group=self.group)
+        return list(buf.unbind(0))
+
     def sum(self, t):
         t = t.clone()
         dist.all_reduce(t, group=self.group)
+        return t
+
+    def max(self, t):
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
 
@@ -152,11 +188,21 @@ class ThreadComm(Comm):
         below = got[s + 1][0].to(self.device) if s + 1 < self.size else None
         return above, below
 
+    def gather(self, t):
+        return [p.to(self.device) for p in self._all(t)]
+
     def sum(self, t):
         parts = self._all(t)
         out = parts[0].to(self.device)
         for p in parts[1:]:
             out = out + p.to(self.device)
+        return out
+
+    def max(self, t):
+        parts = self._all(t)
+        out = parts[0].to(self.device)
+        for p in parts[1:]:
+            out = torch.maximum(out, p.to(self.device))
         return out
 
 
@@ -174,9 +220,11 @@ def _like_format(x: torch.Tensor) -> torch.memory_format:
 
 
 class _Halo(torch.autograd.Function):
+    """The one-hop halo: ``k`` rows (at most the slab's height) from each
+    neighbour."""
 
     @staticmethod
-    def forward(ctx, x, k: int, comm: Comm):
+    def forward(ctx, x, k: int, comm: Comm, fill: float):
         ctx.k, ctx.comm = k, comm
         n, c, h, w = x.shape
         above, below = comm.exchange(x[:, :, :k], x[:, :, h - k:])
@@ -185,7 +233,7 @@ class _Halo(torch.autograd.Function):
         out[:, :, k:k + h] = x
         for rows, got in ((slice(0, k), above), (slice(k + h, None), below)):
             if got is None:
-                out[:, :, rows] = 0
+                out[:, :, rows] = fill
             else:
                 out[:, :, rows] = got
         return out
@@ -202,19 +250,51 @@ class _Halo(torch.autograd.Function):
             gx[:, :, :k] += from_above
         if from_below is not None:
             gx[:, :, h - k:] += from_below
-        return gx, None, None
+        return gx, None, None, None
 
 
-def halo(x: torch.Tensor, k: int, comm: Comm) -> torch.Tensor:
+def halo(x: torch.Tensor, k: int, comm: Comm,
+         fill: float = 0.0) -> torch.Tensor:
     """NCHW ``x`` (slab ``comm.index``) with ``k`` rows added above and
-    below: the neighbouring slabs' edge rows, zeros at the image's edges;
-    ``x``'s memory format."""
+    below: the rows of the slabs around it, ``fill`` past the image's
+    edges; ``x``'s memory format. Up to the slab's height the rows come
+    from the two neighbours alone; a larger ``k`` reaches further, and
+    the slab takes its rows from the whole H axis gathered
+    (:func:`spatial_gather`), whose backward sums every slab's gradient
+    of each row at its owner."""
     if k == 0:
         return x
-    if x.shape[2] < k:
-        raise ValueError(f"a halo of {k} rows needs slabs of at least {k} "
-                         f"rows; this one has {x.shape[2]}")
-    return _Halo.apply(x, k, comm)
+    h = x.shape[2]
+    if k <= h:
+        return _Halo.apply(x, k, comm, fill)
+    full = F.pad(spatial_gather(x, comm), (0, 0, k, k), value=fill)
+    start = comm.index * h
+    return full[:, :, start:start + h + 2 * k].contiguous(
+        memory_format=_like_format(x))
+
+
+class _Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, comm: Comm):
+        ctx.comm = comm
+        return torch.cat(comm.gather(x), dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        h = g.shape[2] // comm.size
+        # every slab's share of each row's gradient, summed at its owner
+        total = comm.sum(g.contiguous())
+        return total[:, :, comm.index * h:(comm.index + 1) * h].clone(
+            memory_format=_like_format(g)), None
+
+
+def spatial_gather(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The whole H axis of NCHW slab ``x``: the slabs joined top to bottom,
+    the same tensor on every slab (replicated); its backward sums the
+    slabs' gradients and gives each slab its rows."""
+    return _Gather.apply(x, comm)
 
 
 class _Sum(torch.autograd.Function):
@@ -233,3 +313,32 @@ def spatial_sum(t: torch.Tensor, comm: Comm) -> torch.Tensor:
     """``t`` summed over the slabs of ``comm``; its gradient is the slabs'
     sum of the gradients."""
     return _Sum.apply(t, comm)
+
+
+class _Max(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, comm: Comm):
+        m = comm.max(x.amax(dim=(2, 3), keepdim=True))
+        ctx.comm = comm
+        ctx.save_for_backward(x, m)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        x, m = ctx.saved_tensors
+        # the replicated max's gradient is every slab's share; it goes to
+        # the positions equal to the max on every slab, split by their
+        # global count (torch.amax's and JAX's rule for ties)
+        g = comm.sum(g.contiguous())
+        hit = x == m
+        count = comm.sum(hit.sum(dim=(2, 3), keepdim=True))
+        return (g / count) * hit, None
+
+
+def spatial_max(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The max over H and W of NCHW slab ``x`` and every other slab of
+    ``comm``: (N, C, 1, 1) on every slab; a tie's gradient is split over
+    every slab's positions equal to the max."""
+    return _Max.apply(x, comm)

@@ -40,11 +40,15 @@ of the global batch and slab ``s`` of their H axis (``slab_of``). The
 rank's rows are copied, normalized and augmented at full H x W (the D4
 flips and the transpose move rows between slabs), and then cut to the
 slab; the forward and backward run under the row's spatial group
-(``parallel/mesh.py::spatial_comm``): the convs exchange halo rows and
-the SE squeezes sum over the slabs (``parallel/spatial.py``). The BN
-moments, the loss's valid count, the gradients and the counts are
-summed over every rank as on a data mesh, which sums the slabs too. The
-U-Net families only (``models/registry.py::check_spatial``).
+(``parallel/mesh.py::spatial_comm``): the convs and pools exchange halo
+rows and the global and pyramid pools and the resizes read across the
+slabs (``parallel/spatial.py``). The BN moments, the loss's valid count,
+the gradients and the counts are summed over every rank as on a data
+mesh, which sums the slabs too (a pooled map's BN, the same map on every
+slab, counts each data row once for its running variance:
+``MomentBatchNorm2d.replicated``). Every family of the registry
+(``models/registry.py::check_spatial``); dropout draws per rank, so a
+spatial step equals one device's only with it off.
 """
 
 from __future__ import annotations
@@ -468,11 +472,11 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     restores on resume, and the ranks meet after each save. Without a
     group ``fit`` runs on one device, and ``mesh_data`` or
     ``mesh_spatial`` above 1 raises ``ValueError``, as ``mesh_spatial``
-    above the ranks does; under ``mesh_spatial`` above 1 a model outside
-    the U-Net families raises ``NotImplementedError`` (ROADMAP Queue 1
-    item 21b). A batch that the data axis does not divide splits
-    unevenly (``rows_of``), as on a data mesh, where the JAX package
-    shrinks its data axis to a divisor."""
+    above the ranks does; under ``mesh_spatial`` above 1 a slab whose
+    height breaks the model's slab rule raises ``ValueError`` naming
+    ROADMAP item 21c at the first step. A batch that the data axis does
+    not divide splits unevenly (``rows_of``), as on a data mesh, where
+    the JAX package shrinks its data axis to a divisor."""
     dev = resolve_device(device)
     dtype = cfg_dtype(cfg)
     n_s = cfg.mesh_spatial

@@ -347,10 +347,19 @@ def test_cli_engine_artifact_roundtrip_and_mismatch(cwd, capsys):
       "voc", "--mesh-spatial", "2"], "item 21b"),
 ])
 def test_cli_unported_flags_raise(cwd, flags, item):
-    """A ResNet family's H axis is not sharded yet; the U-Net families'
-    is (``train --mesh-spatial``, ``tests/test_torch_spatial.py``)."""
-    with pytest.raises(NotImplementedError, match=item):
-        port(*flags)
+    """Flags that raised naming their ROADMAP ``item`` until it was ported
+    now run as the JAX CLI's do: ``train --preset deeplabv3
+    --mesh-spatial 2`` (item 21b: the ResNet families shard H) trains
+    DeepLabV3-ResNet50 on two gloo ranks and writes a finite history
+    (``tests/test_torch_spatial_resnet*.py`` hold the sharded step)."""
+    hist = f"h_{item.replace(' ', '_')}.json"
+    assert port(*flags, "--batch-size", "4", "--num-epochs", "1",
+                "--model-save-path", f"m_{item.replace(' ', '_')}/b.ckpt",
+                "--metrics-save-path", hist) == 0
+    with open(hist) as f:
+        h = json.load(f)
+    assert [e["epoch"] for e in h] == [1]
+    assert np.isfinite([h[0]["train_loss"], h[0]["val_loss"]]).all()
 
 
 def test_cli_predict_mesh_spatial_runs_as_jax(cwd):

@@ -8,7 +8,8 @@ package's engines on ``make_mesh(data=4)`` (the 8 virtual CPU devices of
   with the JAX helpers' semantics: the ``data=-1`` arithmetic, the checks,
   Python scalars kept; a ``spatial`` axis gives the JAX helper's shape
   (``tests/test_torch_spatial.py`` runs it), and a ResNet family under it
-  raises naming ROADMAP item 21b;
+  raises naming ROADMAP item 21c where a slab is not a multiple of 8
+  rows;
   the CLI's ``_eval_mesh`` picks the JAX CLI's data axis (the cases of
   ``tests/test_engines_mesh.py:198-210``);
 - U-Net-CA (base 16, 32^2, global b8) on the module, serve and int8
@@ -83,16 +84,22 @@ def test_make_mesh_follows_the_jax_helper():
         make_mesh(9, devices=["cpu"] * 8)
     with pytest.raises(ValueError):
         make_mesh(0, devices=CPUS)
-    # the spatial axis: the JAX helper's shapes; a ResNet family raises
-    # naming item 21b where a spatial mesh would run it
+    # the spatial axis: the JAX helper's shapes; a ResNet family runs on
+    # it (item 21b), its slabs a multiple of 8 rows, else a ValueError
+    # naming item 21c
     assert make_mesh(2, spatial=2, devices=CPUS).shape == \
         dict(jax_make_mesh(data=2, spatial=2).shape)
     assert make_mesh(-1, spatial=4, devices=["cpu"] * 8).shape == \
         dict(jax_make_mesh(data=-1, spatial=4).shape)
     from insarseg_torch.models.registry import check_spatial
 
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        check_spatial("deeplabv3")
+    check_spatial("deeplabv3")
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.parallel import make_predict_fn
+
+    with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
+        make_predict_fn(build("deeplabv3"), mesh=make_mesh(
+            1, spatial=2, devices=["cpu", "cpu"]))(torch.zeros(1, 20, 16, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()  # the default devices are the cards: none here
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -16,8 +16,9 @@ in ``tmp_path``, then a resume to epoch 3:
   on another rank writes nothing;
 - ``mesh_data`` other than -1 or the group's size raises in a group, and
   above 1 without one (the ``ValueError`` naming ``launch``), as
-  ``mesh_spatial`` above 1 does; a ResNet family with ``mesh_spatial``
-  above 1 raises naming ROADMAP item 21b.
+  ``mesh_spatial`` above 1 does, for a ResNet family too; a ResNet
+  family's slab that is not a multiple of 8 rows raises naming ROADMAP
+  item 21c.
 """
 
 import dataclasses
@@ -107,11 +108,20 @@ def test_fit_checks_mesh_data(runs):
         R.TE.fit(model, dataclasses.replace(CFG, mesh_data=2), train,
                  device="cpu")
     # mesh_spatial > 1 also needs a group (tests/test_torch_spatial_train.py
-    # runs it in one), and a ResNet family raises naming item 21b
+    # runs it in one), for a ResNet family too
+    # (tests/test_torch_spatial_resnet_fit.py), whose slabs must be a
+    # multiple of 8 rows, else a ValueError naming item 21c
     with pytest.raises(ValueError, match="launch"):
         R.TE.fit(model, dataclasses.replace(CFG, mesh_spatial=2), train,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21b"):
+    with pytest.raises(ValueError, match="launch"):
         R.TE.fit(model, dataclasses.replace(CFG, model="fcn",
                                             mesh_spatial=2), train,
                  device="cpu")
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.parallel import spatial
+
+    with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,
+                                           torch.device("cpu"))):
+        with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
+            build("fcn", "channel")(torch.zeros(1, 1, 12, 16))

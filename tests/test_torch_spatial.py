@@ -13,14 +13,18 @@ a ``make_mesh(data, spatial)`` mesh, one thread a slab.
   none / CA / SA and the fast cell (base 16, 64^2, global b8: 32-row
   slabs), within atol 1e-5 (the bar of ``tests/test_parallel.py:80-93``),
   and the argmax form equal to one device's;
-- a slab height that is not a multiple of 16 (32 for the fast cell)
-  raises, a ResNet family raises naming ROADMAP item 21b, a failing
-  thread raises in the caller; the packed engines split a spatial mesh
-  over its data axis alone;
+- a slab height that is not a multiple of 16 (32 for the fast cell; 8
+  for a ResNet family, naming ROADMAP item 21c) raises, a ResNet family
+  runs (FCN-CA equal to its unsharded forward), the layers that read
+  across the slabs (a strided conv, a padded max-pool, a resize along H,
+  an adaptive pool, the global max-pool) equal their unsharded forms on
+  one slab, a failing thread raises in the caller; the packed engines
+  split a spatial mesh over its data axis alone;
 - the CLI: ``eval`` and ``predict`` with ``--mesh-spatial 2`` run as the
   JAX CLI's do (the spatial axis ignored); ``train --device cpu
   --mesh-spatial 2`` trains on two gloo ranks and writes the history of
-  one process within rtol 1e-5.
+  one process within rtol 1e-5; ``train --preset pspnet --mesh-spatial
+  2`` (FCN-ResNet50) runs on two gloo ranks, as the JAX CLI's does.
 
 The weights are drawn in the port (``init_weights``, numpy BN
 statistics) and read into the JAX package with its importers."""
@@ -189,19 +193,29 @@ def test_slab_rules_and_resnet_raise():
             torch.zeros(1, 64, 32, 1))
     from insarseg_torch.models.registry import build, check_spatial
 
-    for name in ("deeplabv3", "fcn", "pspnet"):
-        with pytest.raises(NotImplementedError, match="item 21b"):
-            check_spatial(name)
-    check_spatial("unet-fast")
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        make_predict_fn(build("fcn", "channel"), mesh=mesh)
+    for name in ("deeplabv3", "fcn", "pspnet", "unet-fast"):
+        check_spatial(name)
+    with pytest.raises(NotImplementedError, match="registry's families"):
+        check_spatial(torch.nn.Conv2d(1, 1, 1))
+    # a ResNet family: slabs a multiple of 8 rows (its output stride)
+    fcn = init_weights(build("fcn", "channel"), 0)
+    with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
+        make_predict_fn(fcn, mesh=mesh)(torch.zeros(1, 24, 32, 1))
+    x = torch.from_numpy(smooth(np.random.default_rng(5), (2, 32, 32, 1)))
+    got = make_predict_fn(fcn, mesh=mesh)(x)
+    want = make_predict_fn(fcn, device="cpu")(x)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def test_layers_refuse_what_crosses_slabs():
-    """Under a spatial context the layers that would read across the slabs
-    (a strided conv, a padded max-pool, a resize along H, an adaptive pool,
-    the global max-pool) raise naming item 21b; a stride-1 "same" conv and the slab-local ops
-    run."""
+    """The layers that read across the slabs (a strided conv, a padded
+    max-pool, a resize along H, an adaptive pool, the global max-pool),
+    which raised naming item 21b before the ResNet families shard H, run
+    their sharded forms under a spatial context; on one slab they equal
+    the unsharded ops (``tests/test_torch_spatial_resnet.py`` holds them
+    over several slabs). A stride-1 "same" conv and the slab-local ops
+    run too."""
     import torch.nn.functional as F
 
     from insarseg_torch.ops.layers import (
@@ -213,20 +227,31 @@ def test_layers_refuse_what_crosses_slabs():
     from insarseg_torch.ops.resize import resize_bilinear
     from insarseg_torch.parallel import spatial
 
-    x = torch.ones(1, 2, 8, 8)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2, 8, 8)).astype(np.float32))
+    strided = Conv2d(2, 2, 3, stride=2, padding=1)
+    cases = [(lambda: strided(x),
+              lambda: F.conv2d(x, strided.weight, strided.bias, 2, 1)),
+             (lambda: max_pool_2d(x, 3, 2, 1),
+              lambda: F.max_pool2d(x, 3, 2, 1)),
+             (lambda: resize_bilinear(x, (16, 16)),
+              lambda: F.interpolate(x, size=(16, 16), mode="bilinear",
+                                    align_corners=False)),
+             (lambda: adaptive_avg_pools(x, [2])[0],
+              lambda: F.adaptive_avg_pool2d(x, 2)),
+             (lambda: global_max_pool(x),
+              lambda: x.amax(dim=(2, 3), keepdim=True))]
     with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,
                                            CPU)):
-        for fn in (lambda: Conv2d(2, 2, 3, stride=2, padding=1)(x),
-                   lambda: max_pool_2d(x, 3, 2, 1),
-                   lambda: resize_bilinear(x, (16, 16)),
-                   lambda: adaptive_avg_pools(x, [2]),
-                   lambda: global_max_pool(x)):
-            with pytest.raises(NotImplementedError, match="item 21b"):
-                fn()
+        got = [fn() for fn, _ in cases]
         conv = Conv2d(2, 3, 3, padding=1)
         torch.testing.assert_close(conv(x), F.conv2d(x, conv.weight,
                                                      conv.bias, padding=1))
         assert resize_bilinear(x, (8, 16)).shape == (1, 2, 8, 16)
+    for g, (_, plain) in zip(got, cases):
+        want = plain().detach()
+        torch.testing.assert_close(g, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
 
 
 def test_a_failing_slab_raises_in_the_caller():
@@ -401,6 +426,17 @@ def test_cli_eval_predict_ignore_mesh_spatial(cwd, narrow, command,
 
 
 def test_cli_train_resnet_mesh_spatial_raises(cwd):
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        port("train", "--preset", "pspnet", "--image-size", "32",
-             "--voc-root", "voc", "--mesh-spatial", "2")
+    """``train --preset pspnet --mesh-spatial 2`` (FCN-ResNet50, which
+    raised naming item 21b before the ResNet families shard H) trains on
+    two gloo ranks, as the JAX CLI's does: a finite history and rank 0's
+    checkpoint."""
+    assert port("train", "--preset", "pspnet", "--image-size", "32",
+                "--batch-size", "4", "--num-epochs", "1", "--voc-root",
+                "voc", "--model-save-path", "psp/best.ckpt",
+                "--metrics-save-path", "hpsp.json", "--mesh-spatial",
+                "2") == 0
+    with open("hpsp.json") as f:
+        hist = json.load(f)
+    assert [h["epoch"] for h in hist] == [1]
+    assert np.isfinite([hist[0]["train_loss"], hist[0]["val_loss"]]).all()
+    assert any((cwd / "psp").iterdir())

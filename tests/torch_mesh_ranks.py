@@ -129,19 +129,29 @@ def sgd_steps(kind: str, state_dict, batches, lr: float = 0.1):
 # fit
 # ---------------------------------------------------------------------------
 
-def fit_and_resume(cfg, state_dict, train, val, directory):
-    """``fit`` of U-Net-CA (base 16) for ``cfg.num_epochs`` epochs with a
-    ``Checkpointer`` in ``directory``, then a resume to one epoch more:
-    both histories and the state after each run."""
+def unet_ca16():
+    from insarseg_torch.models.unet import UNet
+
+    return UNet(num_classes=2, base_features=16, use_se=True)
+
+
+def fit_and_resume(cfg, state_dict, train, val, directory,
+                   build=unet_ca16, sgd=None):
+    """``fit`` of ``build()`` (U-Net-CA base 16) for ``cfg.num_epochs``
+    epochs with a ``Checkpointer`` in ``directory``, then a resume to one
+    epoch more: both histories and the state after each run. ``sgd``: an
+    SGD learning rate in place of ``fit``'s Adam."""
     import dataclasses
 
     from insarseg_torch.models.unet import UNet
     from insarseg_torch.train.checkpoint import Checkpointer
 
     def run(epochs, resume):
-        model = UNet(num_classes=2, base_features=16, use_se=True)
+        model = build()
         model.load_state_dict(state_dict, strict=True)
         state = TE.create_state(model, cfg.learning_rate, device="cpu")
+        if sgd is not None:
+            state.optimizer = torch.optim.SGD(model.parameters(), lr=sgd)
         hist = TE.fit(model, dataclasses.replace(cfg, num_epochs=epochs),
                       train, val, state=state,
                       checkpointer=Checkpointer(directory), resume=resume,
