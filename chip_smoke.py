@@ -212,7 +212,18 @@ only (no JAX, nothing of ``insarseg``) and:
    (U-Net-CA global b8; DeepLabV3 at the largest global batch that one
    card and spatial 2 and 4 all hold), and the CLI's ``train
    --mesh-spatial 2`` over the cards (``unet-channelattention`` and
-   ``deeplabv3``).
+   ``deeplabv3``). Slabs of any height (``parallel/spatial.py``'s row
+   ranges): on the same gloo launch U-Net-CA and DeepLabV3-ResNet50 take
+   two f32 SGD steps at 500^2 global b8 (250-row slabs) held to one
+   process likewise, and U-Net-CA's bf16 step there has its every
+   K8a-K9b call checked; the forward over ``make_mesh(data=1,
+   spatial=4, devices=[cuda:0] * 4)`` against one device at b8 for
+   U-Net-CA (500^2: 125-row slabs), U-Net-SA (496^2), U-Net-fast-CA
+   (480^2), FCN-ResNet50-CA, DeepLabV3-ResNet50 and PSPNet-ResNet50-CA
+   (500^2), f32 within the bars above, bf16 counted; the fixed-shape
+   K8a-K9b checks hold slabs of 0, 1, 7 and 15 rows (``BN_SLAB_SHAPES``);
+   with more cards U-Net-CA's NCCL bf16 step at 1 x 4 and 496^2 against
+   one card and its peak a card at 992^2 against 1024^2.
    ``python3 chip_smoke.py --only spatial`` builds the kernels and runs
    this phase alone;
 10. prints the kernel table as one JSON line (each row with
@@ -222,7 +233,8 @@ only (no JAX, nothing of ``insarseg``) and:
    ``stream_launches``, its launches in the stream phase's streams, each
    counted from 0, and ``stream_checked``; ``mesh_launches``, its
    launches in the mesh phase's int8 forwards; ``spatial_launches``, its
-   launches a rank in the spatial bf16 step), the ``nvidia-smi`` name
+   launches a rank in the spatial bf16 step, and
+   ``spatial_uneven_launches``, in the one at 500^2), the ``nvidia-smi`` name
    and power-limit line, and last ``{"ok": true, "device": {...}}``
    (with ``--only mesh`` / ``--only spatial``: that phase's launches as
    one JSON line in place of the kernel table).
@@ -2163,6 +2175,13 @@ BN_SHAPES = (
     (3, 48, 17, 19, "float32", True), (2, 3, 9, 9, "bfloat16", True),
     (2, 1024, 1, 1, "float32", False),
 )
+# a slab's rows under a spatial mesh of any slab height: none, one, odd;
+# each site's moments summed with a full 8-row rest of the batch, as the
+# ranks' all-reduce sums them (``bn_steps``)
+BN_SLAB_ROWS = (0, 1, 7, 15)
+BN_SLAB_SHAPES = tuple((8, 64, rows, 124, dtype, cl) for rows in BN_SLAB_ROWS
+                       for dtype, cl in (("bfloat16", True),
+                                         ("float32", False)))
 
 
 def bn_compare(name):
@@ -2242,15 +2261,21 @@ def bn_inputs(dev, n, c, h, w, dtype, channels_last, seed):
             "running_var": draw(c, scale=0.1, shift=1.0).abs()}
 
 
-def bn_steps(a, eps=1e-5, momentum=0.1):
+def bn_steps(a, eps=1e-5, momentum=0.1, rest=None):
     """Argument sets of the four kernels on one site's inputs ``a``, each
     later one fed the kernels' own buffers (so a kernel and its plain
-    version see the same inputs)."""
+    version see the same inputs). ``rest``: another rank's y and dout of
+    the site, whose sums the buffers add, as a mesh's all-reduce does."""
     from insarseg_torch.kernels import bn_act as B
 
     y, bias, gamma, beta = a["y"], a["bias"], a["gamma"], a["beta"]
     stats = B.bn_stats(y, bias)
+    if rest is not None:
+        stats = stats + B.bn_stats(rest["y"], bias)
     gstats = B.bn_relu_grad_stats(a["dout"], y, bias, stats, gamma, beta, eps)
+    if rest is not None:
+        gstats = gstats + B.bn_relu_grad_stats(rest["dout"], rest["y"], bias,
+                                               stats, gamma, beta, eps)
     return {
         "bn_stats": {"y": y, "bias": bias},
         "bn_apply_relu": {"y": y, "bias": bias, "stats": stats,
@@ -2293,18 +2318,41 @@ def bn_check_call(name, args, out=None):
     return res
 
 
-def check_bn_fixed_shapes(dev) -> None:
+def check_bn_fixed_shapes(dev, shapes=BN_SHAPES) -> None:
     """K8a-K9b against their plain versions on the same inputs at fixed
     shapes (NCHW and channels-last, C 1 / 3 / 5 / 48 / 64 / 1024, a 1x1 map,
-    an odd H*W, bf16 and f32), each kernel run twice and bit-equal to
-    itself."""
+    an odd H*W, bf16 and f32; the spatial phase's ``BN_SLAB_SHAPES``: a
+    mesh's slabs of 0, 1, 7 and 15 rows, their moments summed with
+    another rank's), each kernel run twice and bit-equal to itself; on a
+    slab of no row each kernel launches and returns zero sums, a zero
+    count and an empty output."""
     import torch
+    from insarseg_torch import kernels as K
     from insarseg_torch.kernels import bn_act as B
 
     worst = {k: [0.0, 0, 0] for k in BN_KERNELS}
-    for i, (n, c, h, w, dtype, cl) in enumerate(BN_SHAPES):
+    for i, (n, c, h, w, dtype, cl) in enumerate(shapes):
         a = bn_inputs(dev, n, c, h, w, dtype, cl, SEED + 70 + i)
-        steps = bn_steps(a)
+        rest = None
+        if (n, c, h, w, dtype, cl) in BN_SLAB_SHAPES:
+            rest = bn_inputs(dev, n, c, 8, w, dtype, cl, SEED + 170 + i)
+        K.reset_launches()
+        steps = bn_steps(a, rest=rest)
+        if h == 0:
+            empty = {"bn_stats": B.bn_stats(a["y"], a["bias"]),
+                     "bn_apply_relu": B.bn_apply_relu(
+                         **steps["bn_apply_relu"]),
+                     "bn_relu_grad_apply": B.bn_relu_grad_apply(
+                         **steps["bn_relu_grad_apply"])}
+            torch.cuda.synchronize()
+            if float(empty["bn_stats"].abs().max()) != 0 \
+                    or empty["bn_apply_relu"].numel() \
+                    or empty["bn_relu_grad_apply"].numel() \
+                    or any(K.LAUNCHES[k] == 0 for k in BN_KERNELS):
+                raise AssertionError(
+                    f"bn_act on a slab of no row ({n}x{c}x0x{w} {dtype}): "
+                    f"sums {empty['bn_stats'].abs().max()}, launches "
+                    + json.dumps({k: K.LAUNCHES[k] for k in BN_KERNELS}))
         for name, args in steps.items():
             e, nd, ne = bn_check_call(name, dict(args))
             wk = worst[name]
@@ -4031,6 +4079,23 @@ SPATIAL_RESNETS = (("FCN-ResNet50-CA", "fcn", "channel"),
                    ("DeepLabV3-ResNet50", "deeplabv3", "none"),
                    ("PSPNet-ResNet50-CA", "pspnet", "channel"))
 HALO_MARK = "spatial halo exchange"  # the profiler range of an exchange
+# slabs of any height (``parallel/spatial.py``'s row ranges): the uneven
+# steps' tiles (global b8 over 1 x 2: 250-row slabs, 125 / 62.5 / 31.25 /
+# 15.6 rows a slab down the U-Net's levels) and their cells; the uneven
+# forward over 4 slabs on one card, each cell at its own size: (label,
+# model, attention, size)
+UNEVEN_TRAIN = 500
+UNEVEN_RESNETS = (("DeepLabV3-ResNet50", "deeplabv3", "none"),)
+UNEVEN_SLABS = 4
+UNEVEN_FORWARD = (("U-Net-CA", "unet", "channel", 500),
+                  ("U-Net-SA", "unet", "spatial", 496),
+                  ("U-Net-fast-CA", "unet-fast", "channel", 480),
+                  ("FCN-ResNet50-CA", "fcn", "channel", 500),
+                  ("DeepLabV3-ResNet50", "deeplabv3", "none", 500),
+                  ("PSPNet-ResNet50-CA", "pspnet", "channel", 500))
+# the four-card uneven readings: U-Net-CA's bf16 step at 1 x 4 (124-row
+# slabs) and its peak a card at 992^2 (248-row slabs) against 1024^2
+UNEVEN_CARDS = (496, 992)
 
 
 def spatial_bf16_rank(batch, base, device, spatial: int):
@@ -4063,19 +4128,31 @@ def spatial_bf16_rank(batch, base, device, spatial: int):
             "losses": losses}
 
 
-def spatial_gloo_rank(batches, fit_data, directory, base, device):
+def spatial_gloo_rank(batches, fit_data, directory, base, device,
+                      uneven=None):
     """The one-card spatial checks in one process a rank (world 2, 1 x 2):
     U-Net-CA's and U-Net-SA's f32 SGD steps, the checked bf16 step and
     ``fit`` with its resume; the ResNet cells' f32 SGD steps
-    (``SPATIAL_RESNETS``)."""
+    (``SPATIAL_RESNETS``); on the ``uneven`` batches (``UNEVEN_TRAIN``^2)
+    U-Net-CA's and ``UNEVEN_RESNETS``' f32 SGD steps and the checked bf16
+    step."""
     import torch
 
-    out = {"ca": mesh_sgd_rank(batches, base, device, spatial=2),
-           "sa": mesh_sgd_rank(batches, base, device, spatial=2,
-                               attention="spatial"),
-           "bf16": spatial_bf16_rank(batches[0], base, device, 2),
-           "fit": mesh_fit_rank(*fit_data, directory, base, device,
-                                spatial=2)}
+    out = {}
+    if uneven is not None:
+        out["uneven ca"] = mesh_sgd_rank(uneven, base, device, spatial=2)
+        out["uneven bf16"] = spatial_bf16_rank(uneven[0], base, device, 2)
+        for label, name, attention in UNEVEN_RESNETS:
+            torch.cuda.empty_cache()
+            out["uneven " + label] = mesh_sgd_rank(
+                uneven, base, device, spatial=2, resnet=(name, attention))
+        torch.cuda.empty_cache()
+    out.update({"ca": mesh_sgd_rank(batches, base, device, spatial=2),
+                "sa": mesh_sgd_rank(batches, base, device, spatial=2,
+                                    attention="spatial"),
+                "bf16": spatial_bf16_rank(batches[0], base, device, 2),
+                "fit": mesh_fit_rank(*fit_data, directory, base, device,
+                                     spatial=2)})
     for label, name, attention in SPATIAL_RESNETS:
         torch.cuda.empty_cache()
         out[label] = mesh_sgd_rank(batches, base, device, spatial=2,
@@ -4091,8 +4168,11 @@ def spatial_training(dev) -> dict:
     each count may move by at most the one process's near-tie pixels,
     ``TIE_BAR``); the bf16 step's every K8a-K9b call held against its
     plain version, its launches a rank equal to the one-card step's; a
-    2-epoch ``fit`` with a resume (finite, the ranks equal). Returns the
-    bf16 step's launches a rank."""
+    2-epoch ``fit`` with a resume (finite, the ranks equal). At slabs of
+    any height (``UNEVEN_TRAIN``^2: 250-row slabs) U-Net-CA's and
+    ``UNEVEN_RESNETS``' f32 steps held likewise and the bf16 step checked
+    likewise. Returns the two bf16 steps' launches a rank (512^2,
+    500^2)."""
     import os
     import tempfile
 
@@ -4103,16 +4183,19 @@ def spatial_training(dev) -> dict:
     size, b = SPATIAL_TRAIN
     batches = [synthetic_batch(b, size, seed=SEED + 100 + i)
                for i in range(2)]
+    uneven = [synthetic_batch(b, UNEVEN_TRAIN, seed=SEED + 130 + i)
+              for i in range(2)]
     fit_data = ([synthetic_batch(MESH_TRAIN[1], MESH_TRAIN[0],
                                  seed=SEED + 10 + i) for i in range(2)],
                 [synthetic_batch(MESH_TRAIN[1], MESH_TRAIN[0],
                                  seed=SEED + 20)])
     one = spatial_bf16_rank(batches[0], BASE, dev, 1)
+    one_uneven = spatial_bf16_rank(uneven[0], BASE, dev, 1)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ranks = launch(spatial_gloo_rank, 2, [dev, dev],
-                       args=(batches, fit_data, d, BASE, dev))
+                       args=(batches, fit_data, d, BASE, dev, uneven))
         log(f"  launch world 2 (gloo, data 1 x spatial 2 on one card): "
             f"{time.perf_counter() - t0:.1f} s")
         files = sorted(os.listdir(d))
@@ -4126,38 +4209,55 @@ def spatial_training(dev) -> dict:
             mesh_hold(r[key], batches, dev,
                       f"spatial 2 on gloo, rank {r['fit']['rank']}",
                       attention, want)
-    for label, name, attention in SPATIAL_RESNETS:
+    cells = [(label, name, attention, batches, label)
+             for label, name, attention in SPATIAL_RESNETS]
+    cells += [(label, name, attention, uneven, "uneven " + label)
+              for label, name, attention in UNEVEN_RESNETS]
+    for label, name, attention, data, key in cells:
         torch.cuda.empty_cache()
-        _same_state(ranks[0][label][1][-1], ranks[1][label][1][-1],
-                    f"the ranks' {label} states")
-        starts = [None] + ranks[0][label][1][:-1]
-        want = mesh_sgd_rank(batches, BASE, dev, resnet=(name, attention),
+        _same_state(ranks[0][key][1][-1], ranks[1][key][1][-1],
+                    f"the ranks' {key} states")
+        starts = [None] + ranks[0][key][1][:-1]
+        want = mesh_sgd_rank(data, BASE, dev, resnet=(name, attention),
                              starts=starts, ties=True)
         torch.cuda.empty_cache()
-        exact = mesh_sgd_rank(batches, BASE, dev, resnet=(name, attention),
+        exact = mesh_sgd_rank(data, BASE, dev, resnet=(name, attention),
                               starts=starts, dtype=torch.float64)
         for r in ranks:
-            mesh_hold(r[label], batches, dev,
+            mesh_hold(r[key], data, dev,
                       f"spatial 2 on gloo, rank {r['fit']['rank']}",
                       want=want, net=f"{label}, dropout off", exact=exact)
+    # U-Net-CA at slabs of any height: 250-row slabs, 15 and 16 rows a
+    # slab at the bottleneck
+    _same_state(ranks[0]["uneven ca"][1][-1], ranks[1]["uneven ca"][1][-1],
+                "the ranks' uneven ca states")
+    want = mesh_sgd_rank(uneven, BASE, dev,
+                         starts=[None] + ranks[0]["uneven ca"][1][:-1],
+                         ties=True)
+    for r in ranks:
+        mesh_hold(r["uneven ca"], uneven, dev,
+                  f"spatial 2 on gloo (uneven slabs), rank "
+                  f"{r['fit']['rank']}", want=want)
     launches = {}
-    for i, r in enumerate(ranks):
-        bf = r["bf16"]
-        log(f"  rank {i} bf16 step (U-Net-CA base {BASE}, {size}^2 global "
-            f"b{b}, {size // 2}-row slabs): losses {bf['losses']}; K8a-K9b "
-            f"launches {bf['launches']} against one card's "
-            f"{one['launches']}; checked against their plain versions "
-            + json.dumps(bf["checked"]))
-        for k, n in bf["launches"].items():
-            if n != one["launches"][k] or n == 0:
-                raise AssertionError(f"{k}: {n} launches a rank a step, one "
-                                     f"card {one['launches'][k]}")
-            if bf["checked"].get(k, {}).get("calls") != n:
-                raise AssertionError(f"{k}: {n} launches, "
-                                     f"{bf['checked'].get(k)} checked")
-        if not np.all(np.isfinite(bf["losses"])):
-            raise AssertionError(f"bf16 spatial losses {bf['losses']}")
-        launches = bf["launches"]
+    for key, tiles, ref in (("bf16", size, one),
+                            ("uneven bf16", UNEVEN_TRAIN, one_uneven)):
+        for i, r in enumerate(ranks):
+            bf = r[key]
+            log(f"  rank {i} {key} step (U-Net-CA base {BASE}, {tiles}^2 "
+                f"global b{b}, {tiles // 2}-row slabs): losses "
+                f"{bf['losses']}; K8a-K9b launches {bf['launches']} against "
+                f"one card's {ref['launches']}; checked against their plain "
+                "versions " + json.dumps(bf["checked"]))
+            for k, n in bf["launches"].items():
+                if n != ref["launches"][k] or n == 0:
+                    raise AssertionError(f"{k}: {n} launches a rank a step, "
+                                         f"one card {ref['launches'][k]}")
+                if bf["checked"].get(k, {}).get("calls") != n:
+                    raise AssertionError(f"{k}: {n} launches, "
+                                         f"{bf['checked'].get(k)} checked")
+            if not np.all(np.isfinite(bf["losses"])):
+                raise AssertionError(f"bf16 spatial losses {bf['losses']}")
+            launches[key] = bf["launches"]
     fits = [r["fit"] for r in ranks]
     hist2, step2 = fits[0][2]
     hist3, step3 = fits[0][3]
@@ -4172,7 +4272,7 @@ def spatial_training(dev) -> dict:
     if fits[1][2] != fits[0][2] or fits[1][3] != fits[0][3]:
         raise AssertionError("the ranks' fit histories differ")
     _same_state(fits[0]["state"], fits[1]["state"], "the ranks' states")
-    return launches
+    return launches["bf16"], launches["uneven bf16"]
 
 
 def spatial_forward(dev) -> None:
@@ -4218,6 +4318,49 @@ def spatial_forward(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def spatial_uneven_forward(dev, power_line: str) -> None:
+    """``make_predict_fn`` over ``make_mesh(data=1, spatial=UNEVEN_SLABS,
+    devices=[cuda:0] * UNEVEN_SLABS)`` (one thread a slab) against one
+    device at b``BATCH``, each cell of ``UNEVEN_FORWARD`` at its own size
+    (slabs of 125, 124 and 120 rows: the U-Nets' levels and the ResNets'
+    strides leave uneven slabs, U-Net-CA resizes at its odd levels): f32
+    within ``SPATIAL_FLOAT_BAR`` (the U-Nets) or ``SPATIAL_RESNET_BAR``
+    (the ResNets) x max|logit|, bf16 counted, each forward's seconds."""
+    import torch
+    from insarseg_torch.parallel import make_mesh, make_predict_fn
+
+    mesh = make_mesh(data=1, spatial=UNEVEN_SLABS,
+                     devices=[dev] * UNEVEN_SLABS)
+    for label, name, attention, size in UNEVEN_FORWARD:
+        x = torch.from_numpy(smooth_batch(np.random.default_rng(SEED + 140),
+                                          BATCH, size, size)).to(dev)
+        bar = SPATIAL_FLOAT_BAR if name.startswith("unet") \
+            else SPATIAL_RESNET_BAR
+        model = build_model(name, attention)
+        for dtype in (None, torch.bfloat16):
+            a = make_predict_fn(model, input_dtype=dtype, device=dev)(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = make_predict_fn(model, input_dtype=dtype, mesh=mesh)(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            a, b = a.float(), b.float()
+            scale, err = float(a.abs().max()), float((a - b).abs().max())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            what = "bf16" if dtype else "f32"
+            log(f"  {label} {what} {size}^2 b{BATCH}, H over {UNEVEN_SLABS} "
+                f"slabs of {size // UNEVEN_SLABS} rows on one card vs one "
+                f"device: {int((a != b).sum())} of {a.numel()} logits "
+                f"differ, max {err:.3g} ({err / scale:.3g} x max|logit|"
+                f"{'' if dtype else f', bar {bar}'}), argmax agreement "
+                f"{agree:.6f}; {secs:.2f} s (first call; on {power_line})")
+            if dtype is None and err > bar * scale:
+                raise AssertionError(f"{label}: the forward over uneven "
+                                     "slabs differs from one device")
+        del model, x
+        torch.cuda.empty_cache()
+
+
 def spatial_step_rank(size, batch, spatial, steps, reps, trace, cell=None):
     """One rank of U-Net-CA's bf16 train step (base ``BASE``; ``cell``, a
     ResNet family's (model, attention), that cell with ``build_model``'s
@@ -4226,8 +4369,8 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace, cell=None):
     by CUDA events (``reps`` timings of ``steps`` warm steps) and the
     peak memory; with ``trace``, a 3-step profiler window on rank 0: the
     NCCL kernels' device ms a step in all, the device time under the
-    halo exchanges (each ``GroupComm.exchange`` and, for a halo past the
-    neighbours, ``GroupComm.gather`` and its backward's sum of rows,
+    halo exchanges (each ``GroupComm.gather``: a halo's forward or
+    backward, or a whole map, and a whole map's backward sum of rows,
     marked by a ``record_function`` here: the range's host event alone,
     whose device time is that of the kernels launched inside it) and the
     bytes of their all-reduce buffers, and the device idle share."""
@@ -4269,21 +4412,25 @@ def spatial_step_rank(size, batch, spatial, steps, reps, trace, cell=None):
     if trace and rank() == 0:
         from insarseg_torch.parallel.spatial import GroupComm
 
-        real = {k: getattr(GroupComm, k) for k in ("exchange", "gather",
-                                                    "sum")}
+        real = {k: getattr(GroupComm, k) for k in ("gather", "sum")}
         moved = []  # each exchange's all-reduce buffer, bytes
 
         def marked(name):
-            def call(comm, *a):
-                # a sum of rows is a halo past the neighbours' backward
+            def call(comm, t, *a):
+                # a gather is a halo (forward or backward) or a whole map;
+                # a sum of rows is a whole map's backward
                 # (``spatial._Gather``); the pools' sums hold no rows
-                if name != "sum" or a[0].dim() == 4 and a[0].shape[2] > 1:
-                    moved.append((1 if name == "sum" else comm.size)
-                                 * sum(t.numel() * t.element_size()
-                                       for t in a))
-                    with torch.profiler.record_function(HALO_MARK):
-                        return real[name](comm, *a)
-                return real[name](comm, *a)
+                if name == "gather":
+                    n, c, h, w = t.shape
+                    rows = max(a[0]) if a and a[0] else h
+                    moved.append(comm.size * n * c * rows * w
+                                 * t.element_size())
+                elif t.dim() == 4 and t.shape[2] > 1:
+                    moved.append(t.numel() * t.element_size())
+                else:
+                    return real[name](comm, t, *a)
+                with torch.profiler.record_function(HALO_MARK):
+                    return real[name](comm, t, *a)
             return call
 
         for k in real:
@@ -4340,20 +4487,20 @@ def spatial_cli(root, devices_flag, preset=TRAIN_PRESET):
         return json.load(f)
 
 
-def spatial_timings(label, cell, meshes, power_line) -> None:
+def spatial_timings(label, cell, meshes, power_line, size=HW) -> None:
     """``label``'s bf16 step (``spatial_step_rank``'s ``cell``) at
-    ``HW``^2 global b``BATCH`` over each (data, spatial) of ``meshes``
+    ``size``^2 global b``BATCH`` over each (data, spatial) of ``meshes``
     that fits the cards, timed against one card with CUDA events, with
     rank 0's halo and all-reduce device ms from a profiler window."""
     import torch
     from insarseg_torch.parallel import launch
 
     n = torch.cuda.device_count()
-    one = spatial_step_rank(HW, BATCH, 1, SPATIAL_STEPS, SPATIAL_REPS, True,
-                            cell)
+    one = spatial_step_rank(size, BATCH, 1, SPATIAL_STEPS, SPATIAL_REPS,
+                            True, cell)
     torch.cuda.empty_cache()  # rank 0 shares this process's card
     ms1 = float(np.median(one["ms"]))
-    log(f"  {label} bf16 step {HW}^2 b{BATCH} on one card: {ms1:.3f} ms "
+    log(f"  {label} bf16 step {size}^2 b{BATCH} on one card: {ms1:.3f} ms "
         f"({one['ms']}), peak {one['peak_gib']:.3f} GiB; on {power_line}")
     for data, spatial in meshes:
         w = data * spatial
@@ -4361,7 +4508,7 @@ def spatial_timings(label, cell, meshes, power_line) -> None:
             continue
         t0 = time.perf_counter()
         ranks = launch(spatial_step_rank, w, args=(
-            HW, BATCH, spatial, SPATIAL_STEPS, SPATIAL_REPS, True, cell))
+            size, BATCH, spatial, SPATIAL_STEPS, SPATIAL_REPS, True, cell))
         r0 = ranks[0]
         msw = float(np.median(r0["ms"]))
         idle, halo = r0.get("idle"), r0["halo_ms"]
@@ -4384,22 +4531,22 @@ def spatial_timings(label, cell, meshes, power_line) -> None:
         del ranks
 
 
-def spatial_peaks(label, cell, batch, spatials) -> dict:
+def spatial_peaks(label, cell, batch, spatials, size=SPATIAL_BIG) -> dict:
     """The peak ``max_memory_allocated`` a card of ``label``'s bf16 step at
-    ``SPATIAL_BIG``^2 global b``batch``, on one card and over data 1 x
-    each of ``spatials`` that fits the cards."""
+    ``size``^2 global b``batch``, on one card and over data 1 x each of
+    ``spatials`` that fits the cards."""
     import torch
     from insarseg_torch.parallel import launch
 
-    peaks = {"1 card": spatial_step_rank(SPATIAL_BIG, batch, 1, 1, 1,
-                                         False, cell)["peak_gib"]}
+    peaks = {"1 card": spatial_step_rank(size, batch, 1, 1, 1, False,
+                                         cell)["peak_gib"]}
     torch.cuda.empty_cache()
     for spatial in spatials:
         if spatial <= torch.cuda.device_count():
             ranks = launch(spatial_step_rank, spatial, args=(
-                SPATIAL_BIG, batch, spatial, 1, 1, False, cell))
+                size, batch, spatial, 1, 1, False, cell))
             peaks[f"1 x {spatial}"] = max(r["peak_gib"] for r in ranks)
-    log(f"  {label} bf16 step {SPATIAL_BIG}^2 global b{batch}: peak "
+    log(f"  {label} bf16 step {size}^2 global b{batch}: peak "
         f"max_memory_allocated GiB a card {json.dumps(peaks)}")
     return peaks
 
@@ -4461,6 +4608,11 @@ def spatial_cards(power_line) -> None:
                     power_line)
     spatial_peaks("U-Net-CA", None, BATCH,
                   sorted({s for _, s in SPATIAL_MESHES}))
+    # slabs of any height: 124-row slabs timed, 248-row slabs' peak
+    spatial_timings("U-Net-CA (uneven slabs)", None, ((1, 4),), power_line,
+                    size=UNEVEN_CARDS[0])
+    spatial_peaks("U-Net-CA (uneven slabs)", None, BATCH, (4,),
+                  size=UNEVEN_CARDS[1])
     spatial_peaks("DeepLabV3-ResNet50", deeplab,
                   largest_batch("DeepLabV3-ResNet50", deeplab, (2, 4)),
                   (2, 4))
@@ -4484,22 +4636,29 @@ def spatial_path(dev, power_line: str, phase) -> dict:
     """The ``spatial`` phase (the H axis sharded): the one-card launches
     and the in-process forward, and on a machine with more cards the
     multi-card runs. Returns the K8a-K9b launches a rank of the spatial
-    bf16 step."""
+    bf16 steps at ``SPATIAL_TRAIN`` and at ``UNEVEN_TRAIN`` (slabs of any
+    height)."""
     import torch
 
     log(f"spatial phase on {power_line}, {torch.cuda.device_count()} "
         "card(s)")
     t0 = time.perf_counter()
-    launches = spatial_training(dev)
-    phase("spatial: launch world 2 on one card (f32 steps, bf16 step, fit)")
+    check_bn_fixed_shapes(dev, BN_SLAB_SHAPES)
+    phase("spatial: K8a-K9b on slabs of 0, 1, 7 and 15 rows")
+    launches, uneven = spatial_training(dev)
+    phase("spatial: launch world 2 on one card (f32 steps, bf16 steps, fit; "
+          "even and uneven slabs)")
     spatial_forward(dev)
     phase("spatial: the H-sharded forward over two slabs on one card")
+    spatial_uneven_forward(dev, power_line)
+    phase(f"spatial: the forward over {UNEVEN_SLABS} uneven slabs on one "
+          "card")
     if torch.cuda.device_count() > 1:
         spatial_cards(power_line)
         phase("spatial: every card")
-    log(f"  spatial launches a rank a step {launches}; the phase took "
-        f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    log(f"  spatial launches a rank a step {launches}, at uneven slabs "
+        f"{uneven}; the phase took {time.perf_counter() - t0:.1f} s")
+    return launches, uneven
 
 
 def run(dev, power_line: str, phase) -> list:
@@ -4661,8 +4820,9 @@ def main(argv=None) -> int:
         mesh_launches = mesh_path(dev, power_line, phase)
         return finish({"mesh_launches": mesh_launches})
     if only == "spatial":
-        return finish({"spatial_launches": spatial_path(dev, power_line,
-                                                        phase)})
+        launches, uneven = spatial_path(dev, power_line, phase)
+        return finish({"spatial_launches": launches,
+                       "spatial_uneven_launches": uneven})
     if only == "train":
         table = train_path(dev, power_line, phase)
         return finish({"kernels": table})
@@ -4687,9 +4847,10 @@ def main(argv=None) -> int:
     mesh_launches = mesh_path(dev, power_line, phase)
     for row in table:
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
-    spatial_launches = spatial_path(dev, power_line, phase)
+    spatial_launches, uneven = spatial_path(dev, power_line, phase)
     for row in table:
         row["spatial_launches"] = spatial_launches.get(row["name"], 0)
+        row["spatial_uneven_launches"] = uneven.get(row["name"], 0)
     return finish({"kernels": table})
 
 

@@ -52,9 +52,8 @@ the JAX CLI's does. ``--mesh-data`` above the visible cards raises.
 family; ``parallel/spatial.py``): ``--mesh-data D`` rows of S ranks, D x
 S in all (``--mesh-data -1``: every card, D = cards / S; on the CPU, D =
 1), ``--device cpu`` giving gloo ranks and ``--device cuda:K`` cards K
-onward; ``H / S`` must be a multiple of 16 for the U-Nets (32 for
-``unet-fast``) and of 8 for the ResNet families. ``eval`` and
-``predict`` ignore ``--mesh-spatial``, as the JAX CLI's do.
+onward; S must divide H, at any slab height. ``eval`` and ``predict``
+ignore ``--mesh-spatial``, as the JAX CLI's do.
 """
 
 from __future__ import annotations

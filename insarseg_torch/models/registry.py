@@ -28,9 +28,8 @@ SHARDS_H = ("unet", "unet-fast", "deeplabv3", "fcn", "pspnet")
 def check_spatial(model: Union[str, nn.Module]) -> None:
     """Raise ``NotImplementedError`` unless ``model`` (a name, or a module)
     is of a family whose H axis a spatial mesh shards: every family of the
-    registry (:data:`SHARDS_H`; the slab rules are the modules': a
-    multiple of 16 rows for the U-Nets, 32 for ``unet-fast``, 8 for the
-    ResNet families)."""
+    registry (:data:`SHARDS_H`), at any H that the slabs divide and the
+    module takes unsharded (``parallel/spatial.py``)."""
     from insarseg_torch.models.unet_stem import UNetFastS2D
 
     ok = isinstance(model, (UNet, UNetFastS2D, DeepLabV3, FCN, PSPNet)) \

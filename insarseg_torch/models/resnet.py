@@ -20,13 +20,12 @@
 ``forward`` returns ``{'out': layer4, 'aux': layer3}``.
 
 Under a spatial context (``parallel/spatial.py``: the H axis sharded,
-``x`` one slab of it) every conv and the stem's max-pool take their H
-padding from the slabs around them (``ops/layers.py::Conv2d``,
-``max_pool_2d``): the stem's 7x7 / 2 and 3x3 / 2 pool, each strided
-``conv2`` and ``downsample.0``, the dilated 3x3s of layer3 and layer4,
-whose halos reach past a small slab. The slab's height must be a
-multiple of 8 (the output stride: every stride then leaves whole rows a
-slab), which is checked (slabs of any height: ROADMAP Queue 1 item 21c).
+``x`` one slab of it) every conv and the stem's max-pool run as windows
+along H (``ops/layers.py::Conv2d``, ``max_pool_2d``): the stem's 7x7 / 2
+and 3x3 / 2 pool (a -inf halo), each strided ``conv2`` and
+``downsample.0`` (output row j on the slab holding input row 2j), the
+dilated 3x3s of layer3 and layer4, whose halos reach past small and
+empty slabs. Any H that the slabs divide runs.
 """
 
 from __future__ import annotations
@@ -37,10 +36,9 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import SEBlock
-from insarseg_torch.ops.layers import Conv2d, max_pool_2d, slab_rule
+from insarseg_torch.ops.layers import Conv2d, max_pool_2d
 
 WIDTHS = (64, 128, 256, 512)
-OUTPUT_STRIDE = 8
 BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
 
@@ -134,7 +132,6 @@ class ResNet50(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*mods))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        slab_rule(x, OUTPUT_STRIDE, "the ResNet families (output stride 8)")
         x = max_pool_2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
         x = self.layer2(self.layer1(x))
         aux = self.layer3(x)

@@ -21,11 +21,18 @@ puts ``nn.remat`` (``insarseg/models/unet.py:74-75``); the SA gates'
 computes in its input's dtype (``ops/layers.py``).
 
 Under a spatial context (``parallel/spatial.py``: the H axis sharded,
-``x`` one slab of it) the 3x3 convs exchange halo rows and the SE
-squeezes sum over the slabs; the max-pools, the 2x2 / 2 transposed convs
-and the skip concats stay inside the slab when its height is a multiple
-of 16 (four halvings), which is checked: the JAX package's GSPMD pads any
-H, the port does not (ROADMAP Queue 1 item 21c).
+``x`` one slab of it) the 3x3 convs exchange halo rows, the max-pools
+run as windows along H (``ops/layers.py::max_pool_2d``: a pool gives
+output row j to the slab holding input row 2j, and an odd map drops its
+last row, as unsharded), and the SE squeezes sum over the slabs. The
+2x2 / 2 transposed conv makes the rows ``[2 ceil(a / 2), 2 ceil(b /
+2))`` of a slab whose skip holds ``[a, b)``: each up path moves at most a
+row across each slab boundary to the skip's rows before the concat
+(``spatial.reslab``), or, where ``shape_fix`` resizes, resizes between
+the two in global coordinates (``ops/resize.py::resize_rows``). So any H
+that the slabs divide runs, slabs of no row among them; what the module
+takes unsharded it takes sharded: U-Net-CA any H, the plain U-Net and
+U-Net-SA a multiple of 16.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import DoubleConv, SpatialAttentionDC
-from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d, slab_rule
-from insarseg_torch.ops.resize import resize_bilinear
+from insarseg_torch.ops.layers import Conv2d, ConvTranspose2d, MaxPool2d
+from insarseg_torch.ops.resize import resize_bilinear, resize_rows
+from insarseg_torch.parallel import spatial
 
 
 class UNet(nn.Module):
@@ -58,7 +66,7 @@ class UNet(nn.Module):
         self.inc = DoubleConv(in_channels, plan[0], use_se, remat)
         for i in range(1, 5):
             setattr(self, f"down{i}", nn.Sequential(
-                nn.MaxPool2d(2),
+                MaxPool2d(2),
                 DoubleConv(plan[i - 1], plan[i], use_se, remat)))
         for i in range(1, 5):
             cin, cout = plan[5 - i], plan[4 - i]
@@ -70,18 +78,33 @@ class UNet(nn.Module):
         self.outc = Conv2d(plan[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        slab_rule(x, 16, "the U-Net (it halves H four times)")
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)
         x4 = self.down3(x3)
         y = self.down4(x4)
         for i, skip in ((1, x4), (2, x3), (3, x2), (4, x1)):
-            y = getattr(self, f"up{i}")(y)
-            if self.shape_fix and y.shape[2:] != skip.shape[2:]:
-                y = resize_bilinear(y, skip.shape[2:])
+            y = self._up_to(getattr(self, f"up{i}"), y, skip)
             y = torch.cat([skip, y], dim=1)
             if self.use_sa:
                 y = getattr(self, f"sa{i}")(y)
             y = getattr(self, f"conv{i}")(y)
         return self.outc(y)
+
+    def _up_to(self, up: nn.Module, y: torch.Tensor,
+               skip: torch.Tensor) -> torch.Tensor:
+        """``up(y)`` on the skip's rows and, with ``shape_fix``, at its
+        size."""
+        comm = spatial.current()
+        if comm is None:
+            u = up(y)
+            if self.shape_fix and u.shape[2:] != skip.shape[2:]:
+                u = resize_bilinear(u, skip.shape[2:])
+            return u
+        src = spatial.rows_of(y, comm).scaled(2)
+        dst = spatial.rows_of(skip, comm)
+        u = up(y)
+        if self.shape_fix and (src.height, u.shape[3]) != \
+                (dst.height, skip.shape[3]):
+            return resize_rows(u, src, dst, skip.shape[3], comm)
+        return spatial.reslab(u, src, dst, comm)

@@ -26,7 +26,8 @@ from torch import nn
 
 from insarseg_torch.engines import check_hw
 from insarseg_torch.models.unet import UNet
-from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw, slab_rule
+from insarseg_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
+from insarseg_torch.parallel import spatial
 
 
 def space_to_depth(x: torch.Tensor, f: int = 2) -> torch.Tensor:
@@ -47,8 +48,11 @@ def depth_to_space(x: torch.Tensor, f: int = 2) -> torch.Tensor:
 class UNetFastS2D(nn.Module):
     """Space-to-depth-stem UNet. NCHW in and out, as the port's UNet;
     H and W divisible by ``16 * factor``. Under a spatial mesh
-    (``parallel/spatial.py``) the stem and its inverse are local to a slab
-    whose height is a multiple of ``16 * factor``, which is checked."""
+    (``parallel/spatial.py``) the slab's bounds first move to multiples of
+    ``factor`` (``spatial.reslab``: at most ``factor - 1`` rows across each
+    boundary), the stem and its inverse run on the slab, the inner UNet
+    as it does on any slab, and the output goes back to the input's
+    rows."""
 
     def __init__(self, num_classes: int = 2, level1_features: int = 128,
                  use_se: bool = False, use_sa: bool = False, factor: int = 2,
@@ -65,10 +69,15 @@ class UNetFastS2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.factor
-        slab_rule(x, 16 * f, f"unet-fast (space-to-depth by {f}, then the "
-                  "U-Net's four halvings)")
+        comm = spatial.current()
+        if comm is not None:
+            rows = spatial.rows_of(x, comm)
+            whole = rows.rounded(f)
+            x = spatial.reslab(x, rows, whole, comm)
+            spatial.place(comm, x.shape[3] // f, whole.divided(f))
         y = self.unet(nhwc_to_nchw(space_to_depth(nchw_to_nhwc(x), f)))
-        return nhwc_to_nchw(depth_to_space(nchw_to_nhwc(y), f))
+        y = nhwc_to_nchw(depth_to_space(nchw_to_nhwc(y), f))
+        return y if comm is None else spatial.reslab(y, whole, rows, comm)
 
 
 def fast_variables_to_torch(variables: Mapping[str, Any], use_se: bool = False,

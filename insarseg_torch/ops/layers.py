@@ -61,18 +61,6 @@ def _not_sharded(what: str) -> NotImplementedError:
         "spatial mesh runs the registry's families (models/registry.py)")
 
 
-def slab_rule(x: torch.Tensor, multiple: int, family: str) -> None:
-    """Under a spatial context, raise ``ValueError`` naming ROADMAP item 21c
-    unless slab ``x``'s height is a multiple of ``multiple`` (every
-    stride and pool of ``family`` then leaves whole rows a slab)."""
-    if _spatial() is not None and x.shape[2] % multiple:
-        raise ValueError(
-            f"under a spatial mesh each slab's height (H / spatial) must be "
-            f"a multiple of {multiple} for {family}; this slab has "
-            f"{x.shape[2]} rows (slabs of any height: ROADMAP Queue 1 item "
-            "21c)")
-
-
 def _same_along_h(k: int, padding: int, dilation: int = 1) -> bool:
     """Whether a window of ``k`` rows, dilation ``dilation`` and padding
     ``padding`` is "same" along H (``2 p == d (k - 1)``): its H padding is
@@ -83,13 +71,15 @@ def _same_along_h(k: int, padding: int, dilation: int = 1) -> bool:
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype (f32 parameters cast per call).
 
-    Under a spatial context (``parallel/spatial.py``) a conv takes its H
-    padding from the slabs around it (``spatial.halo``, as many slabs as
-    it reaches) and convolves with padding ``(0, pw)``: the slab's rows of
-    the unsharded conv, at any stride and dilation. It must be "same"
-    along H (``2 ph == dh (kh - 1)``: the ResNets' stem 7x7 / 2, their
-    strided 3x3 and 1x1 / 2, the dilated 3x3s, every 3x3 / 1), and a
-    stride must divide the slab's height."""
+    Under a spatial context (``parallel/spatial.py``) a conv with an H
+    extent above 1 or a stride runs as a window along H
+    (``spatial.windowed``): the rows its windows read past the slab, its
+    H padding among them, come from the slabs around it (as many slabs as
+    it reaches), and it convolves with padding ``(0, pw)``: the slab's
+    rows of the unsharded conv, at any stride and dilation and on a slab
+    of any height, none too. It must be "same" along H (``2 ph == dh (kh
+    - 1)``: the ResNets' stem 7x7 / 2, their strided 3x3 and 1x1 / 2, the
+    dilated 3x3s, every 3x3 / 1)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, follow(x, self.weight),
@@ -98,34 +88,46 @@ class Conv2d(nn.Conv2d):
     def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor]) -> torch.Tensor:
         comm = _spatial()
-        if comm is None:
+        (kh, _), (sh, _) = self.kernel_size, self.stride
+        if comm is None or (kh == 1 and sh == 1 and x.shape[2]):
             return super()._conv_forward(x, weight, bias)
-        from insarseg_torch.parallel.spatial import halo
+        from insarseg_torch.parallel.spatial import windowed
 
-        (sh, _), (ph, pw), (dh, _) = self.stride, self.padding, self.dilation
-        if not _same_along_h(self.kernel_size[0], ph, dh) \
-                or self.padding_mode != "zeros":
+        (ph, pw), (dh, _) = self.padding, self.dilation
+        if not _same_along_h(kh, ph, dh) or self.padding_mode != "zeros":
             raise _not_sharded(f"a conv of kernel {self.kernel_size}, "
                                f"padding {self.padding}, dilation "
                                f"{self.dilation}")
-        slab_rule(x, sh, f"a conv of stride {sh}")
-        return F.conv2d(halo(x, ph, comm), weight, bias, self.stride,
-                        (0, pw), self.dilation, self.groups)
+        return windowed(lambda t: F.conv2d(t, weight, bias, self.stride,
+                                           (0, pw), self.dilation,
+                                           self.groups),
+                        x, dh * (kh - 1) + 1, sh, ph, comm)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` in its input's dtype (no ``output_size``).
     Under a spatial context only its slab-local form runs (kernel equal to
-    the stride along H, no padding: the U-Net's 2x2 / 2)."""
+    the stride along H, no padding: the U-Net's 2x2 / 2, whose output
+    rows are the input's scaled, ``spatial.Rows.scaled``), on a slab of
+    any height, none too."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _spatial() is not None and (
+        comm = _spatial()
+        if comm is not None and (
                 self.kernel_size[0] != self.stride[0] or self.padding[0]):
             raise _not_sharded(f"a transposed conv of kernel "
                                f"{self.kernel_size}, stride {self.stride}")
-        return F.conv_transpose2d(
-            x, follow(x, self.weight), follow(x, self.bias), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation)
+
+        def up(t):
+            return F.conv_transpose2d(
+                t, follow(x, self.weight), follow(x, self.bias), self.stride,
+                self.padding, self.output_padding, self.groups, self.dilation)
+
+        if comm is not None and not x.shape[2]:
+            from insarseg_torch.parallel.spatial import empty_out
+
+            return empty_out(up, x, 1, 0.0)
+        return up(x)
 
 
 class Linear(nn.Linear):
@@ -260,39 +262,42 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,
                 padding: int = 0) -> torch.Tensor:
     """``nn.MaxPool2d(window, stride, padding)`` (floor mode; the padding
-    acts as -inf) over NCHW float tensors. Under a spatial context a pool
-    that is "same" along H (the ResNet stem's 3x3 / 2, padding 1) takes
-    its H padding from a -inf halo (``spatial.halo``); a window equal to
-    its stride with no padding stays inside the slab."""
+    acts as -inf) over NCHW float tensors. Under a spatial context it runs
+    as a window along H (``spatial.windowed``): the rows its windows read
+    past the slab from a -inf halo, the slab's rows of the unsharded pool
+    on a slab of any height (the U-Net's 2 x 2 / 2 of an odd map drops
+    its last row, as unsharded)."""
     comm = _spatial()
+    stride = window if stride is None else stride
     if comm is None:
         return F.max_pool2d(x, window, stride, padding)
-    stride = window if stride is None else stride
-    slab_rule(x, stride, f"a max-pool of stride {stride}")
-    if _same_along_h(window, padding):
-        from insarseg_torch.parallel.spatial import halo
+    from insarseg_torch.parallel.spatial import windowed
 
-        return F.max_pool2d(halo(x, padding, comm, fill=-math.inf), window,
-                            stride, (0, padding))
-    if stride == window and not padding:
-        return F.max_pool2d(x, window, stride)
-    raise _not_sharded(f"a {window}x{window} / {stride} max-pool, padding "
-                       f"{padding}")
+    return windowed(lambda t: F.max_pool2d(t, window, stride, (0, padding)),
+                    x, window, stride, padding, comm, fill=-math.inf)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` through :func:`max_pool_2d` (the U-Net's
+    ``down{i}.0``: no parameters, the state_dict names unchanged)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_2d(x, self.kernel_size, self.stride, self.padding)
 
 
 def spatial_mean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """The mean over H and W of NCHW ``x``: ``x.mean(dim=(2, 3))``, or under
     a spatial context the slab's sum in at least f32 summed over the slabs
-    (``spatial.spatial_sum``), divided by the whole image's H·W and
-    rounded to ``x``'s dtype once (replicated)."""
+    (``spatial.spatial_sum``), divided by the whole map's H·W and rounded
+    to ``x``'s dtype once (replicated)."""
     comm = _spatial()
     if comm is None:
         return x.mean(dim=(2, 3), keepdim=keepdim)
-    from insarseg_torch.parallel.spatial import spatial_sum
+    from insarseg_torch.parallel.spatial import rows_of, spatial_sum
 
     acc = torch.promote_types(x.dtype, torch.float32)
     total = spatial_sum(x.sum(dim=(2, 3), keepdim=keepdim, dtype=acc), comm)
-    return (total / (x.shape[2] * x.shape[3] * comm.size)).to(x.dtype)
+    return (total / (rows_of(x, comm).height * x.shape[3])).to(x.dtype)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
@@ -400,11 +405,12 @@ def _sharded_pools(x: torch.Tensor, sizes: List[Tuple[int, int]],
     own integral image, the parts of all sizes summed over the slabs in
     one ``spatial_sum`` and divided by the bins' global areas; the whole
     b x b maps on every slab (replicated)."""
-    from insarseg_torch.parallel.spatial import spatial_sum
+    from insarseg_torch.parallel.spatial import rows_of, spatial_sum
 
     ii = integral_image(x)
-    h = x.shape[2]
-    parts = [_bin_sums(ii, o, h * comm.size, comm.index * h) for o in sizes]
+    rows = rows_of(x, comm)
+    parts = [_bin_sums(ii, o, rows.height, rows.of(comm.index)[0])
+             for o in sizes]
     n = x.shape[0]
     total = spatial_sum(torch.cat([s.reshape(n, -1) for s, _ in parts], 1),
                         comm)
@@ -426,12 +432,17 @@ def adaptive_avg_pools(x: torch.Tensor,
     order.
 
     Under a spatial context ``x`` is a slab and every pool is of the whole
-    image and replicated (the same map on every slab): the global mean by
-    :func:`spatial_mean`, the image's own size by
-    ``spatial.spatial_gather``, the other sizes by :func:`_sharded_pools`."""
+    map and replicated (the same map on every slab): the global mean by
+    :func:`spatial_mean`, the map's own size by
+    ``spatial.spatial_gather``, the other sizes by :func:`_sharded_pools`
+    (the bins by global rows)."""
     comm = _spatial()
-    image = tuple(x.shape[-2:]) if comm is None else \
-        (x.shape[2] * comm.size, x.shape[3])
+    if comm is None:
+        image = tuple(x.shape[-2:])
+    else:
+        from insarseg_torch.parallel.spatial import rows_of
+
+        image = (rows_of(x, comm).height, x.shape[3])
     out: List[Optional[torch.Tensor]] = []
     binned = []
     for size in sizes:

@@ -1,6 +1,7 @@
 """Bilinear resize with the reference's semantics (counterpart of
 ``insarseg/ops/resize.py::resize_bilinear``): half-pixel centres
-(``align_corners=False``), no antialias."""
+(``align_corners=False``), no antialias; and the JAX package's
+nearest-neighbour resize (:func:`resize_nearest`)."""
 
 from __future__ import annotations
 
@@ -38,40 +39,91 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
     """Resize an NCHW tensor to spatial ``size``.
 
     Under a spatial context (``parallel/spatial.py``) ``size`` is the
-    output slab's own, the rows of a global output ``spatial`` times as
-    high, and the caller says what ``x`` is (shapes alone cannot tell a
-    6 x 6 bin map from a 6-row slab):
+    output slab's own: the rows of the global map of width ``size[1]``
+    (``spatial.rows_at``), and the caller says what ``x`` is (shapes
+    alone cannot tell a 6 x 6 bin map from a 6-row slab):
 
-    - a slab (``replicated=False``) of a global input ``spatial`` times
-      its height: each output row samples the global input rows by the
-      unsharded resize's rule, the rows past the slab from a halo of the
-      slabs around it (``spatial.halo``; the clamp at the image's edges
-      reads the edge row itself); with H unchanged, a resize along W;
+    - a slab (``replicated=False``) of its own map (``spatial.rows_of``):
+      :func:`resize_rows`;
     - a whole map on every slab (``replicated=True``, the PSPNet's bins):
       the slab's rows of the global output, read from the map itself.
     """
-    from insarseg_torch.parallel.spatial import current, halo
+    from insarseg_torch.parallel.spatial import current, rows_at, rows_of
 
     comm = current()
-    if comm is None or (not replicated and x.shape[-2] == size[0]):
+    if comm is None:
         if tuple(x.shape[-2:]) == tuple(size):
             return x
         return F.interpolate(x, size=tuple(size), mode="bilinear",
                              align_corners=False, antialias=False)
-    h, h_out = x.shape[2], size[0]
-    n_in = h if replicated else h * comm.size
-    i0, i1, l0, l1 = _source_rows(n_in, h_out * comm.size,
-                                  comm.index * h_out, h_out, x.device)
-    if not replicated:
-        # the rows this slab's outputs read, on the host's clock (no sync)
-        c0, c1, _, _ = _source_rows(n_in, h_out * comm.size,
-                                    comm.index * h_out, h_out, "cpu")
-        top = comm.index * h
-        k = max(top - int(c0[0]), int(c1[-1]) - (top + h - 1), 0)
-        x = halo(x, k, comm)
-        i0, i1 = i0 - (top - k), i1 - (top - k)
-    y = _lerp_rows(x, i0, i1, l0, l1)
-    if y.shape[3] == size[1]:
+    src = None if replicated else rows_of(x, comm)
+    return resize_rows(x, src, rows_at(comm, size[1], size[0]), size[1],
+                       comm)
+
+
+def resize_rows(x: torch.Tensor, src, dst, width: int, comm) -> torch.Tensor:
+    """The bilinear resize, in global coordinates, of slab ``x`` of the
+    rows ``src`` (a ``spatial.Rows``; None: ``x`` is the whole map on
+    every slab) to this slab's rows of ``dst``, ``width`` columns wide:
+    each output row samples the global input rows by the unsharded
+    resize's rule, the rows past the slab from a halo of the slabs around
+    it (``spatial.halo``; the clamp at the image's edges reads the edge
+    row itself). With the same rows, a resize along W alone."""
+    from insarseg_torch.parallel.spatial import halo
+
+    if src is not None and src == dst:
+        y = x
+    else:
+        s = comm.index
+        n_in = x.shape[2] if src is None else src.height
+        a, b = dst.of(s)
+        i0, i1, l0, l1 = _source_rows(n_in, dst.height, a, b - a, x.device)
+        if src is not None:
+            need = []
+            for t in range(dst.size):
+                # the rows slab t's outputs read, on the host's clock (no
+                # sync)
+                c, d = dst.of(t)
+                if c == d:
+                    need.append((0, 0))
+                    continue
+                c0, c1, _, _ = _source_rows(n_in, dst.height, c, d - c, "cpu")
+                top, end = src.of(t)
+                need.append((max(top - int(c0[0]), 0),
+                             max(int(c1[-1]) - (end - 1), 0)))
+            x = halo(x, need, comm, rows=src)
+            first = src.of(s)[0] - need[s][0]
+            i0, i1 = i0 - first, i1 - first
+        y = _lerp_rows(x, i0, i1, l0, l1)
+    if y.shape[3] == width:
         return y
-    return F.interpolate(y, size=tuple(size), mode="bilinear",
+    if not y.shape[2]:
+        # no row to resize (interpolate takes none): none, still in the
+        # graph
+        return y[:, :, :, :1].expand(-1, -1, 0, width)
+    return F.interpolate(y, size=(y.shape[2], width), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def _nearest(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` resized to ``n`` along ``dim`` by ``jax.image.resize``'s
+    nearest rule: output i takes input ``floor((i + 0.5) * m / n)``, in
+    f32 in that order."""
+    m = x.shape[dim]
+    if m == n:
+        return x
+    src = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
+           * m / n).floor().long()
+    return x.index_select(dim, src)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC (or HWC / HW) ``x`` to spatial
+    ``size`` (counterpart of ``insarseg/ops/resize.py::resize_nearest``):
+    the half-pixel-centre rule of ``jax.image.resize`` (PIL's NEAREST),
+    any dtype (a mask's too). ``F.interpolate(mode='nearest')`` uses the
+    floor rule and can pick another source pixel."""
+    if not 2 <= x.dim() <= 4:
+        raise ValueError(f"expected 2-4D input, got shape {tuple(x.shape)}")
+    hd = 0 if x.dim() == 2 else x.dim() - 3
+    return _nearest(_nearest(x, hd, size[0]), hd + 1, size[1])

@@ -41,9 +41,8 @@ def make_predict_fn(
     mesh with ``spatial`` above 1 the H axis is sharded too, as the JAX
     package's ``make_predict_fn`` shards it (``spatial_engine``: one
     thread a slab, each entering inference mode itself), for every family
-    of the registry (``models/registry.py::check_spatial``), their slabs
-    a multiple of 16 rows for the U-Nets, 32 for ``unet-fast`` and 8 for
-    the ResNet families."""
+    of the registry (``models/registry.py::check_spatial``), at any H
+    that ``spatial`` divides."""
     if mesh is not None:
         engine = mesh_engine
         if mesh.spatial > 1:

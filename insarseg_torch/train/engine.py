@@ -242,9 +242,10 @@ def _data_rows(n: int, spatial: int) -> slice:
 def _slab(image: torch.Tensor, mask: torch.Tensor, comm
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's slab of the NHWC image and NHW mask (both whole
-    without a spatial group)."""
+    without a spatial group); the group forgets the last image's maps."""
     if comm is None:
         return image, mask
+    comm.new_image()
     rows = P.slab_of(image.shape[1], comm.index, comm.size)
     return image[:, rows], mask[:, rows]
 
@@ -472,9 +473,8 @@ def fit(model: nn.Module, cfg, train_loader, val_loader=None,
     restores on resume, and the ranks meet after each save. Without a
     group ``fit`` runs on one device, and ``mesh_data`` or
     ``mesh_spatial`` above 1 raises ``ValueError``, as ``mesh_spatial``
-    above the ranks does; under ``mesh_spatial`` above 1 a slab whose
-    height breaks the model's slab rule raises ``ValueError`` naming
-    ROADMAP item 21c at the first step. A batch that the data axis does
+    above the ranks does; under ``mesh_spatial`` above 1 any H that it
+    divides runs (``parallel/spatial.py``). A batch that the data axis does
     not divide splits unevenly (``rows_of``), as on a data mesh, where
     the JAX package shrinks its data axis to a divisor."""
     dev = resolve_device(device)

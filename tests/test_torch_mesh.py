@@ -7,9 +7,8 @@ package's engines on ``make_mesh(data=4)`` (the 8 virtual CPU devices of
 - ``make_mesh`` / ``shard_batch`` / ``replicate`` / ``replicate_arrays``
   with the JAX helpers' semantics: the ``data=-1`` arithmetic, the checks,
   Python scalars kept; a ``spatial`` axis gives the JAX helper's shape
-  (``tests/test_torch_spatial.py`` runs it), and a ResNet family under it
-  raises naming ROADMAP item 21c where a slab is not a multiple of 8
-  rows;
+  (``tests/test_torch_spatial.py`` runs it), and a ResNet family runs
+  under it at a slab of any height (10 rows) as on one device;
   the CLI's ``_eval_mesh`` picks the JAX CLI's data axis (the cases of
   ``tests/test_engines_mesh.py:198-210``);
 - U-Net-CA (base 16, 32^2, global b8) on the module, serve and int8
@@ -85,8 +84,7 @@ def test_make_mesh_follows_the_jax_helper():
     with pytest.raises(ValueError):
         make_mesh(0, devices=CPUS)
     # the spatial axis: the JAX helper's shapes; a ResNet family runs on
-    # it (item 21b), its slabs a multiple of 8 rows, else a ValueError
-    # naming item 21c
+    # it at a slab of any height
     assert make_mesh(2, spatial=2, devices=CPUS).shape == \
         dict(jax_make_mesh(data=2, spatial=2).shape)
     assert make_mesh(-1, spatial=4, devices=["cpu"] * 8).shape == \
@@ -97,9 +95,13 @@ def test_make_mesh_follows_the_jax_helper():
     from insarseg_torch.models.registry import build
     from insarseg_torch.parallel import make_predict_fn
 
-    with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
-        make_predict_fn(build("deeplabv3"), mesh=make_mesh(
-            1, spatial=2, devices=["cpu", "cpu"]))(torch.zeros(1, 20, 16, 1))
+    model = build("deeplabv3").eval()
+    x = torch.linspace(-1, 1, 20 * 16).reshape(1, 20, 16, 1)
+    got = make_predict_fn(model, mesh=make_mesh(
+        1, spatial=2, devices=["cpu", "cpu"]))(x)
+    want = make_predict_fn(model, device="cpu")(x)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()  # the default devices are the cards: none here
     with pytest.raises(RuntimeError, match="no CUDA device"):

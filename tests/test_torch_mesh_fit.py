@@ -17,8 +17,7 @@ in ``tmp_path``, then a resume to epoch 3:
 - ``mesh_data`` other than -1 or the group's size raises in a group, and
   above 1 without one (the ``ValueError`` naming ``launch``), as
   ``mesh_spatial`` above 1 does, for a ResNet family too; a ResNet
-  family's slab that is not a multiple of 8 rows raises naming ROADMAP
-  item 21c.
+  family runs a slab of any height (12 rows) as one device does.
 """
 
 import dataclasses
@@ -109,8 +108,8 @@ def test_fit_checks_mesh_data(runs):
                  device="cpu")
     # mesh_spatial > 1 also needs a group (tests/test_torch_spatial_train.py
     # runs it in one), for a ResNet family too
-    # (tests/test_torch_spatial_resnet_fit.py), whose slabs must be a
-    # multiple of 8 rows, else a ValueError naming item 21c
+    # (tests/test_torch_spatial_resnet_fit.py), whose slabs may have any
+    # height
     with pytest.raises(ValueError, match="launch"):
         R.TE.fit(model, dataclasses.replace(CFG, mesh_spatial=2), train,
                  device="cpu")
@@ -121,7 +120,12 @@ def test_fit_checks_mesh_data(runs):
     from insarseg_torch.models.registry import build
     from insarseg_torch.parallel import spatial
 
-    with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,
-                                           torch.device("cpu"))):
-        with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
-            build("fcn", "channel")(torch.zeros(1, 1, 12, 16))
+    model = build("fcn", "channel").eval()
+    x = torch.linspace(-1, 1, 12 * 16).reshape(1, 1, 12, 16)
+    with torch.no_grad():
+        with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,
+                                               torch.device("cpu"))):
+            got = model(x)
+        want = model(x)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

@@ -24,8 +24,9 @@ package's.
   virtual CPU devices of ``tests/conftest.py``) on the same weights,
   within 1e-4 x max|logit| (the port's ResNet bar,
   ``tests/test_torch_resnet.py``), and the argmax form;
-- the ResNet families' slab rule: a slab whose height is not a multiple
-  of 8 raises ``ValueError`` naming ROADMAP item 21c.
+- the slabs the ResNet families' old slab rule refused (not a multiple
+  of 8 rows) run: FCN-CA at 12-row slabs equals its unsharded forward,
+  and a strided conv and pool on a 5-row slab equal the unsharded ops.
 
 The JAX trees are numpy draws read in with the JAX package's importer
 (``tests/test_torch_common.py::make_resnet_pair``), no eager JAX init."""
@@ -249,18 +250,21 @@ def test_global_max_with_ties_across_slabs():
 
 
 def test_slab_rule_names_item_21c():
-    """A ResNet family's slab must be a multiple of 8 rows (the output
-    stride); the strided layers check that their stride divides it."""
+    """What this test once saw refused naming the slab rule now runs: a
+    ResNet family at slabs off a multiple of 8 rows, and a strided conv
+    and pool on an odd slab, each as unsharded."""
     model = build("fcn", "channel").eval()
     mesh = make_mesh(data=1, spatial=2, devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="multiple of 8.*item 21c"):
-        make_predict_fn(model, mesh=mesh)(torch.zeros(1, 24, 16, 1))
+    x = torch.from_numpy(smooth(np.random.default_rng(3), (1, 24, 16, 1)))
+    want = make_predict_fn(model, device="cpu")(x)
+    _close(make_predict_fn(model, mesh=mesh)(x), want, "FCN-CA, 12-row slabs")
+    conv = Conv2d(1, 1, 3, stride=2, padding=1)
+    x = _x((1, 1, 5, 4))
     with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,
                                            CPU)):
-        with pytest.raises(ValueError, match="item 21c"):
-            Conv2d(1, 1, 3, stride=2, padding=1)(torch.zeros(1, 1, 5, 4))
-        with pytest.raises(ValueError, match="item 21c"):
-            max_pool_2d(torch.zeros(1, 1, 5, 4), 3, 2, 1)
+        got = [conv(x), max_pool_2d(x, 3, 2, 1)]
+    _close(got[0].detach(), conv(x).detach(), "a 3x3 / 2 conv of 5 rows")
+    _close(got[1], F.max_pool2d(x, 3, 2, 1), "a 3x3 / 2 pool of 5 rows")
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,10 @@ against the port's one process:
   one (with ``fit``'s Adam, whose first steps move each weight by about
   lr in the sign of its gradient, the loss by 3e-4 after one). The
   steps themselves are held in float64 above;
-- a ``fit`` whose slabs break the ResNet families' slab rule (24^2 tiles:
-  12-row slabs) raises ``ValueError`` naming ROADMAP item 21c on every
-  rank.
+- a ``fit`` at 24^2 tiles (12-row slabs, which the port refused before
+  slabs of any height) runs on every rank: the ranks' histories equal
+  and the first epoch's train entries (a forward from equal weights)
+  within rtol 1e-5 of one process's.
 """
 
 import dataclasses
@@ -78,6 +79,7 @@ def runs(tmp_path_factory):
     one_fit = R.fit_and_resume(FIT_CFG, fit_sd, train, val,
                                str(tmp_path_factory.mktemp("one_fit")),
                                R.fcn_ca, FIT_LR)
+    one_fit["slab"] = R.odd_fit(FIT_CFG, fit_sd, odd)
     return ranks, one, one_fit
 
 
@@ -122,6 +124,13 @@ def test_fcn_ca_fit_mesh_spatial_2_as_one_process(runs, run):
 
 
 def test_fit_refuses_slabs_off_the_slab_rule(runs):
-    for r in runs[0]:
-        msg = r[len(KINDS)]["slab"]
-        assert "multiple of 8" in msg and "item 21c" in msg, msg
+    """The geometry this test once saw refused (12-row slabs) now fits."""
+    ranks, _, one = runs
+    want = one["slab"]
+    for r in ranks:
+        hist = r[len(KINDS)]["slab"]
+        assert hist == ranks[0][len(KINDS)]["slab"]
+        assert [h["epoch"] for h in hist] == [1]
+        for k, v in want[0].items():
+            if k.startswith("train_"):
+                assert hist[0][k] == pytest.approx(v, rel=1e-5), k

@@ -19,6 +19,7 @@ def halo_case(x, w, gy, spatial: int, channels_last: bool):
     output gradient ``gy``'s slab. Returns the slab's output and input
     gradient, the weight gradient and where the slab lies."""
     comm = P.spatial_comm(spatial)
+    comm.new_image()
     d, s = P.coords(spatial)
     rows = P.rows_of(len(x), d, P.world() // spatial)
     slab = P.slab_of(x.shape[2], s, spatial)
@@ -36,6 +37,24 @@ def halo_case(x, w, gy, spatial: int, channels_last: bool):
                      memory_format=torch.channels_last),
                  "gx_cl": xs.grad.is_contiguous(
                      memory_format=torch.channels_last)})
+
+
+def uneven_halo_case(x, bounds, need, gys, fill: float):
+    """:func:`halo` over this rank's rows ``[bounds[s], bounds[s + 1])``
+    of ``x`` (placed as its map; the whole batch, one data row), each
+    slab asking ``need[s]`` rows above and below, forward and backward
+    with the output gradient ``gys[s]``: the haloed slab and the input
+    gradient."""
+    from insarseg_torch.parallel import spatial
+
+    comm = P.spatial_comm(len(bounds) - 1)
+    comm.new_image()
+    rows = spatial.place(comm, x.shape[3], spatial.Rows(tuple(bounds)))
+    a, b = rows.of(comm.index)
+    xs = x[:, :, a:b].clone().requires_grad_(True)
+    y = halo(xs, need, comm, fill)
+    (y * gys[comm.index]).sum().backward()
+    return _cpu({"y": y, "gx": xs.grad})
 
 
 def no_dropout(model):
@@ -136,19 +155,24 @@ def replicated_bn_case(x, gy, spatial: int):
     return out
 
 
-def resnet_fit(cfg, state_dict, train, val, directory, odd, sgd):
-    """:func:`fit_and_resume` of FCN-ResNet50-CA (dropout off; SGD at
-    ``sgd``), then a ``fit`` on the global batches ``odd``, whose slabs
-    break the ResNet families' slab rule: what it raises."""
+def odd_fit(cfg, state_dict, odd):
+    """One epoch of ``fit`` of FCN-ResNet50-CA (dropout off) from
+    ``state_dict`` on the global batches ``odd``, whose slabs are off the
+    slab rule the port had before slabs of any height: the history."""
     import dataclasses
 
+    model = fcn_ca()
+    model.load_state_dict(state_dict, strict=True)
+    return TE.fit(model, dataclasses.replace(cfg, num_epochs=1), odd,
+                  verbose=False, device="cpu")
+
+
+def resnet_fit(cfg, state_dict, train, val, directory, odd, sgd):
+    """:func:`fit_and_resume` of FCN-ResNet50-CA (dropout off; SGD at
+    ``sgd``), then :func:`odd_fit` on ``odd``."""
     out = fit_and_resume(cfg, state_dict, train, val, directory, fcn_ca,
                          sgd)
-    try:
-        TE.fit(fcn_ca(), dataclasses.replace(cfg, num_epochs=1), odd,
-               device="cpu")
-    except ValueError as e:
-        out["slab"] = str(e)
+    out["slab"] = odd_fit(cfg, state_dict, odd)
     return out
 
 
@@ -156,7 +180,8 @@ def run_cases(cases):
     """Each ``(function name, args)`` of ``cases`` in turn, on every rank
     in the same order (the spatial groups are made collectively): one
     launch for many cases."""
-    funcs = {"halo": halo_case, "steps": spatial_steps,
+    funcs = {"halo": halo_case, "uneven_halo": uneven_halo_case,
+             "steps": spatial_steps,
              "fit": fit_and_resume, "bn": replicated_bn_case,
              "resnet_fit": resnet_fit}
     return [funcs[name](*args) for name, args in cases]

@@ -8,21 +8,22 @@ of one machine (NVIDIA GPUs, NCCL):
 For each (data x spatial) mesh it launches one process a card
 (``parallel.launch``) and times U-Net-CA's bf16 train step (base 64, the
 global batch ``--batch`` at ``--size``^2) with CUDA events, 5 warm steps
-a timing, under four forms of the spatial transport in turns (every rank
-switches in the same order):
+a timing, under three forms of the spatial transport in turns (every
+rank switches in the same order):
 
-- ``slot``: ``parallel/spatial.py::GroupComm`` as it is (each halo
-  exchange one all-reduce of a zeroed buffer with a slot a rank);
-- ``p2p``: the halo rows by ``batch_isend_irecv`` with the two
-  neighbours (``GroupComm``'s exchange before this tool chose the slot
-  form);
-- ``no-halo``: the halo exchanges skipped (zeros come back: the values
-  are wrong; the time of the step without them);
-- ``no-comm``: the halo exchanges and the SE sums skipped (wrong values
+- ``slot``: ``parallel/spatial.py::GroupComm`` as it is (each halo's
+  gather of the slabs' edge rows one all-reduce of a zeroed buffer with
+  a slot a rank);
+- ``no-halo``: the halo gathers skipped (zeros come back: the values are
+  wrong; the time of the step without them);
+- ``no-comm``: the halo gathers and the SE sums skipped (wrong values
   too).
 
-Beside each timing it reads the host seconds a step spent inside the
-exchanges and the sums (``time.perf_counter`` around each call) and the
+(A ``batch_isend_irecv`` form with the two neighbours, which this tool
+timed against the slot form before the halo reached past them, is gone:
+a halo now reads any slab its rows lie on.) Beside each timing it reads
+the host seconds a step spent inside the gathers and the sums
+(``time.perf_counter`` around each call) and the
 step's host seconds (the loop's wall clock over the steps, the device
 synchronized at the end), and for ``slot`` on rank 0 a 3-step profiler
 window: the device idle share and the operations with the most host
@@ -40,33 +41,13 @@ import numpy as np
 
 from chip_smoke import BASE, SEED, device_idle_share, nvidia_smi_line
 
-FORMS = ("slot", "p2p", "no-halo", "no-comm")
+FORMS = ("slot", "no-halo", "no-comm")
 STEPS, REPS = 5, 3
 
 
-def _p2p_exchange(comm, up, down):
-    import torch
-    import torch.distributed as dist
-
-    s, ops, got = comm.index, [], [None, None]
-    for i, (msg, peer) in enumerate(((up, s - 1), (down, s + 1))):
-        if not 0 <= peer < comm.size:
-            continue
-        msg = msg.contiguous()
-        got[i] = torch.empty_like(msg)
-        dst = dist.get_global_rank(comm.group, peer)
-        ops += [dist.P2POp(dist.isend, msg, dst, comm.group),
-                dist.P2POp(dist.irecv, got[i], dst, comm.group)]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return tuple(got)
-
-
-def _no_exchange(comm, up, down):
-    s = comm.index
-    return (up.new_zeros(down.shape) if s > 0 else None,
-            up.new_zeros(up.shape) if s + 1 < comm.size else None)
+def _no_gather(comm, t, heights=None):
+    n, c, h, w = t.shape
+    return [t.new_zeros((n, c, k, w)) for k in heights or [h] * comm.size]
 
 
 def rank_main(size, batch, spatial, turns):
@@ -87,8 +68,8 @@ def rank_main(size, batch, spatial, turns):
     data = synthetic_batch(batch, size, seed=SEED + 120)
     x = torch.from_numpy(data["image"]).to(dev)
     m = torch.from_numpy(data["mask"]).to(dev)
-    slot_exchange, real_sum = GroupComm.exchange, GroupComm.sum
-    host = {"exchange": 0.0, "sum": 0.0}
+    slot_gather, real_sum = GroupComm.gather, GroupComm.sum
+    host = {"gather": 0.0, "sum": 0.0}
 
     def timed(name, fn):
         def call(*a):
@@ -99,21 +80,20 @@ def rank_main(size, batch, spatial, turns):
                 host[name] += time.perf_counter() - t0
         return call
 
-    forms = {"slot": (slot_exchange, real_sum),
-             "p2p": (_p2p_exchange, real_sum),
-             "no-halo": (_no_exchange, real_sum),
-             "no-comm": (_no_exchange, lambda comm, t: t.clone())}
-    out = {f: {"ms": [], "host_ms": [], "exchange_ms": [], "sum_ms": []}
+    forms = {"slot": (slot_gather, real_sum),
+             "no-halo": (_no_gather, real_sum),
+             "no-comm": (_no_gather, lambda comm, t: t.clone())}
+    out = {f: {"ms": [], "host_ms": [], "gather_ms": [], "sum_ms": []}
            for f in FORMS}
     for _ in range(turns):
         for f in FORMS:
-            GroupComm.exchange = timed("exchange", forms[f][0])
+            GroupComm.gather = timed("gather", forms[f][0])
             GroupComm.sum = timed("sum", forms[f][1])
             for _ in range(2):
                 step(state, x, m)
             torch.cuda.synchronize()
             for _ in range(REPS):
-                host["exchange"] = host["sum"] = 0.0
+                host["gather"] = host["sum"] = 0.0
                 a, b = torch.cuda.Event(enable_timing=True), \
                     torch.cuda.Event(enable_timing=True)
                 t0 = time.perf_counter()
@@ -125,9 +105,9 @@ def rank_main(size, batch, spatial, turns):
                 r = out[f]
                 r["host_ms"].append((time.perf_counter() - t0) / STEPS * 1e3)
                 r["ms"].append(a.elapsed_time(b) / STEPS)
-                r["exchange_ms"].append(host["exchange"] / STEPS * 1e3)
+                r["gather_ms"].append(host["gather"] / STEPS * 1e3)
                 r["sum_ms"].append(host["sum"] / STEPS * 1e3)
-    GroupComm.exchange = timed("exchange", slot_exchange)
+    GroupComm.gather = timed("gather", slot_gather)
     GroupComm.sum = timed("sum", real_sum)
     if rank() == 0:
         with profile(activities=[ProfilerActivity.CPU,
@@ -145,7 +125,7 @@ def rank_main(size, batch, spatial, turns):
         for _ in range(3):
             step(state, x, m)
         torch.cuda.synchronize()
-    GroupComm.exchange, GroupComm.sum = slot_exchange, real_sum
+    GroupComm.gather, GroupComm.sum = slot_gather, real_sum
     return out
 
 
