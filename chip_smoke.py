@@ -109,7 +109,15 @@ only (no JAX, nothing of ``insarseg``) and:
    results against their plain versions at fixed shapes, and every call of
    a bf16 512^2 b8 step checked, then timed on its tensors (each call's
    line with dout's layout, whether ``_like`` copied it and the kernels
-   the wrapper launched; the sums by level).
+   the wrapper launched; the sums by level); the fixed shapes hold every
+   mode (relu, none, residual) and f64 (``BN_MODE_SHAPES``); then the
+   ResNet families' bf16 steps at 512^2 (``RESNET_TRAIN``: DeepLabV3 b8,
+   FCN-CA and PSPNet-CA b2), each BatchNorm one launch of each kernel in
+   its mode (``RESNET_MODES``), every call checked, DeepLabV3's kernel ms
+   by mode from a profiler window beside their bounds, and its step in
+   turns with the library route it replaced (``resnet_step_turns``:
+   cuDNN's BatchNorm, ``tools/bn_ab.py::library_route``) at bf16 512^2 and
+   f32 128^2 b8 (ms, peak, idle).
    ``python3 chip_smoke.py --only train`` builds the kernels and runs
    this phase alone;
 6. runs the commands users run (``insarseg_torch.cli``, on the card) on
@@ -202,7 +210,9 @@ only (no JAX, nothing of ``insarseg``) and:
    f32 SGD steps on the two gloo ranks, held to one process's at
    ``MESH_BARS`` and ``TIE_BAR`` (a loss, count, parameter or statistic
    that misses its bar no further from the float64 steps' than
-   ``FLOAT_NOISE`` x one process's f32 one), and their forward over the
+   ``FLOAT_NOISE`` x one process's f32 one; every K8a-K9b call of the
+   ranks' and the one process's f32 and f64 steps checked, and each
+   quantity's ``d_mesh / d_one`` printed), and their forward over the
    two slabs within 1e-4 x max|logit| in f32, bf16 counted; on a machine
    with more cards, also (``spatial_cards``) the NCCL bf16 step at data
    1 x spatial 2, 1 x 4 and 2 x 2 (U-Net-CA) and 1 x 2, 1 x 4
@@ -2162,6 +2172,10 @@ BN_SUM_BAR = 1e-10
 BN_STAT_BAR = 1e-6
 BN_F32_BAR = 1e-6
 BN_SHARE = 1e-6
+# f64 elements (the yardstick steps' BatchNorms): their terms round, so two
+# sum orders move the f64 means by ulps and most elements by ulps; each
+# output within BN_F64_BAR of its largest |value|, no share
+BN_F64_BAR = 1e-12
 # the largest reading of each bar in this run: name -> |delta| / bar scale
 BN_WORST = {}
 # fixed shapes: (N, C, H, W, dtype, channels-last)
@@ -2174,6 +2188,26 @@ BN_SHAPES = (
     (3, 48, 17, 19, "bfloat16", False), (3, 48, 17, 19, "bfloat16", True),
     (3, 48, 17, 19, "float32", True), (2, 3, 9, 9, "bfloat16", True),
     (2, 1024, 1, 1, "float32", False),
+)
+# the ResNet families' sites in the modes other than the DoubleConv's
+# (N, C, H, W, dtype, channels-last, mode), bias-free as their convs are:
+# layer1's bn3 + residual and downsample BN of a bf16 512^2 b8 step, layer4's
+# (2048 channels at 64^2), a pooled 1x1 map at b8 and at b1 (variance 0),
+# odd maps, and f64 (the yardstick steps) in each mode and layout
+BN_MODE_SHAPES = (
+    (8, 256, 128, 128, "bfloat16", True, "residual"),
+    (8, 256, 128, 128, "bfloat16", True, "none"),
+    (8, 2048, 64, 64, "bfloat16", True, "residual"),
+    (8, 64, 256, 256, "bfloat16", True, "relu"),
+    (8, 256, 1, 1, "bfloat16", False, "relu"),
+    (1, 512, 1, 1, "float32", False, "relu"),
+    (3, 48, 17, 19, "float32", False, "residual"),
+    (3, 48, 17, 19, "bfloat16", True, "none"),
+    (2, 64, 9, 9, "float64", False, "relu"),
+    (2, 64, 9, 9, "float64", True, "residual"),
+    (4, 5, 1, 1, "float64", False, "none"),
+    (2, 256, 16, 16, "float64", False, "residual"),
+    (2, 256, 16, 16, "float64", True, "none"),
 )
 # a slab's rows under a spatial mesh of any slab height: none, one, odd;
 # each site's moments summed with a full 8-row rest of the batch, as the
@@ -2210,6 +2244,10 @@ def bn_compare(name):
         return err, int((got != want).sum()), got.numel()
 
     def elements(got, want):
+        if isinstance(want, tuple):  # K9b's residual mode: (dt, dr)
+            parts = [elements(g, w) for g, w in zip(got, want)]
+            return (max(p[0] for p in parts), sum(p[1] for p in parts),
+                    sum(p[2] for p in parts))
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
                                  f"{want.shape} {want.dtype}")
@@ -2218,6 +2256,13 @@ def bn_compare(name):
         err = float(d.max()) if d.numel() else 0.0
         big = float(w.abs().max()) if w.numel() else 0.0
         nd = int((got != want).sum())
+        if got.dtype == torch.float64:
+            if err > BN_F64_BAR * big:
+                raise AssertionError(f"{name}: f64 {err:.3g} apart, over "
+                                     f"{BN_F64_BAR} x {big:.3g}")
+            BN_WORST[name + " f64"] = max(BN_WORST.get(name + " f64", 0.0),
+                                          err / max(big, 1e-300))
+            return err, nd, got.numel()
         if got.numel():
             BN_WORST[name + " share"] = max(
                 BN_WORST.get(name + " share", 0.0), nd / got.numel())
@@ -2241,54 +2286,73 @@ def bn_compare(name):
 
 
 def bn_inputs(dev, n, c, h, w, dtype, channels_last, seed):
-    """Seeded y, bias, gamma, beta, running mean / var and dout."""
+    """Seeded y, bias, gamma, beta, running mean / var, dout and a
+    residual r (the per-channel vectors in acc: f64 for f64 y)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    dt = _dtype(dtype)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float64": torch.float64}[dtype]
+    acc = torch.promote_types(dt, torch.float32)
 
     def draw(*shape, scale=1.0, shift=0.0):
-        return torch.randn(shape, generator=g, device=dev) * scale + shift
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                + shift).to(acc)
 
-    y = draw(n, c, h, w, scale=2.0, shift=0.5).to(dt)
-    dout = draw(n, c, h, w).to(dt)
-    if channels_last:
-        y = y.contiguous(memory_format=torch.channels_last)
-        dout = dout.contiguous(memory_format=torch.channels_last)
-    return {"y": y, "dout": dout, "bias": draw(c, scale=0.5),
-            "gamma": draw(c, scale=0.2, shift=1.0),
-            "beta": draw(c, scale=0.3), "running_mean": draw(c, scale=0.1),
-            "running_var": draw(c, scale=0.1, shift=1.0).abs()}
+    def nchw(t):
+        t = t.to(dt)
+        return t.contiguous(memory_format=torch.channels_last) \
+            if channels_last else t
+
+    y = nchw(draw(n, c, h, w, scale=2.0, shift=0.5))
+    dout = nchw(draw(n, c, h, w))
+    a = {"y": y, "dout": dout, "bias": draw(c, scale=0.5),
+         "gamma": draw(c, scale=0.2, shift=1.0),
+         "beta": draw(c, scale=0.3), "running_mean": draw(c, scale=0.1),
+         "running_var": draw(c, scale=0.1, shift=1.0).abs()}
+    a["r"] = nchw(draw(n, c, h, w))  # the residual mode's identity
+    return a
 
 
-def bn_steps(a, eps=1e-5, momentum=0.1, rest=None):
-    """Argument sets of the four kernels on one site's inputs ``a``, each
-    later one fed the kernels' own buffers (so a kernel and its plain
+def bn_steps(a, eps=1e-5, momentum=0.1, rest=None, mode="relu"):
+    """Argument sets of the four kernels on one site's inputs ``a`` in
+    ``mode`` (the relu mode with the conv bias, the others bias-free as
+    the ResNet convs are), each later one fed the kernels' own buffers and
+    the residual mode's backward K8b's output (so a kernel and its plain
     version see the same inputs). ``rest``: another rank's y and dout of
     the site, whose sums the buffers add, as a mesh's all-reduce does."""
     from insarseg_torch.kernels import bn_act as B
 
-    y, bias, gamma, beta = a["y"], a["bias"], a["gamma"], a["beta"]
+    y, gamma, beta = a["y"], a["gamma"], a["beta"]
+    bias = a["bias"] if mode == "relu" else None
+    r = a["r"] if mode == "residual" else None
     stats = B.bn_stats(y, bias)
     if rest is not None:
         stats = stats + B.bn_stats(rest["y"], bias)
-    gstats = B.bn_relu_grad_stats(a["dout"], y, bias, stats, gamma, beta, eps)
+    apply = {"y": y, "bias": bias, "stats": stats, "gamma": gamma,
+             "beta": beta, "running_mean": a["running_mean"],
+             "running_var": a["running_var"], "eps": eps,
+             "momentum": momentum, "mode": mode, "residual": r}
+
+    def out_of(site):  # the site's output, the residual mode's mask
+        if mode != "residual":
+            return None
+        return B.bn_apply_relu(**dict(
+            apply, y=site["y"], residual=site["r"],
+            running_mean=a["running_mean"].clone(),
+            running_var=a["running_var"].clone()))
+
+    grad = {"y": y, "bias": bias, "stats": stats, "gamma": gamma,
+            "beta": beta, "eps": eps, "mode": mode, "out": out_of(a)}
+    gstats = B.bn_relu_grad_stats(a["dout"], **grad)
     if rest is not None:
-        gstats = gstats + B.bn_relu_grad_stats(rest["dout"], rest["y"], bias,
-                                               stats, gamma, beta, eps)
+        gstats = gstats + B.bn_relu_grad_stats(
+            rest["dout"], **dict(grad, y=rest["y"], out=out_of(rest)))
     return {
         "bn_stats": {"y": y, "bias": bias},
-        "bn_apply_relu": {"y": y, "bias": bias, "stats": stats,
-                          "gamma": gamma, "beta": beta,
-                          "running_mean": a["running_mean"],
-                          "running_var": a["running_var"], "eps": eps,
-                          "momentum": momentum},
-        "bn_relu_grad_stats": {"dy": a["dout"], "y": y, "bias": bias,
-                               "stats": stats, "gamma": gamma, "beta": beta,
-                               "eps": eps},
-        "bn_relu_grad_apply": {"dy": a["dout"], "y": y, "bias": bias,
-                               "stats": stats, "gstats": gstats,
-                               "gamma": gamma, "beta": beta, "eps": eps},
+        "bn_apply_relu": apply,
+        "bn_relu_grad_stats": dict(grad, dy=a["dout"]),
+        "bn_relu_grad_apply": dict(grad, dy=a["dout"], gstats=gstats),
     }
 
 
@@ -2318,26 +2382,38 @@ def bn_check_call(name, args, out=None):
     return res
 
 
-def check_bn_fixed_shapes(dev, shapes=BN_SHAPES) -> None:
+def _same_result(first, second) -> bool:
+    """Two results of a wrapper bit-equal (K9b's residual mode: a pair)."""
+    import torch
+
+    if isinstance(first, tuple):
+        return all(torch.equal(a, b) for a, b in zip(first, second))
+    return torch.equal(first, second)
+
+
+def check_bn_fixed_shapes(dev, shapes=None) -> None:
     """K8a-K9b against their plain versions on the same inputs at fixed
-    shapes (NCHW and channels-last, C 1 / 3 / 5 / 48 / 64 / 1024, a 1x1 map,
-    an odd H*W, bf16 and f32; the spatial phase's ``BN_SLAB_SHAPES``: a
-    mesh's slabs of 0, 1, 7 and 15 rows, their moments summed with
-    another rank's), each kernel run twice and bit-equal to itself; on a
-    slab of no row each kernel launches and returns zero sums, a zero
-    count and an empty output."""
+    shapes (NCHW and channels-last, C 1 / 3 / 5 / 48 / 64 / 256 / 1024 /
+    2048, 1x1 maps, an odd H*W, bf16, f32 and f64, each mode:
+    ``BN_MODE_SHAPES``; the spatial phase's ``BN_SLAB_SHAPES``: a mesh's
+    slabs of 0, 1, 7 and 15 rows, their moments summed with another
+    rank's), each kernel run twice and bit-equal to itself; on a slab of
+    no row each kernel launches and returns zero sums, a zero count and
+    an empty output."""
     import torch
     from insarseg_torch import kernels as K
     from insarseg_torch.kernels import bn_act as B
 
     worst = {k: [0.0, 0, 0] for k in BN_KERNELS}
-    for i, (n, c, h, w, dtype, cl) in enumerate(shapes):
+    for i, shape in enumerate(shapes or BN_SHAPES + BN_MODE_SHAPES):
+        n, c, h, w, dtype, cl = shape[:6]
+        mode = shape[6] if len(shape) > 6 else "relu"
         a = bn_inputs(dev, n, c, h, w, dtype, cl, SEED + 70 + i)
         rest = None
-        if (n, c, h, w, dtype, cl) in BN_SLAB_SHAPES:
+        if shape in BN_SLAB_SHAPES:
             rest = bn_inputs(dev, n, c, 8, w, dtype, cl, SEED + 170 + i)
         K.reset_launches()
-        steps = bn_steps(a, rest=rest)
+        steps = bn_steps(a, rest=rest, mode=mode)
         if h == 0:
             empty = {"bn_stats": B.bn_stats(a["y"], a["bias"]),
                      "bn_apply_relu": B.bn_apply_relu(
@@ -2362,22 +2438,22 @@ def check_bn_fixed_shapes(dev, shapes=BN_SHAPES) -> None:
             for k, v in keep.items():
                 args[k].copy_(v)
             second = getattr(B, name)(**args)
-            if not torch.equal(first, second):
-                raise AssertionError(f"{name} on {(n, c, h, w, dtype, cl)} "
-                                     "differs between two runs")
+            if not _same_result(first, second):
+                raise AssertionError(f"{name} on {shape} differs between "
+                                     "two runs")
         layout, vec, s = B.plan(a["y"])
         r = B.reduce_plan(a["y"], a["dout"])
         log(f"  bn_act {n}x{c}x{h}x{w} {dtype} "
-            f"{'channels-last' if cl else 'NCHW'}: K8b / K9b plan layout "
-            f"{layout} vec {vec} slices {s}; K8a / K9a vec {r.vec} groups "
-            f"{r.groups} slices {r.slices} of {r.per}; kernels == plain "
-            "within the bars, two runs bit-equal")
+            f"{'channels-last' if cl else 'NCHW'} {mode}: K8b / K9b plan "
+            f"layout {layout} vec {vec} slices {s}; K8a / K9a vec {r.vec} "
+            f"groups {r.groups} slices {r.slices} of {r.per}; kernels == "
+            "plain within the bars, two runs bit-equal")
         del a, steps
     torch.cuda.synchronize()
     log("K8a-K9b against their plain versions at fixed shapes (max |delta|, "
         "differing, elements): " + json.dumps(worst) + "; largest readings "
-        "(sums: |delta| / max|value|; outputs: the differing share) "
-        + json.dumps(BN_WORST))
+        "(sums: |delta| / max|value|; outputs: the differing share; f64: "
+        "|delta| / max|value|) " + json.dumps(BN_WORST))
 
 
 @contextlib.contextmanager
@@ -2612,6 +2688,204 @@ def bn_library_site(dev) -> dict:
     return {"forward_ms": fwd, "backward_ms": bwd, "sites": len(sites)}
 
 
+# The ResNet families' train steps on K8a-K9b, one call a BatchNorm in the
+# mode of what follows it (kernels/bn_act.py::MODES): (label, model,
+# attention, batch) at 512^2, bf16, and each cell's calls by mode.
+# DeepLabV3-ResNet50: 60 BatchNorms (the stem, bn1 and bn2 of 16
+# bottlenecks and 7 head BNs with their ReLU; bn3 with the residual add;
+# 4 downsample BNs); the CA cells put bn3 before the SE block (the none
+# mode) and FCN-CA's head has one BN, PSPNet-CA's five (the 1x1 bin among
+# them)
+RESNET_TRAIN = (("DeepLabV3-ResNet50", "deeplabv3", "none", BATCH),
+                ("FCN-ResNet50-CA", "fcn", "channel", 2),
+                ("PSPNet-ResNet50-CA", "pspnet", "channel", 2))
+RESNET_MODES = {"deeplabv3": {"relu": 40, "none": 4, "residual": 16},
+                "fcn": {"relu": 34, "none": 20},
+                "pspnet": {"relu": 38, "none": 20}}
+# passes over the (N, C, H, W) operand each kernel makes by mode (reads
+# and writes: the residual mode reads r or the saved output, and K9b
+# writes dr)
+BN_PASSES = {"bn_stats": {"relu": 1, "none": 1, "residual": 1},
+             "bn_apply_relu": {"relu": 2, "none": 2, "residual": 3},
+             "bn_relu_grad_stats": {"relu": 2, "none": 2, "residual": 3},
+             "bn_relu_grad_apply": {"relu": 3, "none": 3, "residual": 5}}
+# the kernels' ops in their device names (csrc/bn_act.cu), the mode their
+# template's second argument
+BN_OPS = {"StatsOp": "bn_stats", "ApplyOp": "bn_apply_relu",
+          "GradStatsOp": "bn_relu_grad_stats",
+          "GradApplyOp": "bn_relu_grad_apply"}
+BN_MODE_NAMES = ("relu", "none", "residual")
+# the DeepLabV3 step timed in turns with the library route: (dtype, size)
+RESNET_TURNS = (("bfloat16", HW), ("float32", 128))
+
+
+def resnet_train_step(dev, name, attention, size, batch, dtype="bfloat16"):
+    """(state, step, image, mask) of a ResNet cell's train step on the
+    card: ``build_model``'s seeded weights, Adam, ``compute_dtype``
+    ``dtype``, a synthetic batch."""
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    model = build_model(name, attention).train()
+    state = create_state(model, device=dev)
+    step = make_train_step(model, 2, compute_dtype=_dtype(dtype))
+    data = synthetic_batch(batch, size, seed=SEED + 34)
+    return (state, step, torch.from_numpy(data["image"]).to(dev),
+            torch.from_numpy(data["mask"]).to(dev))
+
+
+def bn_device_ms(prof, steps: int) -> dict:
+    """K8a-K9b's device ms a step in a profiler window of ``steps`` steps,
+    by kernel and mode (K8a's moments take no mode: ``all``)."""
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\b(GradStatsOp|StatsOp|GradApplyOp|ApplyOp)"
+                      r"<[^,<>]+, (\d)>", e.key)
+        if m is None:
+            continue
+        k = BN_OPS[m.group(1)]
+        mode = "all" if k == "bn_stats" else BN_MODE_NAMES[int(m.group(2))]
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        out.setdefault(k, {}).setdefault(mode, 0.0)
+        out[k][mode] += us / steps / 1e3
+    return out
+
+
+def train_resnet_bn(dev, power_line) -> dict:
+    """The ResNet families' bf16 train steps at 512^2 (``RESNET_TRAIN``),
+    each with the launch counters set to 0 just before and read just
+    after, every K8a-K9b call held against its plain version
+    (``checked_bn_calls``): each kernel launched once a BatchNorm, its
+    calls checked, the calls by mode ``RESNET_MODES``'. For each, the
+    bound of each kernel by mode from the calls' shapes; for DeepLabV3 the
+    kernels' device ms by mode from a profiler window of the step. Returns
+    per cell its launches, calls by mode, bounds and (DeepLabV3) ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch import kernels as K
+
+    out = {}
+    for label, name, attention, batch in RESNET_TRAIN:
+        state, step, x, m = resnet_train_step(dev, name, attention, HW,
+                                              batch)
+        step(state, x, m)
+        torch.cuda.synchronize()
+        checked, calls = {}, {}
+        K.reset_launches()
+        with checked_bn_calls(checked, calls):
+            step(state, x, m)
+        torch.cuda.synchronize()
+        launches = {k: K.LAUNCHES[k] for k in BN_KERNELS}
+        modes = {}
+        for a in calls["bn_apply_relu"]:
+            modes[a["mode"]] = modes.get(a["mode"], 0) + 1
+        want = RESNET_MODES[name]
+        log(f"bf16 train step {label}, {HW}^2 b{batch}: K8a-K9b launches "
+            f"{launches}, K8b's calls by mode {modes} (expected {want}); "
+            "every call held against its plain version "
+            + json.dumps(checked, default=sorted))
+        if modes != want:
+            raise AssertionError(f"{label}: calls by mode {modes}, "
+                                 f"expected {want}")
+        for k, n in launches.items():
+            if n != sum(want.values()):
+                raise AssertionError(f"{label}: {k} launched {n} times for "
+                                     f"{sum(want.values())} BatchNorms")
+            if checked.get(k, {}).get("calls") != n:
+                raise AssertionError(f"{label}: {k}: {n} launches, "
+                                     f"{checked.get(k, {}).get('calls')} "
+                                     "checked")
+        bounds = {}
+        for k in BN_KERNELS:
+            for i, a in enumerate(calls[k]):
+                mode = calls["bn_apply_relu"][i]["mode"] \
+                    if k == "bn_stats" else a["mode"]
+                y = a["y"]
+                nbytes = (BN_PASSES[k][mode] * y.numel() * y.element_size()
+                          + 16 * y.shape[1])
+                bms, _ = bound(6.0 * y.numel(), nbytes, PEAK_F32)
+                mode = "all" if k == "bn_stats" else mode
+                bounds.setdefault(k, {}).setdefault(mode, 0.0)
+                bounds[k][mode] += bms
+        del calls
+        cell = {"launches": launches, "modes": modes, "bound_ms": bounds,
+                "checked": {k: c["calls"] for k, c in checked.items()},
+                "max_abs_err": {k: c["max_abs_err"]
+                                for k, c in checked.items()}}
+        if name == "deeplabv3":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(state, x, m)
+                torch.cuda.synchronize()
+            cell["ms"] = bn_device_ms(prof, 2)
+            cell["idle"] = device_idle_share(prof)
+            log(f"  {label} bf16 step under the profiler (2 steps): K8a-K9b "
+                "device ms a step by mode " + json.dumps(cell["ms"])
+                + " against their bounds " + json.dumps(bounds)
+                + f"; device idle {cell['idle']}; on {power_line}")
+        out[label] = cell
+        del state, step, x, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def resnet_step_turns(dev, power_line) -> dict:
+    """The DeepLabV3-ResNet50 train step (``RESNET_TURNS``: bf16 at 512^2
+    and f32 at 128^2, b``BATCH``) through K8a-K9b and through the library
+    route they replaced (``tools/bn_ab.py::library_route``: cuDNN's
+    ``F.batch_norm`` with separate ReLU and add passes), in turns (kernels,
+    library, library, kernels; 5 steps a turn after a warm step a route):
+    ms a step (CUDA events, the best turn of each route), the peak
+    ``max_memory_allocated`` of each, and the kernel route's device idle
+    share over a 2-step profiler window."""
+    import torch
+    from tools.bn_ab import library_route
+
+    res = {}
+    for dtype, size in RESNET_TURNS:
+        state, step, x, m = resnet_train_step(dev, "deeplabv3", "none", size,
+                                              BATCH, dtype)
+        routes = {"kernels": contextlib.nullcontext, "library": library_route}
+        for route in routes.values():
+            with route():
+                step(state, x, m)
+        ms = {r: [] for r in routes}
+        peak = {r: 0.0 for r in routes}
+        for r in ("kernels", "library", "library", "kernels"):
+            with routes[r]():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                for _ in range(5):
+                    step(state, x, m)
+                e1.record()
+                torch.cuda.synchronize()
+            ms[r].append(e0.elapsed_time(e1) / 5)
+            peak[r] = max(peak[r], torch.cuda.max_memory_allocated(dev)
+                          / 2 ** 30)
+        idle, top, _ = profile_window(lambda t: step(state, t, m), x, reps=2)
+        key = f"{dtype} {size}^2 b{BATCH}"
+        res[key] = {"ms": {r: min(v) for r, v in ms.items()},
+                    "turns": ms, "peak_gib": peak, "idle": idle}
+        log(f"DeepLabV3-ResNet50 train step {key} (Adam, TF32 off), K8a-K9b "
+            f"against the library route in turns: ms a step "
+            + json.dumps(ms) + f", peak GiB {json.dumps(peak)}, device idle "
+            f"(kernel route, 2-step profiler window) {idle}; on "
+            f"{power_line}")
+        for k, dms in top:
+            log(f"    profiler, device ms a step: {dms:.4f} {k}")
+        del state, step, x, m
+        torch.cuda.empty_cache()
+    return res
+
+
 # insarseg_bn_kernel_info's kernels, by index
 BN_INFO = ("K8a bf16 channels-last", "K9a bf16 channels-last",
            "K8a f32 NCHW", "K9a f32 NCHW", "K8a bf16 NCHW", "K9a bf16 NCHW",
@@ -2681,6 +2955,19 @@ def train_path(dev, power_line: str, phase) -> list:
     phase("training: K8a-K9b against their plain versions at fixed shapes")
     rows = train_bn_kernels(dev, power_line)
     phase("training: K8a-K9b through a bf16 512^2 step, checked and timed")
+    cells = train_resnet_bn(dev, power_line)
+    turns = resnet_step_turns(dev, power_line)
+    for row in rows:
+        k = row["name"]
+        row["resnet_launches"] = {c: v["launches"][k]
+                                  for c, v in cells.items()}
+        row["launches"] += sum(row["resnet_launches"].values())
+        deeplab = cells[RESNET_TRAIN[0][0]]
+        row["resnet_ms_by_mode"] = deeplab["ms"].get(k, {})
+        row["resnet_bound_ms_by_mode"] = deeplab["bound_ms"][k]
+    rows[0]["resnet_step"] = turns
+    phase("training: the ResNet families' BatchNorms on K8a-K9b, checked; "
+          "the DeepLabV3 step against the library route")
     train_fit(dev)
     phase("training: fit, checkpoints, resume")
     # 5 steps a repeat at 128^2, 2 at 512^2 (a step there is ~310 ms and
@@ -3306,8 +3593,13 @@ MESH_BARS = (1e-5, 1e-4, 1e-5)
 # from the float64 step's than this many times one process's f32 one does
 # (``mesh_hold``). On two H100s the ratio read up to 1.93 (DeepLabV3's BN
 # statistics: the mesh's 3.36e-5 against one process's 1.74e-5 and
-# 2.18e-5 on another card), where a fault moves a step by orders more
-FLOAT_NOISE = 4.0
+# 2.18e-5 on another card), where a fault moves a step by orders more;
+# with every BatchNorm of both on K8a-K9b's fixed-order f64 sums it reads
+# 0.91-1.30 where a bar is missed (DeepLabV3's parameters and statistics,
+# PSPNet-CA's statistics; FCN-CA misses none), the convs' own f32 noise:
+# 2, above those readings, where it was 4 while cuDNN's BatchNorm served
+# one process and the mesh another's sums
+FLOAT_NOISE = 2.0
 MESH_FLOAT_BAR = 1e-5  # x max|logit|: f32 module / serve, mesh vs one device
 # x max|logit|: a pixel whose two logits lie this close is a near tie,
 # which the spatial steps' counts may flip (``mesh_hold``): at 512^2 b8,
@@ -3537,7 +3829,8 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
     they pass if they lie no further from the float64 steps' than
     ``FLOAT_NOISE`` times the one process's f32 ones do (a step that f32
     reproduces only to about 1e-3 of itself, as a ResNet-50's, is no
-    fault of the mesh's)."""
+    fault of the mesh's). Returns which plain bars were met (``bars``) and,
+    with ``exact``, each quantity's ``d_mesh / d_one`` (``ratios``)."""
     import torch
 
     g_outs, g_sds = got
@@ -3574,6 +3867,7 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
     ok = {"loss": loss_rel <= MESH_BARS[0], "counts": not any(over),
           "parameters": p_err <= MESH_BARS[1],
           "BN statistics": s_err <= MESH_BARS[2]}
+    held = {"bars": dict(ok), "ratios": {}}
     noise = ""
     if exact is not None:
         x_outs, x_sds = exact
@@ -3596,13 +3890,20 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
                     "BN statistics": off(sds, True)}
 
         d_mesh, d_one = dist(g_outs, g_sds), dist(w_outs, w_sds)
+        held["ratios"] = {k: d_mesh[k] / d_one[k] if d_one[k] else
+                          (0.0 if d_mesh[k] == 0 else float("inf"))
+                          for k in d_mesh}
         for k, good in ok.items():
             ok[k] = good or d_mesh[k] <= FLOAT_NOISE * d_one[k]
         noise = ("; from the f64 steps, the mesh's / one process's f32: "
-                 + ", ".join(f"{k} {d_mesh[k]:.3g} / {d_one[k]:.3g}"
+                 + ", ".join(f"{k} {d_mesh[k]:.3g} / {d_one[k]:.3g} "
+                             f"(d_mesh / d_one {held['ratios'][k]:.3g})"
                              for k in d_mesh)
                  + f" (where a bar is missed: at most {FLOAT_NOISE} x one "
-                 "process's)")
+                 "process's); every plain bar met: "
+                 + ("yes" if all(held["bars"].values()) else
+                    "no, " + ", ".join(k for k, v in held["bars"].items()
+                                       if not v)))
     b, size = batches[0]["image"].shape[:2]
     net = net or ("U-Net-CA" if attention == "channel" else "U-Net-SA") \
         + f" base {BASE}"
@@ -3620,6 +3921,7 @@ def mesh_hold(got, batches, device, label, attention: str = "channel",
     if not (all(ok.values()) and tracked):
         raise AssertionError(f"{label}: the mesh's steps differ from one "
                              "process's")
+    return held
 
 
 def mesh_training(dev) -> None:
@@ -4098,6 +4400,32 @@ UNEVEN_FORWARD = (("U-Net-CA", "unet", "channel", 500),
 UNEVEN_CARDS = (496, 992)
 
 
+def checked_steps(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the launch counters from 0 and every
+    K8a-K9b call held against its plain version (``checked_bn_calls``):
+    its result and, per kernel, [launches, checked calls]."""
+    import torch
+    from insarseg_torch import kernels as K
+
+    checked = {}
+    K.reset_launches()
+    with checked_bn_calls(checked):
+        got = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return got, {k: [K.LAUNCHES[k], checked.get(k, {}).get("calls", 0)]
+                 for k in BN_KERNELS}
+
+
+def all_checked(label, counts) -> None:
+    """Every K8a-K9b kernel launched and each launch checked."""
+    log(f"  {label}: K8a-K9b [launches, checked calls] "
+        + json.dumps(counts))
+    for k, (n, c) in counts.items():
+        if n == 0 or n != c:
+            raise AssertionError(f"{label}: {k} launched {n} times, "
+                                 f"{c} calls checked")
+
+
 def spatial_bf16_rank(batch, base, device, spatial: int):
     """One rank of U-Net-CA's bf16 train step with its H axis over
     ``spatial`` ranks (or, without a group, the one-card step): a warm
@@ -4144,8 +4472,9 @@ def spatial_gloo_rank(batches, fit_data, directory, base, device,
         out["uneven bf16"] = spatial_bf16_rank(uneven[0], base, device, 2)
         for label, name, attention in UNEVEN_RESNETS:
             torch.cuda.empty_cache()
-            out["uneven " + label] = mesh_sgd_rank(
-                uneven, base, device, spatial=2, resnet=(name, attention))
+            out["uneven " + label] = checked_steps(
+                mesh_sgd_rank, uneven, base, device, spatial=2,
+                resnet=(name, attention))
         torch.cuda.empty_cache()
     out.update({"ca": mesh_sgd_rank(batches, base, device, spatial=2),
                 "sa": mesh_sgd_rank(batches, base, device, spatial=2,
@@ -4155,8 +4484,8 @@ def spatial_gloo_rank(batches, fit_data, directory, base, device,
                                      spatial=2)})
     for label, name, attention in SPATIAL_RESNETS:
         torch.cuda.empty_cache()
-        out[label] = mesh_sgd_rank(batches, base, device, spatial=2,
-                                   resnet=(name, attention))
+        out[label] = checked_steps(mesh_sgd_rank, batches, base, device,
+                                   spatial=2, resnet=(name, attention))
     return out
 
 
@@ -4213,20 +4542,34 @@ def spatial_training(dev) -> dict:
              for label, name, attention in SPATIAL_RESNETS]
     cells += [(label, name, attention, uneven, "uneven " + label)
               for label, name, attention in UNEVEN_RESNETS]
+    holds = {}
     for label, name, attention, data, key in cells:
         torch.cuda.empty_cache()
+        for i, r in enumerate(ranks):
+            r[key], counts = r[key]
+            all_checked(f"spatial 2 rank {i} {key} f32 steps", counts)
         _same_state(ranks[0][key][1][-1], ranks[1][key][1][-1],
                     f"the ranks' {key} states")
         starts = [None] + ranks[0][key][1][:-1]
-        want = mesh_sgd_rank(data, BASE, dev, resnet=(name, attention),
-                             starts=starts, ties=True)
+        want, counts = checked_steps(mesh_sgd_rank, data, BASE, dev,
+                                     resnet=(name, attention),
+                                     starts=starts, ties=True)
+        all_checked(f"one process {key} f32 steps", counts)
         torch.cuda.empty_cache()
-        exact = mesh_sgd_rank(data, BASE, dev, resnet=(name, attention),
-                              starts=starts, dtype=torch.float64)
+        exact, counts = checked_steps(mesh_sgd_rank, data, BASE, dev,
+                                      resnet=(name, attention),
+                                      starts=starts, dtype=torch.float64)
+        all_checked(f"one process {key} f64 steps", counts)
         for r in ranks:
-            mesh_hold(r[key], data, dev,
-                      f"spatial 2 on gloo, rank {r['fit']['rank']}",
-                      want=want, net=f"{label}, dropout off", exact=exact)
+            holds[f"{key} rank {r['fit']['rank']}"] = mesh_hold(
+                r[key], data, dev,
+                f"spatial 2 on gloo, rank {r['fit']['rank']}",
+                want=want, net=f"{label}, dropout off", exact=exact)
+    log("  the ResNet holds: d_mesh / d_one by quantity "
+        + json.dumps({k: h["ratios"] for k, h in holds.items()})
+        + "; every plain bar of MESH_BARS / TIE_BAR met without FLOAT_NOISE: "
+        + ("yes" if all(all(h["bars"].values()) for h in holds.values())
+           else "no " + json.dumps({k: h["bars"] for k, h in holds.items()})))
     # U-Net-CA at slabs of any height: 250-row slabs, 15 and 16 rows a
     # slab at the bottleneck
     _same_state(ranks[0]["uneven ca"][1][-1], ranks[1]["uneven ca"][1][-1],

@@ -56,8 +56,8 @@ LAUNCHES: Dict[str, int] = {
     "bn_relu_grad_apply": 0,
 }
 
-_vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_vp, _i, _ll, _f, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "insarseg_conv3x3_i8": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f,
                             _i, _i, _vp),
@@ -75,12 +75,12 @@ _SIGNATURES = {
     "insarseg_stem_pool_i8": (_vp, _vp, _i, _i, _i, _i, _i, _f, _vp),
     "insarseg_bn_stats": (_vp,) * 5 + (_ll, _ll, _i, _i, _ll) + (_i,) * 4
     + (_vp,),
-    "insarseg_bn_apply_relu": (_vp,) * 8 + (_ll, _ll, _i, _i, _f, _f, _f)
-    + (_i,) * 3 + (_vp,),
-    "insarseg_bn_relu_grad_stats": (_vp,) * 9 + (_ll, _ll, _i, _i, _ll, _i,
-                                                 _f) + (_i,) * 3 + (_vp,),
-    "insarseg_bn_relu_grad_apply": (_vp,) * 8 + (_ll, _ll, _i, _i, _f)
-    + (_i,) * 3 + (_vp,),
+    "insarseg_bn_apply_relu": (_vp,) * 9 + (_ll, _ll, _i, _i) + (_d,) * 4
+    + (_i,) * 4 + (_vp,),
+    "insarseg_bn_relu_grad_stats": (_vp,) * 10 + (_ll, _ll, _i, _i, _ll, _i,
+                                                  _d) + (_i,) * 4 + (_vp,),
+    "insarseg_bn_relu_grad_apply": (_vp,) * 10 + (_ll, _ll, _i, _i, _d)
+    + (_i,) * 4 + (_vp,),
     "insarseg_bn_kernel_info": (_i, _vp),
     "insarseg_bn_kernel_launches": (_vp,),
 }

@@ -16,13 +16,13 @@ from insarseg_torch.kernels._lib import (
     launch,
     stream_of,
 )
-from insarseg_torch.ops.layers import max_pool_2d, nchw_to_nhwc
+from insarseg_torch.ops import layers
 from insarseg_torch.ops.quant import requant
 
 
 def stem_pool_i8_plain(y: torch.Tensor, s: float) -> torch.Tensor:
-    return requant(nchw_to_nhwc(max_pool_2d(y, 3, 2, 1)).to(torch.float32),
-                   s)
+    pooled = layers.max_pool_2d(y, 3, 2, 1)
+    return requant(layers.nchw_to_nhwc(pooled).to(torch.float32), s)
 
 
 def stem_pool_i8(y: torch.Tensor, s: float) -> torch.Tensor:

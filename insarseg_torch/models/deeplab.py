@@ -25,6 +25,11 @@ channel (the global average and max over every slab) or spatial (a 7x7
 halo) and the final resize (``ops/resize.py``) read across the slabs.
 Dropout draws per rank, so a spatial step equals one device's only with
 it off.
+
+In train mode each BN -> ReLU pair (the ASPP branches, the pooled
+branch, ``project``, ``classifier.2`` / ``.3``) runs as one
+``ops/layers.py::bn_train`` call (K8a-K9b on the card;
+:class:`~insarseg_torch.ops.layers.BNSequential`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from insarseg_torch.ops.blocks import (
     SpatialAttentionConv,
 )
 from insarseg_torch.ops.layers import (
+    BNSequential,
     Conv2d,
     GlobalAvgPool2d,
     MomentBatchNorm2d,
@@ -61,16 +67,16 @@ class ASPP(nn.Module):
 
     def __init__(self, in_channels: int = 2048, features: int = 256):
         super().__init__()
-        branches = [nn.Sequential(*_conv_bn_relu(in_channels, features))]
-        branches += [nn.Sequential(*_conv_bn_relu(in_channels, features, 3, r))
+        branches = [BNSequential(*_conv_bn_relu(in_channels, features))]
+        branches += [BNSequential(*_conv_bn_relu(in_channels, features, 3, r))
                      for r in ASPP_RATES]
         # the pooled branch has one value per channel at batch 1, and the
         # same map on every slab of a spatial mesh
         pooled = _conv_bn_relu(in_channels, features, bn=MomentBatchNorm2d)
         pooled[1].replicated = True
-        branches.append(nn.Sequential(GlobalAvgPool2d(), *pooled))
+        branches.append(BNSequential(GlobalAvgPool2d(), *pooled))
         self.convs = nn.ModuleList(branches)
-        self.project = nn.Sequential(
+        self.project = BNSequential(
             *_conv_bn_relu(features * len(branches), features),
             nn.Dropout(0.5))
 
@@ -94,7 +100,7 @@ class DeepLabV3(nn.Module):
         if attention != "spatial":
             head += [("2", nn.BatchNorm2d(256)), ("3", nn.ReLU(inplace=True))]
         head.append(("4", Conv2d(256, num_classes, 1)))
-        self.classifier = nn.Sequential(OrderedDict(head))
+        self.classifier = BNSequential(OrderedDict(head))
         if attention == "channel":
             self.attention_module = ChannelAttentionModule(256)
         elif attention == "spatial":
@@ -102,8 +108,9 @@ class DeepLabV3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.backbone(x)["out"]
-        for name, mod in self.classifier.named_children():
-            if name == "4" and self.attention != "none":
-                y = self.attention_module(y)
-            y = mod(y)
-        return resize_bilinear(y, x.shape[-2:])
+        head = self.classifier
+        if self.attention != "none":
+            # the attention sits before the last conv, "4"
+            y = self.attention_module(head[:-1](y))
+            head = head[-1]
+        return resize_bilinear(head(y), x.shape[-2:])

@@ -23,11 +23,14 @@ from torch import nn
 
 from insarseg_torch.models.resnet import build_backbone
 from insarseg_torch.ops.blocks import SpatialAttentionConv
-from insarseg_torch.ops.layers import Conv2d
+from insarseg_torch.ops.layers import BNSequential, Conv2d
 from insarseg_torch.ops.resize import resize_bilinear
 
 
-class FCNHead(nn.Sequential):
+class FCNHead(BNSequential):
+    """torchvision's ``FCNHead``; in train mode its BN and ReLU run as one
+    ``ops/layers.py::bn_train`` call."""
+
     def __init__(self, in_channels: int, num_classes: int):
         inter = in_channels // 4
         super().__init__(

@@ -20,7 +20,9 @@ adaptive_avg_pools``), whose convs run as they are and whose BNs are
 marked ``replicated``; each map is resized to the slab's rows of the
 global output (``resize_bilinear(..., replicated=True)``), and
 ``bottleneck_conv`` takes a halo. Dropout draws per rank, so a spatial
-step equals one device's only with it off.
+step equals one device's only with it off. In train mode each BN ->
+ReLU pair (``ppm.bn_bin{b}``, ``bottleneck_bn``) runs as one
+``ops/layers.py::bn_train`` call (K8a-K9b on the card; ``bn_act``).
 
 The reference has no such model (its "PSPNet" scripts are FCN-ResNet50),
 so the module names follow the JAX package's parameter tree, and weights
@@ -40,6 +42,7 @@ from insarseg_torch.ops.layers import (
     Conv2d,
     MomentBatchNorm2d,
     adaptive_avg_pools,
+    bn_act,
 )
 from insarseg_torch.ops.resize import resize_bilinear
 
@@ -63,7 +66,7 @@ class PyramidPooling(nn.Module):
         outs = [x]
         for b, pooled in zip(self.bins, adaptive_avg_pools(x, self.bins)):
             p = getattr(self, f"conv_bin{b}")(pooled)
-            p = torch.relu(getattr(self, f"bn_bin{b}")(p))
+            p = bn_act(p, getattr(self, f"bn_bin{b}"))
             outs.append(resize_bilinear(p, size, replicated=True))
         return torch.cat(outs, dim=1)
 
@@ -90,6 +93,6 @@ class PSPNet(nn.Module):
         y = self.backbone(x)["out"]
         if self.attention == "spatial":
             y = self.spatial_attention(y)
-        y = torch.relu(self.bottleneck_bn(self.bottleneck_conv(self.ppm(y))))
+        y = bn_act(self.bottleneck_conv(self.ppm(y)), self.bottleneck_bn)
         y = self.classifier(self.dropout(y))
         return resize_bilinear(y, x.shape[-2:])

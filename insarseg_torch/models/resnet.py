@@ -19,6 +19,14 @@
 
 ``forward`` returns ``{'out': layer4, 'aux': layer3}``.
 
+Every BatchNorm runs through ``ops/layers.py::bn_act`` with what
+follows it: the stem's, bn1's and bn2's with their ReLU, ``downsample.1``
+alone, bn3 with the residual add and its ReLU (``relu(bn3 +
+identity)``), or, with an SE block, bn3 alone and the SE, add and ReLU
+in torch ops. In train mode each is one ``bn_train`` call (K8a-K9b on
+the card, the JAX package's moment rule, the identity's gradient from
+K9b); in eval mode the BatchNorm module and the torch ops.
+
 Under a spatial context (``parallel/spatial.py``: the H axis sharded,
 ``x`` one slab of it) every conv and the stem's max-pool run as windows
 along H (``ops/layers.py::Conv2d``, ``max_pool_2d``): the stem's 7x7 / 2
@@ -36,7 +44,7 @@ import torch
 from torch import nn
 
 from insarseg_torch.ops.blocks import SEBlock
-from insarseg_torch.ops.layers import Conv2d, max_pool_2d
+from insarseg_torch.ops.layers import Conv2d, bn_act, max_pool_2d
 
 WIDTHS = (64, 128, 256, 512)
 BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
@@ -94,7 +102,6 @@ class Bottleneck(nn.Module):
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = KaimingConv2d(planes, out, 1)
         self.bn3 = nn.BatchNorm2d(out)
-        self.relu = nn.ReLU(inplace=True)
         self.se_block = SEBlock(out) if use_se else None
         self.downsample = None
         if stride != 1 or in_planes != out:
@@ -103,13 +110,16 @@ class Bottleneck(nn.Module):
                 nn.BatchNorm2d(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        if self.se_block is not None:
-            y = self.se_block(y)
-        identity = x if self.downsample is None else self.downsample(x)
-        return self.relu(y + identity)
+        y = bn_act(self.conv1(x), self.bn1)
+        y = bn_act(self.conv2(y), self.bn2)
+        identity = x
+        if self.downsample is not None:
+            identity = bn_act(self.downsample[0](x), self.downsample[1],
+                              "none")
+        if self.se_block is None:
+            return bn_act(self.conv3(y), self.bn3, "residual", identity)
+        y = self.se_block(bn_act(self.conv3(y), self.bn3, "none"))
+        return torch.relu(y + identity)
 
 
 class ResNet50(nn.Module):
@@ -121,7 +131,6 @@ class ResNet50(nn.Module):
         super().__init__()
         self.conv1 = KaimingConv2d(in_channels, 64, 7, stride=2, padding=3)
         self.bn1 = nn.BatchNorm2d(64)
-        self.relu = nn.ReLU(inplace=True)
         in_planes = 64
         for li, blocks in enumerate(layer_schedule(layers)):
             mods = []
@@ -132,7 +141,7 @@ class ResNet50(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*mods))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = max_pool_2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = max_pool_2d(bn_act(self.conv1(x), self.bn1), 3, 2, 1)
         x = self.layer2(self.layer1(x))
         aux = self.layer3(x)
         return {"out": self.layer4(aux), "aux": aux}

@@ -5,7 +5,7 @@
   (conv, BN, ReLU, conv, BN, ReLU, SE) and ``fc.{0,2}`` (Linear, ReLU,
   Linear; no bias, reduction 16); in train mode each conv -> BN -> ReLU
   runs as the conv without its bias (:class:`BNFedConv2d`) and the fused
-  epilogue ``kernels/bn_act.py::bn_relu_train`` (the bias added there,
+  epilogue ``ops/layers.py::bn_train`` (the bias added there,
   with no gradient; the JAX package's moments), and with ``remat`` the
   block's activations are recomputed in the backward pass
   (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
@@ -28,11 +28,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from insarseg_torch.kernels.bn_act import bn_relu_train
 from insarseg_torch.ops.layers import (
     Conv2d,
     Linear,
-    MomentBatchNorm2d,
+    bn_train,
     follow,
     global_avg_pool,
     global_max_pool,
@@ -81,7 +80,7 @@ class DoubleConv(nn.Module):
     """(Conv3x3 same-pad -> BN -> ReLU) x2, optional SE tail.
 
     In train mode each conv runs without its bias and its BN -> ReLU is
-    ``bn_relu_train`` (kernels K8a / K8b forward, K9a / K9b backward on
+    ``bn_train`` (kernels K8a / K8b forward, K9a / K9b backward on
     the card; the bias added there with no gradient, the JAX package's
     moment rule, the running statistics and ``num_batches_tracked``
     updated; over the ranks when the BN is ``synced``). Eval mode runs the
@@ -122,12 +121,8 @@ class DoubleConv(nn.Module):
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         seq = self.double_conv
         for conv, bn in ((seq[0], seq[1]), (seq[3], seq[4])):
-            reduce = bn.ranks_sum() if isinstance(bn, MomentBatchNorm2d) \
-                else None
-            x = bn_relu_train(conv(x, with_bias=False), conv.bias, bn.weight,
-                              bn.bias, bn.running_mean, bn.running_var,
-                              bn.eps, bn.momentum, reduce)
-            bn.num_batches_tracked.add_(1)
+            x = bn_train(conv(x, with_bias=False), bn, "relu",
+                         bias=conv.bias)
         return seq[6](x) if len(seq) > 6 else x
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:

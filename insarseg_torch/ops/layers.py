@@ -4,7 +4,10 @@ Conv, ConvTranspose and Linear are :class:`Conv2d`, :class:`ConvTranspose2d`
 and :class:`Linear`, ``nn.Conv2d`` / ``nn.ConvTranspose2d`` / ``nn.Linear``
 that compute in their input's dtype; BatchNorm is ``nn.BatchNorm2d`` (eps
 1e-5), except where a train step can meet one value per channel
-(:class:`MomentBatchNorm2d`); all under the reference's names. What the
+(:class:`MomentBatchNorm2d`); all under the reference's names. In train
+mode every BatchNorm runs through :func:`bn_train` (the JAX package's
+moment rule on the kernels K8a-K9b, fused with the ReLU or the residual
+add and ReLU after it: :func:`bn_act`, :class:`BNSequential`). What the
 packed graphs need beyond them lives here. Internally the float
 graphs run NCHW (cuDNN's native layout); the public functions convert at
 their NHWC boundary with :func:`nhwc_to_nchw` / :func:`nchw_to_nhwc`.
@@ -19,7 +22,8 @@ models do after their first conv (``insarseg/ops/layers.py:55-63``):
   Adam's state stay f32 and the gradient reaches them through the cast;
 - BatchNorm takes a bf16 input with f32 parameters and statistics, keeps
   the statistics f32 and returns bf16 (``nn.BatchNorm2d`` does this on
-  the CPU and on cuDNN; :class:`MomentBatchNorm2d` sums in at least f32);
+  the CPU and on cuDNN; in train mode the port's BatchNorms run through
+  :func:`bn_train`, whose sums are f64);
 - ReLU, pooling, the attention gates, resizes and concats follow their
   input; the integral image sums in f32 and casts back
   (:func:`integral_image`); the loss promotes the logits to f32.
@@ -40,6 +44,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from insarseg_torch.kernels.bn_act import bn_relu_train
 
 def follow(x: torch.Tensor, p: Optional[torch.Tensor]
            ) -> Optional[torch.Tensor]:
@@ -145,24 +150,6 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks of the process group whose gradient is the
-    sum over the ranks of the gradient (every rank's output depends on
-    every rank's input)."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
-        t = t.clone()
-        dist.all_reduce(t)
-        return t
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
-        g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
-
-
 def _ranks_sum(t: torch.Tensor) -> torch.Tensor:
     dist.all_reduce(t)
     return t
@@ -171,21 +158,23 @@ def _ranks_sum(t: torch.Tensor) -> torch.Tensor:
 class MomentBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode statistics are the JAX
     package's (``insarseg/ops/layers.py::BatchNorm2d``): the batch mean
-    and the biased variance ``max(E[x^2] - E[x]^2, 0)`` in at least f32,
-    the running variance the unbiased ``n / max(n - 1, 1)`` estimate,
-    momentum 0.1. At one value per channel (a 1x1 pooled map at batch 1)
-    the variance is 0 and the output the bias, where ``nn.BatchNorm2d``
-    raises. Eval mode and the state_dict names are ``nn.BatchNorm2d``'s.
+    and the biased variance ``max(E[x^2] - E[x]^2, 0)`` (f64 sums, the
+    moments in at least f32), the running variance the unbiased ``n /
+    max(n - 1, 1)`` estimate, momentum 0.1. At one value per channel (a
+    1x1 pooled map at batch 1) the variance is 0 and the output the bias,
+    where ``nn.BatchNorm2d`` raises. Its train-mode forward is
+    :func:`bn_train` in the ``"none"`` mode (K8a-K9b on the card). Eval
+    mode and the state_dict names are ``nn.BatchNorm2d``'s.
 
     ``synced`` (set by ``parallel/mesh.py::sync_batchnorm``): inside a
     ``torch.distributed`` group the moments are the global batch's, as
     the JAX package's BatchNorm under a ``data`` mesh (GSPMD reduces them
-    over the whole batch): the per-channel sums of x and x^2 and the
-    count, in at least f32, summed over the ranks in one differentiable
-    all-reduce (:class:`_AllReduceSum`), the running variance's factor
-    from the global count. Uneven shards and empty ones are fine.
-    ``nn.SyncBatchNorm`` takes no CPU tensors and would lose the moment
-    rule at one value per channel.
+    over the whole batch): :func:`bn_train` all-reduces K8a's buffer
+    (the per-channel sums of x and x^2 and the count) in the forward
+    pass and K9a's in the backward pass (:meth:`ranks_sum`), and the
+    running variance's factor comes from the global count. Uneven shards
+    and empty ones are fine. ``nn.SyncBatchNorm`` takes no CPU tensors and
+    would lose the moment rule at one value per channel.
 
     ``replicated`` (the pooled maps' BatchNorms: DeepLabV3's ASPP pool,
     the PSPNet's bins): under a spatial context its input is the same map
@@ -215,19 +204,7 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        acc = torch.promote_types(x.dtype, torch.float32)
-        xf = x.to(acc)
-        mean, var, unbias = self._moments(xf)
-        with torch.no_grad():
-            m = self.momentum
-            rm, rv = self.running_mean, self.running_var
-            rm.copy_((1.0 - m) * rm + m * mean.to(rm.dtype))
-            rv.copy_((1.0 - m) * rv + m * (var * unbias).to(rv.dtype))
-            self.num_batches_tracked.add_(1)
-        inv = torch.rsqrt(var + self.eps) * self.weight.to(acc)
-        y = (xf - mean[:, None, None]) * inv[:, None, None] \
-            + self.bias.to(acc)[:, None, None]
-        return y.to(x.dtype)
+        return bn_train(x, self, "none")
 
     def ranks_sum(self):
         """When this BatchNorm is ``synced`` inside a process group, a
@@ -237,26 +214,65 @@ class MomentBatchNorm2d(nn.BatchNorm2d):
             return _ranks_sum
         return None
 
-    def _moments(self, xf: torch.Tensor):
-        """The batch's mean and biased variance per channel, and the
-        running variance's factor ``n / max(n - 1, 1)``."""
-        if self.ranks_sum() is not None:
-            c = xf.shape[1]
-            sums = torch.cat([xf.sum(dim=(0, 2, 3)),
-                              xf.square().sum(dim=(0, 2, 3)),
-                              xf.new_full((1,), xf.numel() // c)])
-            sums = _AllReduceSum.apply(sums)
-            n = sums[2 * c].detach()
-            mean = sums[:c] / n
-            var = (sums[c:2 * c] / n - mean.square()).clamp_min(0)
+
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, mode: str = "none",
+             residual: Optional[torch.Tensor] = None,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bn`` (an ``nn.BatchNorm2d`` or :class:`MomentBatchNorm2d`) in
+    train mode on ``x`` and what follows it (``mode``: ``"relu"``,
+    ``"none"`` or ``"residual"``, ``relu(BN(x) + residual)``) as one
+    ``kernels/bn_act.py::bn_relu_train`` call: K8a / K8b forward, K9a /
+    K9b backward on the card, the JAX package's moment rule, the running
+    statistics and ``num_batches_tracked`` updated. ``bias``: a conv bias
+    added to ``x`` inside, with no gradient (the DoubleConv's). A synced
+    :class:`MomentBatchNorm2d` sums the moments over the ranks, and a
+    ``replicated`` one under a spatial context divides the count by the
+    slabs for the running variance."""
+    reduce, rows_div = None, 1
+    if isinstance(bn, MomentBatchNorm2d):
+        reduce = bn.ranks_sum()
+        if reduce is not None and bn.replicated:
             comm = _spatial()
-            rows = n / comm.size if self.replicated and comm is not None \
-                else n
-            return mean, var, rows / (rows - 1).clamp_min(1)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
-        n = xf.numel() // xf.shape[1]
-        return mean, var, n / max(n - 1, 1)
+            rows_div = 1 if comm is None else comm.size
+    out = bn_relu_train(x, bias, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var, bn.eps, bn.momentum, reduce, mode,
+                        residual, rows_div)
+    bn.num_batches_tracked.add_(1)
+    return out
+
+
+def bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, mode: str = "relu",
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bn`` then what follows it (``mode``, as :func:`bn_train`): in
+    train mode one :func:`bn_train` call, in eval mode ``bn(x)`` and the
+    torch ops."""
+    if bn.training:
+        return bn_train(x, bn, mode, residual)
+    y = bn(x)
+    if mode == "residual":
+        y = y + residual
+    return y if mode == "none" else torch.relu(y)
+
+
+class BNSequential(nn.Sequential):
+    """``nn.Sequential`` (its keys unchanged) whose BatchNorms run through
+    :func:`bn_act`: with the ``nn.ReLU`` right after one (``"relu"``),
+    else alone (``"none"``); in train mode each one :func:`bn_train`
+    call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mods = list(self)
+        i = 0
+        while i < len(mods):
+            m = mods[i]
+            if isinstance(m, nn.BatchNorm2d):
+                relu = i + 1 < len(mods) and isinstance(mods[i + 1], nn.ReLU)
+                x = bn_act(x, m, "relu" if relu else "none")
+                i += 1 + relu
+            else:
+                x = m(x)
+                i += 1
+        return x
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2, stride=None,

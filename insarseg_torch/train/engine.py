@@ -19,7 +19,7 @@ Under a ``torch.distributed`` group (one process per device,
 ``parallel/mesh.py::launch`` or ``torchrun``) the steps compute the JAX
 package's global-batch math on a ``data`` mesh. Every rank is given the
 same global batch and takes its rows (``rows_of``); the BatchNorms are
-swapped for ``SyncMomentBatchNorm2d`` (global moments); the loss is the
+synced ``MomentBatchNorm2d``s (global moments on K8a-K9b); the loss is the
 rank's summed cross-entropy over the global valid count; the gradients
 are summed over the ranks in one flattened all-reduce a dtype before the
 optimizer step; the counts and the reported loss are global. No

@@ -24,8 +24,10 @@ JAX package, on inputs made with numpy from a seed, torch on one thread:
   7.2e-7) and in bf16 within ``BF16_DC_BAR`` (reading 8.0e-3: two bf16
   convs, the JAX step jitted) of each tensor's largest value;
 - a CUDA-typed call reaches the launchers of all four kernels and never a
-  plain version (the launcher, the stream and the device checks stubbed:
-  this host has no card).
+  plain version, in the relu mode with a bias and in the ResNet
+  families' none and residual modes without one (the launcher, the
+  stream and the device checks stubbed: this host has no card; each
+  mode and dtype in ``tests/test_torch_bn_resnet.py``).
 
 The synced case on two ranks is in ``tests/test_torch_mesh_bn.py``.
 """
@@ -288,6 +290,7 @@ def test_a_cuda_tensor_reaches_the_launchers_not_the_plain_versions(
     monkeypatch.setattr(bn_act, "stream_of", lambda t: 0)
     # the backward's allocations come back as plain CPU tensors
     monkeypatch.setattr(bn_act, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(bn_act, "check_operand", lambda *a: None)
     monkeypatch.setattr(bn_act, "device_guard",
                         lambda dev: contextlib.nullcontext())
     for name in ("bn_stats_plain", "bn_apply_relu_plain",
@@ -306,6 +309,17 @@ def test_a_cuda_tensor_reaches_the_launchers_not_the_plain_versions(
     assert launched == ["bn_stats", "bn_apply_relu", "bn_relu_grad_stats",
                         "bn_relu_grad_apply"]
     assert bn_act.plan(y)[0] == int(channels_last)
+    # the ResNet families' modes, bias-free, reach the same four launchers
+    r = _cuda_typed(torch.randn_like(y)).requires_grad_(True)
+    for mode in ("none", "residual"):
+        launched.clear()
+        out = bn_relu_train(y, None, gamma, vec[2], vec[3], vec[4], EPS,
+                            MOMENTUM, None, mode,
+                            r if mode == "residual" else None)
+        out.backward(_cuda_typed(torch.ones_like(out)))
+        assert launched == ["bn_stats", "bn_apply_relu",
+                            "bn_relu_grad_stats", "bn_relu_grad_apply"]
+    assert r.grad is not None
     with pytest.raises(ValueError, match="unsupported device"):
         bn_act.bn_stats(torch.Tensor._make_subclass(
             _Elsewhere, torch.zeros(1, 1, 1, 1)), vec[0])

@@ -252,13 +252,14 @@ def test_c_signatures_match_the_sources():
     """The ctypes argument types of every kernel entry point
     (``kernels/_lib.py``) match its C declaration in ``csrc``: a pointer
     or the stream is a void pointer, an int an int, a long long a long
-    long, a float a float. ctypes passes a wrong list silently wrong."""
+    long, a float a float, a double a double. ctypes passes a wrong list
+    silently wrong."""
     import ctypes
 
     from insarseg_torch.kernels._lib import _SIGNATURES
 
     kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-             "float": ctypes.c_float}
+             "float": ctypes.c_float, "double": ctypes.c_double}
     decls = {}
     for src in CSRC.glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',

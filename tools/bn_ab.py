@@ -31,11 +31,18 @@ turn), with ``torch.batch_norm_stats`` / ``batch_norm_backward_reduce`` on
 the biased t beside them, and prints each level's times beside its bytes
 bound, the host us a call, the sums over the step's 18 calls and the
 card's ``nvidia-smi`` line. Needs a CUDA device and nvcc; imports no JAX.
+
+:func:`library_route` is the route the ResNet families' train-mode
+BatchNorms took before K8a-K9b served them (cuDNN's ``F.batch_norm(
+training=True)``, then the ReLU or the residual add and ReLU as separate
+ops), kept here as a measurement only: ``chip_smoke.py``'s training phase
+times the DeepLabV3-ResNet50 step through it in turns with the port's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import subprocess
 import sys
@@ -55,6 +62,35 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # (level, BatchNorms of the level in one step)
 LEVELS = ((0, 4), (1, 4), (2, 4), (3, 4), (4, 2))
 FORMS = (("bfloat16", True), ("float32", False))
+
+
+@contextlib.contextmanager
+def library_route():
+    """While open, every train-mode BatchNorm of the ResNet families
+    (``ops/layers.py::bn_train``, which ``bn_act`` and ``BNSequential``
+    call) runs as stock PyTorch ran it: cuDNN's ``F.batch_norm(
+    training=True)``, then the ReLU, or the residual add and the ReLU,
+    each its own op. One process only: the moments are this process's
+    batch's."""
+    import torch.nn.functional as F
+
+    from insarseg_torch.ops import layers
+
+    def bn_train(x, bn, mode="none", residual=None, bias=None):
+        if bias is not None:
+            x = x + bias.to(x.dtype)[:, None, None]
+        y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, True, bn.momentum, bn.eps)
+        bn.num_batches_tracked.add_(1)
+        if mode == "residual":
+            y = y + residual
+        return y if mode == "none" else F.relu(y)
+
+    saved, layers.bn_train = layers.bn_train, bn_train
+    try:
+        yield
+    finally:
+        layers.bn_train = saved
 
 
 def build(src: Path, so: Path) -> ctypes.CDLL:
@@ -157,14 +193,20 @@ def with_plan(consts: dict, fn):
         saved = {k: getattr(B, k) for k in consts}
         for k, v in consts.items():
             setattr(B, k, v)
-        B.reduce_partition.cache_clear()
+        clear()
         try:
             return fn()
         finally:
             for k, v in saved.items():
                 setattr(B, k, v)
-            B.reduce_partition.cache_clear()
+            clear()
     return call
+
+
+def clear():
+    """Forget the plans cached under other constants."""
+    B.reduce_partition.cache_clear()
+    B.apply_slices.cache_clear()
 
 
 def turns(calls, plain, name, reps=10):
