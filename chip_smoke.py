@@ -117,7 +117,16 @@ only (no JAX, nothing of ``insarseg``) and:
    by mode from a profiler window beside their bounds, and its step in
    turns with the library route it replaced (``resnet_step_turns``:
    cuDNN's BatchNorm, ``tools/bn_ab.py::library_route``) at bf16 512^2 and
-   f32 128^2 b8 (ms, peak, idle).
+   f32 128^2 b8 (ms, peak, idle); and K10a-K11b (the SE tail of the CA
+   cells in train mode, ``csrc/se_train.cu``): their results against
+   their plain versions at fixed shapes (``SE_SHAPES``: both modes, bf16,
+   f32 and f64, both layouts, 1x1 and odd maps), every call of the
+   U-Net-CA step (9 launches each) and of FCN-CA's and PSPNet-CA's
+   steps (16 each) checked, their device ms a step from a profiler
+   window, each kernel timed on the U-Net-CA and FCN-CA calls against its
+   bound (``se_kernel_rows``), and the whole tail of each of those steps,
+   forward and backward, in turns with the torch-op route it replaced
+   (``se_route_turns``).
    ``python3 chip_smoke.py --only train`` builds the kernels and runs
    this phase alone;
 6. runs the commands users run (``insarseg_torch.cli``, on the card) on
@@ -199,7 +208,7 @@ only (no JAX, nothing of ``insarseg``) and:
    ``cudnn.deterministic`` held to one process's at ``MESH_BARS`` (a
    count may move by at most the pixels whose logits lie within
    ``TIE_BAR`` = 1e-5 x max|logit|: 2,097,152 pixels a step); the
-   bf16 step's every K8a-K9b call held against its plain version, its
+   bf16 step's every K8a-K11b call held against its plain version, its
    launches a rank a step equal to the one-card step's; a 2-epoch
    ``fit`` (``mesh_spatial=2``) with a resume; then the forward over
    ``make_mesh(data=1, spatial=2, devices=[cuda:0, cuda:0])`` (one
@@ -210,7 +219,7 @@ only (no JAX, nothing of ``insarseg``) and:
    f32 SGD steps on the two gloo ranks, held to one process's at
    ``MESH_BARS`` and ``TIE_BAR`` (a loss, count, parameter or statistic
    that misses its bar no further from the float64 steps' than
-   ``FLOAT_NOISE`` x one process's f32 one; every K8a-K9b call of the
+   ``FLOAT_NOISE`` x one process's f32 one; every K8a-K11b call of the
    ranks' and the one process's f32 and f64 steps checked, and each
    quantity's ``d_mesh / d_one`` printed), and their forward over the
    two slabs within 1e-4 x max|logit| in f32, bf16 counted; on a machine
@@ -226,12 +235,13 @@ only (no JAX, nothing of ``insarseg``) and:
    ranges): on the same gloo launch U-Net-CA and DeepLabV3-ResNet50 take
    two f32 SGD steps at 500^2 global b8 (250-row slabs) held to one
    process likewise, and U-Net-CA's bf16 step there has its every
-   K8a-K9b call checked; the forward over ``make_mesh(data=1,
+   K8a-K11b call checked; the forward over ``make_mesh(data=1,
    spatial=4, devices=[cuda:0] * 4)`` against one device at b8 for
    U-Net-CA (500^2: 125-row slabs), U-Net-SA (496^2), U-Net-fast-CA
    (480^2), FCN-ResNet50-CA, DeepLabV3-ResNet50 and PSPNet-ResNet50-CA
    (500^2), f32 within the bars above, bf16 counted; the fixed-shape
-   K8a-K9b checks hold slabs of 0, 1, 7 and 15 rows (``BN_SLAB_SHAPES``);
+   K8a-K9b checks hold slabs of 0, 1, 7 and 15 rows (``BN_SLAB_SHAPES``),
+   K10a-K11b's slabs of 0, 1 and 7 rows (``SE_SLAB_SHAPES``);
    with more cards U-Net-CA's NCCL bf16 step at 1 x 4 and 496^2 against
    one card and its peak a card at 992^2 against 1024^2.
    ``python3 chip_smoke.py --only spatial`` builds the kernels and runs
@@ -773,11 +783,10 @@ def checked_calls(checked):
     tiles of the batch at a time), as ``kernel_row`` holds the main paths'
     calls: equal, K6 within its counted bar (``up_compare`` at
     ``UP_SHARE_MAIN``, in each chunk); the first that disagrees raises.
-    Every call of K8a-K9b (a train step's) is held too
-    (``checked_bn_calls``). ``checked`` gathers per kernel name the
-    calls, the engine batches
-    they came at, the largest |delta|, the differing and all elements,
-    and the seconds the checks took."""
+    Every call of K8a-K11b (a train step's) is held too
+    (``checked_train_calls``). ``checked`` gathers per kernel name the
+    calls, the engine batches they came at, the largest |delta|, the
+    differing and all elements, and the seconds the checks took."""
     from insarseg_torch import kernels as K
     from insarseg_torch.models import resnet_int8, unet_int8
 
@@ -812,7 +821,7 @@ def checked_calls(checked):
         c["seconds"] += time.perf_counter() - t0
 
     with spying([unet_int8, resnet_int8], list(kernel_of), check), \
-            checked_bn_calls(checked):
+            checked_train_calls(checked):
         yield
 
 
@@ -823,12 +832,17 @@ def kernel_row(name, source, replaces, cases):
     device ms and host us per call (``device_ms``) and its back-to-back
     ms; the plain
     version's and the library call's device ms; the bound. Returns the
-    kernel's row: sums of the ms over the calls, the mean host us."""
+    kernel's row: sums of the ms over the calls, the mean host us. Where
+    a library call exists for some calls only (K10b: the scale mode's
+    product, none for the residual mode's), ``library_ms`` sums those
+    calls (``library_calls`` of them; ``ms_with_library`` the kernel's
+    ms on the same calls) and ``library_ms_by_path`` is null for a path
+    with none."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "lib": 0.0,
-           "b2b": 0.0, "host_us": 0.0}
+           "b2b": 0.0, "host_us": 0.0, "ms_lib": 0.0}
     err, by_time = 0.0, {"bytes": 0.0, "operations": 0.0}
-    by_path, bound_by_path = {}, {}
-    has_lib = True
+    by_path, bound_by_path, lib_by_path = {}, {}, {}
+    n_lib = 0
     n_diff = n_all = 0
     for c in cases:
         e, nd, n = c.get("compare", compare)(c["kernel"](), c["plain"]())
@@ -840,6 +854,8 @@ def kernel_row(name, source, replaces, cases):
         lms = None if c["lib"] is None else device_ms(c["lib"], reps=5)[0]
         by_path[c["path"]] = by_path.get(c["path"], 0.0) + ms
         bound_by_path[c["path"]] = bound_by_path.get(c["path"], 0.0) + bms
+        lib_by_path[c["path"]] = None if lms is None else \
+            (lib_by_path.get(c["path"]) or 0.0) + lms
         log(f"  {name} [{c['path']}] {c['shape']}: {ms:.4f} ms device, "
             f"{hus:.1f} us host, {b2b:.4f} ms back to back, plain "
             f"{pms:.4f} ms, "
@@ -853,21 +869,23 @@ def kernel_row(name, source, replaces, cases):
         tot["plain_ms"] += pms
         tot["bound_ms"] += bms
         by_time[by] += bms
-        if lms is None:
-            has_lib = False
-        else:
+        if lms is not None:
+            n_lib += 1
             tot["lib"] += lms
+            tot["ms_lib"] += ms
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
             "max_abs_err": err, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(by_time, key=by_time.get),
-            "library_ms": tot["lib"] if has_lib else None,
+            "library_ms": tot["lib"] if n_lib else None,
+            "library_calls": n_lib, "ms_with_library": tot["ms_lib"],
             "host_us": tot["host_us"] / len(cases),
             "back_to_back_ms": tot["b2b"],
             "differing_share": n_diff / n_all if n_all else 0.0,
             "calls_timed": len(cases), "ms_by_path": by_path,
-            "bound_ms_by_path": bound_by_path}
+            "bound_ms_by_path": bound_by_path,
+            "library_ms_by_path": lib_by_path}
 
 
 # kernel name -> (its wrapper in insarseg_torch.kernels, source, the JAX
@@ -1832,7 +1850,8 @@ def train_fit(dev) -> None:
             f"{TRAIN_STEPS} steps and {VAL_STEPS} validation batches an "
             f"epoch), 2 epochs in {time.perf_counter() - t0:.2f} s; "
             f"kernel launches {launched} (the DoubleConv epilogue's "
-            "K8a-K9b; the rest stock PyTorch / cuDNN ops)")
+            "K8a-K9b and the SE tails' K10a-K11b; the rest stock PyTorch "
+            "/ cuDNN ops)")
         log("history " + json.dumps(hist))
         losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
         if not np.all(np.isfinite(losses)):
@@ -2457,31 +2476,37 @@ def check_bn_fixed_shapes(dev, shapes=None) -> None:
 
 
 @contextlib.contextmanager
-def checked_bn_calls(checked, record=None):
+def checked_train_calls(checked, record=None):
     """While open, every call of K8a-K9b (through ``kernels/bn_act.py``, as
-    ``bn_relu_train`` makes them) is held against its plain version on the
-    same inputs (``bn_check_call``), into ``checked`` as ``checked_calls``
-    gathers; with ``record``, each call's arguments are kept there by
-    kernel name."""
+    ``bn_relu_train`` makes them) and of K10a-K11b (through
+    ``kernels/se_train.py``, as ``se_train`` makes them) is held against
+    its plain version on the same inputs (``bn_check_call``,
+    ``se_check_call``), into ``checked`` as ``checked_calls`` gathers;
+    with ``record``, each call's arguments are kept there by kernel
+    name."""
     from insarseg_torch.kernels import bn_act as B
+    from insarseg_torch.kernels import se_train as S
 
     def on_call(n, a, out):
         t0 = time.perf_counter()
-        e, nd, ne = bn_check_call(n, dict(a), out)
+        bn = n in BN_KERNELS
+        e, nd, ne = (bn_check_call if bn else se_check_call)(n, dict(a), out)
         c = checked.setdefault(n, {
             "calls": 0, "batches": set(), "max_abs_err": 0.0,
             "differing": 0, "elements": 0, "seconds": 0.0})
         c["calls"] += 1
-        c["batches"].add(a["y"].shape[0])
+        c["batches"].add(a["y" if bn else "dy" if "dy" in a else "x"]
+                         .shape[0])
         c["max_abs_err"] = max(c["max_abs_err"], e)
         c["differing"] += nd
         c["elements"] += ne
         c["seconds"] += time.perf_counter() - t0
         if record is not None:
-            a.pop("before")
+            a.pop("before", None)
             record.setdefault(n, []).append(a)
 
-    with spying([B], BN_KERNELS, on_call, keep=IN_PLACE):
+    with spying([B], BN_KERNELS, on_call, keep=IN_PLACE), \
+            spying([S], SE_KERNELS, on_call):
         yield
 
 
@@ -2591,14 +2616,20 @@ def bn_cases(calls):
     return cases
 
 
-def train_bn_kernels(dev, power_line) -> list:
+def train_bn_kernels(dev, power_line, se_calls, se_launches,
+                     se_checked) -> list:
     """One bf16 U-Net-CA (base ``BASE``) train step at 512^2 b8 with the
     launch counters set to 0 just before and read just after (the main
-    path of K8a-K9b), every K8a-K9b call of it held against its plain
-    version (``checked_bn_calls``); then each kernel timed on the tensors
-    that step gave it (``kernel_row``: device ms, plain, library, bound).
-    Returns the four kernel rows."""
+    path of K8a-K11b), every K8a-K11b call of it held against its plain
+    version (``checked_train_calls``): 18 launches of each of K8a-K9b, 9
+    of each of K10a-K11b (the SE tails); then each of K8a-K9b timed on
+    the tensors that step gave it (``kernel_row``: device ms, plain,
+    library, bound), and K10a-K11b's device ms a step from a profiler
+    window of two steps. Returns K8a-K9b's four rows; the SE kernels'
+    calls, launches and checks go into ``se_calls``, ``se_launches`` and
+    ``se_checked`` under ``"U-Net-CA"``."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from insarseg_torch import kernels as K
     from insarseg_torch.data.synthetic import synthetic_batch
     from insarseg_torch.models.unet import UNet
@@ -2614,21 +2645,34 @@ def train_bn_kernels(dev, power_line) -> list:
     torch.cuda.synchronize()
     checked, calls = {}, {}
     K.reset_launches()
-    with checked_bn_calls(checked, calls):
+    with checked_train_calls(checked, calls):
         step(state, x, m)
     torch.cuda.synchronize()
-    launches = {k: K.LAUNCHES[k] for k in BN_KERNELS}
-    log(f"bf16 train step U-Net-CA base {BASE}, {HW}^2 b{BATCH}: K8a-K9b "
+    launches = {k: K.LAUNCHES[k] for k in TRAIN_KERNELS}
+    log(f"bf16 train step U-Net-CA base {BASE}, {HW}^2 b{BATCH}: K8a-K11b "
         f"launches {launches}; every call held against its plain version "
         + json.dumps(checked, default=sorted) + "; largest readings so far "
-        + json.dumps(BN_WORST))
+        + json.dumps(BN_WORST) + " " + json.dumps(SE_WORST))
     for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {k} never launched on the train "
-                                 "path")
+        if n != (9 if k in SE_KERNELS else 18):
+            raise AssertionError(f"kernel {k} launched {n} times on the "
+                                 "train path")
         if checked.get(k, {}).get("calls") != n:
             raise AssertionError(f"{k}: {n} launches, "
                                  f"{checked.get(k, {}).get('calls')} checked")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(state, x, m)
+        torch.cuda.synchronize()
+    se_ms = se_device_ms(prof, 2)
+    log(f"  the bf16 step's SE tails under the profiler (2 steps): "
+        f"K10a-K11b device ms a step {json.dumps(se_ms)}, "
+        f"{sum(se_ms.values()):.4f} in all; on {power_line}")
+    se_calls["U-Net-CA"] = {k: calls.pop(k) for k in SE_KERNELS}
+    se_launches["U-Net-CA"] = {k: launches[k] for k in SE_KERNELS}
+    se_checked["U-Net-CA"] = {k: checked[k] for k in SE_KERNELS}
+    se_checked["U-Net-CA"]["device_ms"] = se_ms
     del state, step, model
     log(f"each K8a-K9b call of that step timed on its tensors, on "
         f"{power_line}:")
@@ -2686,6 +2730,361 @@ def bn_library_site(dev) -> dict:
             - device_ms(forward, reps=3)[0]
         del y, out, g
     return {"forward_ms": fwd, "backward_ms": bwd, "sites": len(sites)}
+
+
+# K10a-K11b (csrc/se_train.cu, kernels/se_train.py): the squeeze-excite
+# tail in train mode, U-Net-CA's SELayer (the scale mode) and the CA
+# ResNets' SEBlock with the residual add and ReLU (the residual mode).
+# kernel name -> (wrapper, the JAX site it replaces)
+SE_KERNELS = {
+    "se_squeeze": ("se_squeeze", "insarseg/ops/layers.py:341"),
+    "se_excite": ("se_excite", "insarseg/ops/blocks.py:64"),
+    "se_grad_stats": ("se_grad_stats", "insarseg/ops/blocks.py:64"),
+    "se_grad_apply": ("se_grad_apply", "insarseg/ops/blocks.py:64"),
+}
+SE_SUMS = ("se_squeeze", "se_grad_stats")  # (B, C) f64 sums
+TRAIN_KERNELS = tuple(BN_KERNELS) + tuple(SE_KERNELS)
+# The bars of K10a-K11b against their plain versions on the same inputs.
+# K10a and K11a sum their terms in f64 in another order than torch's sum
+# (in bf16 and f32 every term is exact there; in f64 the terms round): each
+# (B, C) buffer within SE_SUM_BAR of its largest |value|. K10b and K11b
+# compute each element as their plain versions do, one rounding an op in
+# the same order: equal.
+SE_SUM_BAR = 1e-12
+# the largest reading of the sums' bar in this run: name -> |delta| / max
+SE_WORST = {}
+# fixed shapes (B, C, H, W, dtype, channels-last, mode): U-Net-CA's level
+# 1 and bottleneck (bf16 512^2 b8) in both layouts, FCN-CA's layer1 and
+# layer4 sites (bf16 512^2 b2), f32 sites, 1x1 maps, odd maps and channel
+# counts that take no vectors, reductions of several slices a plane or
+# group, and f64 (the yardstick steps) in each mode and layout
+SE_SHAPES = (
+    (8, 64, 512, 512, "bfloat16", False, "scale"),
+    (8, 64, 512, 512, "bfloat16", True, "scale"),
+    (8, 1024, 32, 32, "bfloat16", True, "scale"),
+    (2, 256, 128, 128, "bfloat16", True, "residual"),
+    (2, 2048, 64, 64, "bfloat16", False, "residual"),
+    (2, 2048, 64, 64, "bfloat16", True, "residual"),
+    (8, 64, 128, 128, "float32", False, "scale"),
+    (8, 256, 32, 32, "float32", True, "residual"),
+    (2, 8, 256, 256, "float32", False, "residual"),
+    (1, 64, 256, 256, "bfloat16", True, "scale"),
+    (4, 48, 1, 1, "bfloat16", False, "residual"),
+    (4, 32, 1, 1, "float32", True, "scale"),
+    (3, 48, 17, 19, "bfloat16", True, "scale"),
+    (3, 48, 17, 19, "float32", False, "residual"),
+    (3, 40, 7, 5, "bfloat16", False, "scale"),
+    (2, 20, 6, 6, "bfloat16", True, "residual"),
+    (2, 64, 9, 9, "float64", False, "scale"),
+    (2, 64, 9, 9, "float64", True, "residual"),
+    (2, 256, 16, 16, "float64", False, "residual"),
+    (2, 256, 16, 16, "float64", True, "scale"),
+    (2, 2048, 64, 64, "float64", True, "residual"),
+)
+# a spatial mesh's slabs of 0, 1 and 7 rows
+SE_SLAB_SHAPES = tuple(
+    (8, 64, rows, 124, dtype, cl, mode) for rows in (0, 1, 7)
+    for dtype, cl, mode in (("bfloat16", True, "scale"),
+                            ("float32", False, "residual")))
+# passes over the (B, C, H, W) operand each kernel makes by mode (reads
+# and writes)
+SE_PASSES = {"se_squeeze": {"scale": 1, "residual": 1},
+             "se_excite": {"scale": 2, "residual": 3},
+             "se_grad_stats": {"scale": 2, "residual": 3},
+             "se_grad_apply": {"scale": 2, "residual": 4}}
+# the kernels' device names (csrc/se_train.cu): se_reduce_* <..., false>
+# K10a, <..., true> K11a; se_apply_* likewise K10b, K11b
+SE_DEVICE = {("reduce", "false"): "se_squeeze",
+             ("apply", "false"): "se_excite",
+             ("reduce", "true"): "se_grad_stats",
+             ("apply", "true"): "se_grad_apply"}
+
+
+def se_compare(name):
+    """The comparison of kernel ``name``'s result with its plain version's:
+    (max |delta|, differing elements, elements); raises past the bars."""
+    import torch
+
+    def sums(got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        if not want.numel():
+            return 0.0, 0, 0
+        got, want = got.detach(), want.detach()
+        e = float((got - want).abs().max())
+        big = float(want.abs().max())
+        SE_WORST[name] = max(SE_WORST.get(name, 0.0), e / max(big, 1e-300))
+        if e > SE_SUM_BAR * big:
+            raise AssertionError(f"{name}: sums {e:.3g} apart, over "
+                                 f"{SE_SUM_BAR} x {big:.3g}")
+        return e, int((got != want).sum()), got.numel()
+
+    def elements(got, want):
+        if isinstance(want, tuple):  # K11b's residual mode: (dx, didn)
+            parts = [elements(g, w) for g, w in zip(got, want)]
+            return (max(p[0] for p in parts), sum(p[1] for p in parts),
+                    sum(p[2] for p in parts))
+        return compare(got, want)
+
+    return sums if name in SE_SUMS else elements
+
+
+def se_check_call(name, args, out=None):
+    """Kernel ``name`` on ``args`` (run here unless ``out`` is given)
+    against its plain version on the same inputs. Returns (max |delta|,
+    differing, elements)."""
+    from insarseg_torch.kernels import se_train as S
+
+    if out is None:
+        out = getattr(S, name)(**args)
+    return se_compare(name)(out, getattr(S, name + "_plain")(**args))
+
+
+def se_inputs(dev, b, c, h, w, dtype, channels_last, seed):
+    """Seeded x, identity, dout (B, C, H, W), a gate (B, C) in the compute
+    dtype and a mean's cotangent dtot (B, C) in acc."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    acc = torch.promote_types(dt, torch.float32)
+
+    def image(shift=0.0):
+        t = (torch.randn((b, c, h, w), generator=g, device=dev)
+             + shift).to(dt)
+        return t.contiguous(memory_format=torch.channels_last) \
+            if channels_last else t
+
+    return {"x": image(0.3), "identity": image(), "dout": image(),
+            "gate": torch.rand((b, c), generator=g, device=dev).to(dt),
+            "dtot": (torch.randn((b, c), generator=g, device=dev)
+                     * 1e-3).to(acc)}
+
+
+def se_steps(a, mode):
+    """Argument sets of the four kernels on one site's inputs ``a`` in
+    ``mode``, the backward's saved output K10b's own."""
+    from insarseg_torch.kernels import se_train as S
+
+    r = a["identity"] if mode == "residual" else None
+    out = S.se_excite(a["x"], a["gate"], r, mode) if r is not None else None
+    return {
+        "se_squeeze": {"x": a["x"]},
+        "se_excite": {"x": a["x"], "gate": a["gate"], "identity": r,
+                      "mode": mode},
+        "se_grad_stats": {"dy": a["dout"], "x": a["x"], "out": out,
+                          "mode": mode},
+        "se_grad_apply": {"dy": a["dout"], "gate": a["gate"],
+                          "dtot": a["dtot"], "out": out, "mode": mode},
+    }
+
+
+def check_se_fixed_shapes(dev, shapes=None) -> None:
+    """K10a-K11b against their plain versions on the same inputs at fixed
+    shapes (``SE_SHAPES`` and ``SE_SLAB_SHAPES``: both modes, bf16, f32
+    and f64, NCHW and channels-last, 1x1 maps, odd maps, a spatial mesh's
+    slabs of 0, 1 and 7 rows), each kernel run twice and bit-equal to
+    itself; on a slab of no row each kernel launches once and returns
+    zero sums and empty outputs."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.kernels import se_train as S
+
+    worst = {k: [0.0, 0, 0] for k in SE_KERNELS}
+    for i, shape in enumerate(shapes or SE_SHAPES):
+        b, c, h, w, dtype, cl, mode = shape
+        a = se_inputs(dev, b, c, h, w, dtype, cl, SEED + 270 + i)
+        K.reset_launches()
+        steps = se_steps(a, mode)
+        for name, args in steps.items():
+            e, nd, ne = se_check_call(name, args)
+            wk = worst[name]
+            wk[0], wk[1], wk[2] = max(wk[0], e), wk[1] + nd, wk[2] + ne
+            first = getattr(S, name)(**args)
+            second = getattr(S, name)(**args)
+            if not _same_result(first, second):
+                raise AssertionError(f"{name} on {shape} differs between "
+                                     "two runs")
+        torch.cuda.synchronize()
+        if h == 0:
+            sums = [S.se_squeeze(a["x"]),
+                    S.se_grad_stats(**steps["se_grad_stats"])]
+            outs = [S.se_excite(**steps["se_excite"]),
+                    S.se_grad_apply(**steps["se_grad_apply"])]
+            outs = [t for o in outs for t in (o if isinstance(o, tuple)
+                                              else (o,))]
+            if any(float(t.abs().max()) != 0 for t in sums) \
+                    or any(t.numel() for t in outs) \
+                    or any(K.LAUNCHES[k] == 0 for k in SE_KERNELS):
+                raise AssertionError(
+                    f"se_train on a slab of no row ({shape}): launches "
+                    + json.dumps({k: K.LAUNCHES[k] for k in SE_KERNELS}))
+        r, p = S.reduce_plan(a["x"]), S.apply_plan(a["x"])
+        log(f"  se_train {b}x{c}x{h}x{w} {dtype} "
+            f"{'channels-last' if cl else 'NCHW'} {mode}: K10a / K11a "
+            f"vec {r.vec} slices {r.blocks} of {r.per}, K10b / K11b vec "
+            f"{p.vec} blocks {p.blocks} of {p.per}; kernels == plain within "
+            "the bars, two runs bit-equal")
+        del a, steps
+    torch.cuda.synchronize()
+    log("K10a-K11b against their plain versions at fixed shapes (max "
+        "|delta|, differing, elements): " + json.dumps(worst)
+        + "; the sums' largest |delta| / max|value| " + json.dumps(SE_WORST))
+
+
+def se_cases(calls, path):
+    """Timing cases of K10a-K11b on the arguments one train step gave
+    them (``kernel_row``'s), with PyTorch's own call for K10a (``torch.sum``
+    over H and W in f64) and for K10b in the scale mode (``torch.mul`` by
+    the gate, its value bit for bit), and none for the others (the
+    residual mode's product, add and ReLU, a masked sum of products, a
+    product and an add in two roundings: no one call)."""
+    import torch
+    from insarseg_torch.kernels import se_train as S
+
+    cases = {}
+    for name, args in calls.items():
+        cases[name] = []
+        for a in args:
+            a = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                 for k, v in a.items()}
+            t = a.get("x", a.get("dy"))
+            b, c, h, w = t.shape
+            mode = a.get("mode", "scale")
+            vec = 8 * b * c if name in SE_SUMS else \
+                t.element_size() * b * c + (8 * b * c if "dtot" in a else 0)
+            lib = None
+            if name == "se_squeeze":
+                lib = lambda t=t: torch.sum(t, dim=(2, 3),  # noqa: E731
+                                            dtype=torch.float64)
+            elif name == "se_excite" and mode == "scale":
+                lib = lambda t=t, g=a["gate"]: torch.mul(  # noqa: E731
+                    t, g[:, :, None, None])
+            layout = "channels-last" if S.layout_of(t) else "NCHW"
+            cases[name].append({
+                "shape": f"b{b} {c}x{h}x{w} {str(t.dtype)[6:]} {layout} "
+                         f"{mode}",
+                "kernel": lambda n=name, a=a: getattr(S, n)(**a),
+                "plain": lambda n=name, a=a: getattr(S, n + "_plain")(**a),
+                "compare": se_compare(name), "lib": lib, "path": path,
+                "ops": 3.0 * t.numel(), "peak": PEAK_F32,
+                "bytes": SE_PASSES[name][mode] * t.numel() * t.element_size()
+                + vec})
+    return cases
+
+
+def se_device_ms(prof, steps: int) -> dict:
+    """K10a-K11b's device ms a step in a profiler window of ``steps``
+    steps, by kernel."""
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\bse_(reduce|apply)_n(?:chw|hwc)<[^<>]*"
+                      r"\b(true|false)>", e.key)
+        if m is None:
+            continue
+        k = SE_DEVICE[m.group(1), m.group(2)]
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        out[k] = out.get(k, 0.0) + us / steps / 1e3
+    return out
+
+
+def se_sites(calls):
+    """The SE sites of one recorded step: (x, identity or None, dout,
+    mode) from each K10b call and the K11a call of the backward pass on
+    the same x (the function's saved tensor)."""
+    dout = {g["x"].data_ptr(): g["dy"] for g in calls["se_grad_stats"]}
+    return [(e["x"], e["identity"], dout[e["x"].data_ptr()], e["mode"])
+            for e in calls["se_excite"]]
+
+
+def se_torch_route(x, w1, w2, identity, mode):
+    """The tail as the port ran it before K10a-K11b, in torch ops under
+    autograd: the mean, the MLP, the rescale (and the add and ReLU)."""
+    import torch
+    import torch.nn.functional as F
+
+    y = torch.sigmoid(F.linear(torch.relu(F.linear(
+        x.mean(dim=(2, 3)), w1.to(x.dtype))), w2.to(x.dtype)))
+    out = x * y[:, :, None, None]
+    return torch.relu(out + identity) if mode == "residual" else out
+
+
+def se_route_turns(dev, sites, label, power_line, reps: int = 1) -> dict:
+    """The whole SE tail of one step, forward and backward at its recorded
+    sites (seeded MLP weights, the step's own x, identity and dout),
+    through ``se_train`` (K10a-K11b) and through the torch-op route it
+    replaced (``se_torch_route``), in turns (kernels, torch, torch,
+    kernels): device ms and the host's ms queueing it, a step
+    (``device_ms``), the best of each route's turns."""
+    import torch
+    from insarseg_torch.kernels.se_train import se_train
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    ws = []
+    for x, _, _, _ in sites:
+        c = x.shape[1]
+        ws.append([(torch.randn(shape, generator=g, device=dev)
+                    / shape[1] ** 0.5).requires_grad_(True)
+                   for shape in ((c // 16, c), (c, c // 16))])
+
+    def step(route):
+        def run():
+            for (x, idn, dout, mode), (w1, w2) in zip(sites, ws):
+                xs = x.detach().requires_grad_(True)
+                r = None if idn is None else idn.detach().requires_grad_(True)
+                out = route(xs, w1, w2, r, mode)
+                torch.autograd.grad(out, [xs, w1, w2] + ([r] if r is not None
+                                                         else []), dout)
+        return run
+
+    routes = {"kernels": step(se_train), "torch": step(se_torch_route)}
+    ms = {r: [] for r in routes}
+    host = {r: [] for r in routes}
+    for r in ("kernels", "torch", "torch", "kernels"):
+        dms, hus = device_ms(routes[r], reps=reps)
+        ms[r].append(dms)
+        host[r].append(hus / 1e3)
+    res = {"ms": {r: min(v) for r, v in ms.items()}, "turns": ms,
+           "host_ms": {r: min(v) for r, v in host.items()},
+           "sites": len(sites)}
+    log(f"  {label}: the SE tail of a step, forward and backward at its "
+        f"{len(sites)} sites, K10a-K11b against the torch-op route in "
+        "turns, device ms " + json.dumps(ms) + ", host ms queueing them "
+        + json.dumps(host) + f"; on {power_line}")
+    return res
+
+
+def se_kernel_rows(se_calls, launches, checked, power_line) -> list:
+    """The rows of K10a-K11b: each kernel timed on the calls of U-Net-CA's
+    bf16 512^2 b8 step and FCN-CA's bf16 512^2 b2 step (``kernel_row``),
+    its launches and checked calls those of the steps' (U-Net-CA,
+    FCN-CA, PSPNet-CA), and the tail in turns with the torch-op route on
+    each of the two steps."""
+    log(f"each K10a-K11b call of the U-Net-CA and FCN-CA bf16 steps timed "
+        f"on its tensors, on {power_line}:")
+    rows = []
+    for kname, (wrapper, replaces) in SE_KERNELS.items():
+        cases = []
+        for cell, calls in se_calls.items():
+            cases += se_cases({wrapper: calls[wrapper]}, cell)[wrapper]
+        row = kernel_row(kname, "insarseg_torch/csrc/se_train.cu", replaces,
+                         cases)
+        row["train_launches_by_step"] = {c: n[kname]
+                                         for c, n in launches.items()}
+        row["launches"] = row["train_launches"] = sum(
+            n[kname] for n in launches.values())
+        row["train_checked"] = sum(c.get(kname, {}).get("calls", 0)
+                                   for c in checked.values())
+        rows.append(row)
+    rows[0]["tail_turns"] = {
+        cell: se_route_turns(calls["se_excite"][0]["x"].device,
+                             se_sites(calls), cell, power_line)
+        for cell, calls in se_calls.items()}
+    return rows
 
 
 # The ResNet families' train steps on K8a-K9b, one call a BatchNorm in the
@@ -2755,15 +3154,20 @@ def bn_device_ms(prof, steps: int) -> dict:
     return out
 
 
-def train_resnet_bn(dev, power_line) -> dict:
+def train_resnet_bn(dev, power_line, se_calls, se_launches,
+                    se_checked) -> dict:
     """The ResNet families' bf16 train steps at 512^2 (``RESNET_TRAIN``),
     each with the launch counters set to 0 just before and read just
-    after, every K8a-K9b call held against its plain version
-    (``checked_bn_calls``): each kernel launched once a BatchNorm, its
-    calls checked, the calls by mode ``RESNET_MODES``'. For each, the
-    bound of each kernel by mode from the calls' shapes; for DeepLabV3 the
-    kernels' device ms by mode from a profiler window of the step. Returns
-    per cell its launches, calls by mode, bounds and (DeepLabV3) ms."""
+    after, every K8a-K11b call held against its plain version
+    (``checked_train_calls``): each of K8a-K9b launched once a BatchNorm,
+    the calls by mode ``RESNET_MODES``'; each of K10a-K11b once an SE
+    bottleneck (16 in the CA cells, none in DeepLabV3); every call
+    checked. For each, the bound of each of K8a-K9b by mode from the
+    calls' shapes; for DeepLabV3 those kernels' device ms by mode from a
+    profiler window of the step, for FCN-CA K10a-K11b's. Returns per cell
+    its launches, calls by mode, bounds and (DeepLabV3) ms; the CA cells'
+    SE launches and checks go into ``se_launches`` and ``se_checked``,
+    FCN-CA's SE calls into ``se_calls``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from insarseg_torch import kernels as K
@@ -2776,15 +3180,16 @@ def train_resnet_bn(dev, power_line) -> dict:
         torch.cuda.synchronize()
         checked, calls = {}, {}
         K.reset_launches()
-        with checked_bn_calls(checked, calls):
+        with checked_train_calls(checked, calls):
             step(state, x, m)
         torch.cuda.synchronize()
-        launches = {k: K.LAUNCHES[k] for k in BN_KERNELS}
+        launches = {k: K.LAUNCHES[k] for k in TRAIN_KERNELS}
         modes = {}
         for a in calls["bn_apply_relu"]:
             modes[a["mode"]] = modes.get(a["mode"], 0) + 1
         want = RESNET_MODES[name]
-        log(f"bf16 train step {label}, {HW}^2 b{batch}: K8a-K9b launches "
+        se_want = 16 if attention == "channel" else 0
+        log(f"bf16 train step {label}, {HW}^2 b{batch}: K8a-K11b launches "
             f"{launches}, K8b's calls by mode {modes} (expected {want}); "
             "every call held against its plain version "
             + json.dumps(checked, default=sorted))
@@ -2792,13 +3197,22 @@ def train_resnet_bn(dev, power_line) -> dict:
             raise AssertionError(f"{label}: calls by mode {modes}, "
                                  f"expected {want}")
         for k, n in launches.items():
-            if n != sum(want.values()):
-                raise AssertionError(f"{label}: {k} launched {n} times for "
-                                     f"{sum(want.values())} BatchNorms")
-            if checked.get(k, {}).get("calls") != n:
+            expected = se_want if k in SE_KERNELS else sum(want.values())
+            if n != expected:
+                raise AssertionError(f"{label}: {k} launched {n} times, "
+                                     f"expected {expected}")
+            if checked.get(k, {}).get("calls", 0) != n:
                 raise AssertionError(f"{label}: {k}: {n} launches, "
                                      f"{checked.get(k, {}).get('calls')} "
                                      "checked")
+        if se_want:
+            se_launches[label] = {k: launches[k] for k in SE_KERNELS}
+            se_checked[label] = {k: checked[k] for k in SE_KERNELS}
+            se_recorded = {k: calls.pop(k) for k in SE_KERNELS}
+            if name == "fcn":
+                se_calls[label] = se_recorded
+            del se_recorded
+        launches = {k: launches[k] for k in BN_KERNELS}
         bounds = {}
         for k in BN_KERNELS:
             for i, a in enumerate(calls[k]):
@@ -2816,6 +3230,17 @@ def train_resnet_bn(dev, power_line) -> dict:
                 "checked": {k: c["calls"] for k, c in checked.items()},
                 "max_abs_err": {k: c["max_abs_err"]
                                 for k, c in checked.items()}}
+        if name == "fcn":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(state, x, m)
+                torch.cuda.synchronize()
+            se_ms = se_device_ms(prof, 2)
+            se_checked[label]["device_ms"] = se_ms
+            log(f"  {label} bf16 step's SE tails under the profiler (2 "
+                f"steps): K10a-K11b device ms a step {json.dumps(se_ms)}, "
+                f"{sum(se_ms.values()):.4f} in all; on {power_line}")
         if name == "deeplabv3":
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2947,15 +3372,29 @@ def bn_sass_counts(sass=None) -> dict:
 
 
 def train_path(dev, power_line: str, phase) -> list:
-    """Phase 5; returns the rows of K8a-K9b."""
+    """Phase 5; returns the rows of K8a-K11b."""
     import torch
 
     bn_kernel_info()
     check_bn_fixed_shapes(dev)
     phase("training: K8a-K9b against their plain versions at fixed shapes")
-    rows = train_bn_kernels(dev, power_line)
-    phase("training: K8a-K9b through a bf16 512^2 step, checked and timed")
-    cells = train_resnet_bn(dev, power_line)
+    check_se_fixed_shapes(dev)
+    phase("training: K10a-K11b against their plain versions at fixed shapes")
+    se_calls, se_launches, se_checked = {}, {}, {}
+    rows = train_bn_kernels(dev, power_line, se_calls, se_launches,
+                            se_checked)
+    phase("training: K8a-K11b through a bf16 512^2 step, checked and timed")
+    cells = train_resnet_bn(dev, power_line, se_calls, se_launches,
+                            se_checked)
+    se_rows = se_kernel_rows(se_calls, se_launches, se_checked, power_line)
+    for row in se_rows:
+        row["device_ms_a_step"] = {
+            c: v["device_ms"].get(row["name"]) for c, v in se_checked.items()
+            if "device_ms" in v}
+    del se_calls
+    torch.cuda.empty_cache()
+    phase("training: K10a-K11b timed on the steps' calls, the SE tail in "
+          "turns with the torch-op route")
     turns = resnet_step_turns(dev, power_line)
     for row in rows:
         k = row["name"]
@@ -2995,7 +3434,7 @@ def train_path(dev, power_line: str, phase) -> list:
     phase("training: bf16 steps and fit")
     remat_on_card(dev)
     phase("training: remat against no remat on the card")
-    return rows
+    return rows + se_rows
 
 
 # The CLI phase: the commands users run, on files, through
@@ -4402,26 +4841,27 @@ UNEVEN_CARDS = (496, 992)
 
 def checked_steps(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` with the launch counters from 0 and every
-    K8a-K9b call held against its plain version (``checked_bn_calls``):
+    K8a-K11b call held against its plain version (``checked_train_calls``):
     its result and, per kernel, [launches, checked calls]."""
     import torch
     from insarseg_torch import kernels as K
 
     checked = {}
     K.reset_launches()
-    with checked_bn_calls(checked):
+    with checked_train_calls(checked):
         got = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return got, {k: [K.LAUNCHES[k], checked.get(k, {}).get("calls", 0)]
-                 for k in BN_KERNELS}
+                 for k in TRAIN_KERNELS}
 
 
-def all_checked(label, counts) -> None:
-    """Every K8a-K9b kernel launched and each launch checked."""
-    log(f"  {label}: K8a-K9b [launches, checked calls] "
+def all_checked(label, counts, se: bool = False) -> None:
+    """Every K8a-K9b kernel launched (and with ``se``, every K10a-K11b
+    kernel: a cell with SE blocks) and each launch checked."""
+    log(f"  {label}: K8a-K11b [launches, checked calls] "
         + json.dumps(counts))
     for k, (n, c) in counts.items():
-        if n == 0 or n != c:
+        if n != c or (n == 0 and (se or k in BN_KERNELS)):
             raise AssertionError(f"{label}: {k} launched {n} times, "
                                  f"{c} calls checked")
 
@@ -4429,8 +4869,8 @@ def all_checked(label, counts) -> None:
 def spatial_bf16_rank(batch, base, device, spatial: int):
     """One rank of U-Net-CA's bf16 train step with its H axis over
     ``spatial`` ranks (or, without a group, the one-card step): a warm
-    step, then one step with the launch counters from 0 and every K8a-K9b
-    call held against its plain version (``checked_bn_calls``). Returns
+    step, then one step with the launch counters from 0 and every K8a-K11b
+    call held against its plain version (``checked_train_calls``). Returns
     the launches, the checked calls and the two losses."""
     import torch
     from insarseg_torch import kernels as K
@@ -4446,10 +4886,10 @@ def spatial_bf16_rank(batch, base, device, spatial: int):
     torch.cuda.synchronize()
     checked = {}
     K.reset_launches()
-    with checked_bn_calls(checked):
+    with checked_train_calls(checked):
         losses.append(float(step(state, x, m)["loss"]))
     torch.cuda.synchronize()
-    return {"launches": {k: K.LAUNCHES[k] for k in BN_KERNELS},
+    return {"launches": {k: K.LAUNCHES[k] for k in TRAIN_KERNELS},
             "checked": {k: {"calls": c["calls"],
                             "max_abs_err": c["max_abs_err"]}
                         for k, c in checked.items()},
@@ -4495,7 +4935,7 @@ def spatial_training(dev) -> dict:
     ``SPATIAL_RESNETS`` (dropout off), ``SPATIAL_TRAIN``, f32, TF32 off,
     held to one process's SGD steps at ``MESH_BARS`` (``mesh_hold``;
     each count may move by at most the one process's near-tie pixels,
-    ``TIE_BAR``); the bf16 step's every K8a-K9b call held against its
+    ``TIE_BAR``); the bf16 step's every K8a-K11b call held against its
     plain version, its launches a rank equal to the one-card step's; a
     2-epoch ``fit`` with a resume (finite, the ranks equal). At slabs of
     any height (``UNEVEN_TRAIN``^2: 250-row slabs) U-Net-CA's and
@@ -4545,21 +4985,22 @@ def spatial_training(dev) -> dict:
     holds = {}
     for label, name, attention, data, key in cells:
         torch.cuda.empty_cache()
+        se = attention == "channel"
         for i, r in enumerate(ranks):
             r[key], counts = r[key]
-            all_checked(f"spatial 2 rank {i} {key} f32 steps", counts)
+            all_checked(f"spatial 2 rank {i} {key} f32 steps", counts, se)
         _same_state(ranks[0][key][1][-1], ranks[1][key][1][-1],
                     f"the ranks' {key} states")
         starts = [None] + ranks[0][key][1][:-1]
         want, counts = checked_steps(mesh_sgd_rank, data, BASE, dev,
                                      resnet=(name, attention),
                                      starts=starts, ties=True)
-        all_checked(f"one process {key} f32 steps", counts)
+        all_checked(f"one process {key} f32 steps", counts, se)
         torch.cuda.empty_cache()
         exact, counts = checked_steps(mesh_sgd_rank, data, BASE, dev,
                                       resnet=(name, attention),
                                       starts=starts, dtype=torch.float64)
-        all_checked(f"one process {key} f64 steps", counts)
+        all_checked(f"one process {key} f64 steps", counts, se)
         for r in ranks:
             holds[f"{key} rank {r['fit']['rank']}"] = mesh_hold(
                 r[key], data, dev,
@@ -4588,7 +5029,7 @@ def spatial_training(dev) -> dict:
             bf = r[key]
             log(f"  rank {i} {key} step (U-Net-CA base {BASE}, {tiles}^2 "
                 f"global b{b}, {tiles // 2}-row slabs): losses "
-                f"{bf['losses']}; K8a-K9b launches {bf['launches']} against "
+                f"{bf['losses']}; K8a-K11b launches {bf['launches']} against "
                 f"one card's {ref['launches']}; checked against their plain "
                 "versions " + json.dumps(bf["checked"]))
             for k, n in bf["launches"].items():
@@ -4978,7 +5419,7 @@ def spatial_cards(power_line) -> None:
 def spatial_path(dev, power_line: str, phase) -> dict:
     """The ``spatial`` phase (the H axis sharded): the one-card launches
     and the in-process forward, and on a machine with more cards the
-    multi-card runs. Returns the K8a-K9b launches a rank of the spatial
+    multi-card runs. Returns the K8a-K11b launches a rank of the spatial
     bf16 steps at ``SPATIAL_TRAIN`` and at ``UNEVEN_TRAIN`` (slabs of any
     height)."""
     import torch
@@ -4988,6 +5429,8 @@ def spatial_path(dev, power_line: str, phase) -> dict:
     t0 = time.perf_counter()
     check_bn_fixed_shapes(dev, BN_SLAB_SHAPES)
     phase("spatial: K8a-K9b on slabs of 0, 1, 7 and 15 rows")
+    check_se_fixed_shapes(dev, SE_SLAB_SHAPES)
+    phase("spatial: K10a-K11b on slabs of 0, 1 and 7 rows")
     launches, uneven = spatial_training(dev)
     phase("spatial: launch world 2 on one card (f32 steps, bf16 steps, fit; "
           "even and uneven slabs)")

@@ -101,9 +101,7 @@
 //     with the moments. No launch synchronises.
 //   - K8b's slice 0 of each channel updates its running statistics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "train_common.cuh"
 
 namespace {
 
@@ -117,10 +115,6 @@ constexpr int RED_BYTES = 32;   // bytes of loads an operand a thread's trip
 
 // what follows the BatchNorm (kernels/bn_act.py::MODES)
 constexpr int RELU = 0, NONE = 1, RESIDUAL = 2;
-// the compute dtype of y (kernels/bn_act.py::DTYPES)
-constexpr int F32 = 0, BF16 = 1, F64 = 2;
-
-using bf = __nv_bfloat16;
 
 // loads an operand a thread issues before its first add: RED_BYTES of
 // vectors, or 4 single elements
@@ -129,37 +123,6 @@ __host__ __device__ constexpr int unroll() {
   return V == 1 ? 4 : RED_BYTES / (V * (int)sizeof(T));
 }
 
-// the per-channel and element arithmetic's type: f32, f64 for f64 input
-template <typename T>
-struct AccOf {
-  using type = float;
-};
-template <>
-struct AccOf<double> {
-  using type = double;
-};
-template <typename T>
-using Acc = typename AccOf<T>::type;
-
-// one rounding each, in A
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
 __device__ __forceinline__ float rsqrt_of(float v) { return rsqrtf(v); }
 __device__ __forceinline__ double rsqrt_of(double v) { return rsqrt(v); }
 __device__ __forceinline__ float max0(float v) { return fmaxf(v, 0.0f); }
@@ -175,45 +138,6 @@ __device__ __forceinline__ float narrow<float>(double v) {
 template <>
 __device__ __forceinline__ double narrow<double>(double v) {
   return v;
-}
-
-template <typename T>
-__device__ __forceinline__ Acc<T> to_a(T v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_a<bf>(bf v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_a(Acc<T> v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf from_a<bf>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to the compute dtype T, in A
-template <typename T>
-__device__ __forceinline__ Acc<T> round_to(Acc<T> v) {
-  return to_a<T>(from_a<T>(v));
-}
-
-// V elements of T from p (16-byte aligned when V > 1)
-template <typename T, int V>
-__device__ __forceinline__ void load(const T* __restrict__ p,
-                                     Acc<T> (&v)[V]) {
-  if constexpr (V == 1) {
-    v[0] = to_a<T>(p[0]);
-  } else {
-    static_assert(sizeof(T) * V == 16, "one 16-byte vector");
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = to_a<T>(e[k]);
-  }
 }
 
 // the bits of V elements of T, loaded as one word
@@ -249,20 +173,6 @@ __device__ __forceinline__ void unpack(const Raw<T, V>& r,
   const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
   for (int k = 0; k < V; ++k) v[k] = to_a<T>(e[k]);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store(T* __restrict__ p,
-                                      const Acc<T> (&v)[V]) {
-  if constexpr (V == 1) {
-    p[0] = from_a<T>(v[0]);
-  } else {
-    uint4 u;
-    T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-    for (int k = 0; k < V; ++k) e[k] = from_a<T>(v[k]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
 }
 
 // The pointers and numbers every kernel of the site reads. The per-channel
@@ -558,31 +468,18 @@ __device__ __forceinline__ void combine(const Site& s, const double* src,
 // of the group adds the runs' sums in order into s.sums. Which block is
 // last changes nothing in the sums. Each counter goes back to 0.
 __device__ __forceinline__ void finish(const Site& s, int c0, int width) {
-  __shared__ unsigned ticket;
   const int Q = (s.S + TREE - 1) / TREE;
   const int q = blockIdx.x / TREE;
   const int runs = min(TREE, s.S - q * TREE);
   unsigned* first = s.counters + (long long)blockIdx.y * Q + q;
   unsigned* second = s.counters + (long long)gridDim.y * Q + blockIdx.y;
   double* stage = s.ws + (long long)s.S * 2 * s.C;
-  __threadfence();  // the partial is visible before the count
-  __syncthreads();
-  if (threadIdx.x == 0) ticket = atomicAdd(first, 1u);
-  __syncthreads();
-  if (ticket != (unsigned)(runs - 1)) return;
-  __threadfence();
+  if (!arrive_last(first, (unsigned)runs)) return;
   combine(s, s.ws + (long long)q * TREE * 2 * s.C, runs, c0, width,
           Q == 1 ? s.sums : stage + (long long)q * 2 * s.C);
   if (Q > 1) {
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      *first = 0;
-      ticket = atomicAdd(second, 1u);
-    }
-    __syncthreads();
-    if (ticket != (unsigned)(Q - 1)) return;
-    __threadfence();
+    if (threadIdx.x == 0) *first = 0;
+    if (!arrive_last(second, (unsigned)Q)) return;
     combine(s, stage, Q, c0, width, s.sums);
   }
   if (threadIdx.x == 0) {

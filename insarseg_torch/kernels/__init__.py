@@ -34,6 +34,15 @@ K9a   ``bn_relu_grad_stats``       their autodiff: the beta / gamma
                                    gradients
 K9b   ``bn_relu_grad_apply``       their autodiff: the conv output's
                                    gradient
+K10a  ``se_squeeze``               ``ops/blocks.py`` ``SELayer`` /
+                                   ``SEBlock`` train squeeze: the sums
+                                   over H, W (``jnp.mean``)
+K10b  ``se_excite``                their rescale ``x * gate``, and for
+                                   ``SEBlock`` the residual add + relu
+                                   (``models/resnet.py:99``)
+K11a  ``se_grad_stats``            their autodiff: the gate's cotangent
+K11b  ``se_grad_apply``            their autodiff: x's gradient (and the
+                                   identity's)
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -42,7 +51,9 @@ int8 kernel but K6 equals its plain version bit for bit; K6 sums on the
 tensor cores and is held to its plain version by a counted bar on its codes
 (``assert_up_codes_close``). K8a-K9b (``kernels/bn_act.py``, the train
 path's, with the autograd function ``bn_relu_train``) sum in another
-order than their plain versions.
+order than their plain versions; so do K10a-K11b (``kernels/se_train.py``,
+the train path's squeeze-excite tail, with the autograd function
+``se_train.se_train``).
 """
 
 from insarseg_torch.kernels._lib import (
@@ -89,6 +100,16 @@ from insarseg_torch.kernels.se_i8 import (
     se_squeeze_i8,
     se_squeeze_i8_plain,
 )
+from insarseg_torch.kernels.se_train import (
+    se_excite,
+    se_excite_plain,
+    se_grad_apply,
+    se_grad_apply_plain,
+    se_grad_stats,
+    se_grad_stats_plain,
+    se_squeeze,
+    se_squeeze_plain,
+)
 from insarseg_torch.kernels.stem_i8 import stem_pool_i8, stem_pool_i8_plain
 from insarseg_torch.kernels.up_i8 import (
     UP_SHARE_MAIN,
@@ -114,4 +135,7 @@ __all__ = [
     "bn_stats", "bn_stats_plain", "bn_apply_relu", "bn_apply_relu_plain",
     "bn_relu_grad_stats", "bn_relu_grad_stats_plain", "bn_relu_grad_apply",
     "bn_relu_grad_apply_plain", "bn_relu_train",
+    "se_squeeze", "se_squeeze_plain", "se_excite", "se_excite_plain",
+    "se_grad_stats", "se_grad_stats_plain", "se_grad_apply",
+    "se_grad_apply_plain",
 ]

@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,7 +33,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
            "block_i8.cu", "sa_i8.cu", "up_i8.cu", "stem_i8.cu",
-           "bn_act.cu")
+           "bn_act.cu", "se_train.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -54,6 +54,10 @@ LAUNCHES: Dict[str, int] = {
     "bn_apply_relu": 0,
     "bn_relu_grad_stats": 0,
     "bn_relu_grad_apply": 0,
+    "se_squeeze": 0,
+    "se_excite": 0,
+    "se_grad_stats": 0,
+    "se_grad_apply": 0,
 }
 
 _vp, _i, _ll, _f, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -80,6 +84,14 @@ _SIGNATURES = {
     "insarseg_bn_relu_grad_stats": (_vp,) * 10 + (_ll, _ll, _i, _i, _ll, _i,
                                                   _d) + (_i,) * 4 + (_vp,),
     "insarseg_bn_relu_grad_apply": (_vp,) * 10 + (_ll, _ll, _i, _i, _d)
+    + (_i,) * 4 + (_vp,),
+    "insarseg_se_squeeze": (_vp,) * 4 + (_ll, _ll, _i, _i, _ll) + (_i,) * 3
+    + (_vp,),
+    "insarseg_se_excite": (_vp,) * 4 + (_ll, _ll, _i, _i, _ll) + (_i,) * 4
+    + (_vp,),
+    "insarseg_se_grad_stats": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll)
+    + (_i,) * 4 + (_vp,),
+    "insarseg_se_grad_apply": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll)
     + (_i,) * 4 + (_vp,),
     "insarseg_bn_kernel_info": (_i, _vp),
     "insarseg_bn_kernel_launches": (_vp,),
@@ -197,6 +209,82 @@ def stream_of(t: torch.Tensor) -> int:
     """The handle of the current stream on ``t``'s device (without making
     a ``torch.cuda.Stream``)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# the codes of a float tensor's dtype in the train kernels (csrc/bn_act.cu,
+# csrc/se_train.cu: F32 / BF16 / F64), and the dtype of their per-channel
+# vectors (acc) for each
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+ACC = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
+       torch.float64: torch.float64}
+
+
+def workspace(cache: Dict[Tuple[int, int], Tuple[torch.Tensor,
+                                                torch.Tensor]],
+              t: torch.Tensor, stream: int, n_sums: int, n_counters: int,
+              min_sums: int, min_counters: int) -> Tuple[int, int]:
+    """Pointers to a reduction's f64 partial sums and int32 counters on
+    (t's device, stream), cached in ``cache``, grown to at least the
+    sizes asked and made at least ``min_sums`` / ``min_counters`` (the
+    counters zeroed: each launch's last blocks reset theirs, so they are
+    zero between launches). One pair a (device, stream) stays in place
+    for a later CUDA graph to capture."""
+    key = (t.device.index, stream)
+    sums, counters = cache.get(key, (None, None))
+    if sums is None or sums.numel() < n_sums:
+        sums = t.new_empty(max(n_sums, min_sums), dtype=torch.float64)
+    if counters is None or counters.numel() < n_counters:
+        counters = t.new_zeros(max(n_counters, min_counters),
+                               dtype=torch.int32)
+    cache[key] = sums, counters
+    return sums.data_ptr(), counters.data_ptr()
+
+
+def is_plain(name: str, t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version (a CPU or meta
+    tensor) rather than its kernel (a CUDA tensor); any other device
+    raises."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def layout_of(t: torch.Tensor) -> int:
+    """0 for NCHW memory, 1 for channels-last; anything else raises (a
+    tensor in both, as at C = 1 or a 1x1 map, is taken as NCHW)."""
+    if t.is_contiguous():
+        return 0
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return 1
+    raise ValueError(f"a kernel's tensor must be NCHW or channels-last, got "
+                     f"strides {tuple(t.stride())}")
+
+
+def like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` in x's memory layout (a copy only when it differs)."""
+    fmt = torch.channels_last if layout_of(x) else torch.contiguous_format
+    return t.contiguous(memory_format=fmt)
+
+
+def sizes(t: torch.Tensor):
+    """(N, H * W, C) of an (N, C, H, W) tensor."""
+    n, c, h, w = t.shape
+    return n, h * w, c
+
+
+def check_operand(name: str, label: str, v: Optional[torch.Tensor],
+                  x: torch.Tensor) -> None:
+    """A residual site's operand (the identity, the saved output): x's
+    shape and dtype on x's card (any layout: the wrapper copies it into
+    x's)."""
+    if v is None:
+        raise ValueError(f"{name}: the residual mode needs {label}")
+    if v.shape != x.shape or v.dtype != x.dtype or v.device != x.device:
+        raise ValueError(f"{name}: {label} is {tuple(v.shape)} {v.dtype} on "
+                         f"{v.device}, x {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

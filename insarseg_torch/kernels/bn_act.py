@@ -72,22 +72,26 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from insarseg_torch.kernels._lib import (
+    ACC,
+    DTYPES,
     check_cuda,
+    check_operand,
     device_guard,
+    is_plain,
     launch,
+    layout_of,
+    like,
+    sizes,
     stream_of,
+    workspace,
 )
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
-# what follows the BatchNorm, and the kernels' codes of it and of y's dtype
-# (csrc/bn_act.cu: RELU / NONE / RESIDUAL, F32 / BF16 / F64)
+# what follows the BatchNorm, the kernels' codes of it (csrc/bn_act.cu:
+# RELU / NONE / RESIDUAL; y's dtype: ``_lib.DTYPES``)
 MODES = {"relu": 0, "none": 1, "residual": 2}
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
-# the per-channel vectors' dtype (acc) for each y dtype, and the labels of
-# the f64 sum buffers among them
-ACC = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
-       torch.float64: torch.float64}
+# the labels of the f64 sum buffers among the per-channel vectors
 SUMS = ("stats", "gstats")
 
 # K8b / K9b's plan: about this many blocks a launch (8 per SM of an H100),
@@ -234,17 +238,6 @@ def bn_relu_grad_apply_plain(dy, y, bias, stats, gstats, gamma, beta,
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def layout_of(y: torch.Tensor) -> int:
-    """0 for NCHW memory, 1 for channels-last; anything else raises (a
-    tensor in both, as at C = 1 or a 1x1 map, is taken as NCHW)."""
-    if y.is_contiguous():
-        return 0
-    if y.is_contiguous(memory_format=torch.channels_last):
-        return 1
-    raise ValueError(f"bn_act: y must be NCHW or channels-last, got strides "
-                     f"{tuple(y.stride())}")
-
-
 def plan(y: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
     """(layout, vec, S) of a K8b / K9b launch over ``y`` (and ``others``,
     in the same layout): 16-byte vectors when a plane (NCHW) or a row
@@ -356,17 +349,9 @@ def reduce_plan(y: torch.Tensor, *others: torch.Tensor) -> ReducePlan:
 
 def _workspace(y: torch.Tensor, stream: int, n_sums: int,
                n_counters: int) -> Tuple[int, int]:
-    """Pointers to the cached partial sums and counters of (y's device,
-    stream), grown to at least the sizes asked (the counters zeroed)."""
-    key = (y.device.index, stream)
-    sums, counters = _WORK.get(key, (None, None))
-    if sums is None or sums.numel() < n_sums:
-        sums = y.new_empty(max(n_sums, WORK_SUMS), dtype=torch.float64)
-    if counters is None or counters.numel() < n_counters:
-        counters = y.new_zeros(max(n_counters, WORK_COUNTERS),
-                               dtype=torch.int32)
-    _WORK[key] = sums, counters
-    return sums.data_ptr(), counters.data_ptr()
+    """K8a / K9a's workspace on (y's device, stream) (``_lib.workspace``)."""
+    return workspace(_WORK, y, stream, n_sums, n_counters, WORK_SUMS,
+                     WORK_COUNTERS)
 
 
 def _cuda_args(name, y, bias, *vectors, operands=()):
@@ -397,34 +382,8 @@ def _cuda_args(name, y, bias, *vectors, operands=()):
         check_operand(name, label, v, y)
 
 
-def check_operand(name: str, label: str, v: Optional[torch.Tensor],
-                  y: torch.Tensor) -> None:
-    """A residual site's operand (the identity, the saved output): y's
-    shape and dtype on y's card (any layout: the wrapper copies it into
-    y's)."""
-    if v is None:
-        raise ValueError(f"{name}: the residual mode needs {label}")
-    if v.shape != y.shape or v.dtype != y.dtype or v.device != y.device:
-        raise ValueError(f"{name}: {label} is {tuple(v.shape)} {v.dtype} on "
-                         f"{v.device}, y {tuple(y.shape)} {y.dtype} on "
-                         f"{y.device}")
-
-
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
-
-
-def _sizes(y):
-    n, c, h, w = y.shape
-    return n, h * w, c
-
-
-def _is_plain(name: str, y: torch.Tensor) -> bool:
-    if y.device.type in ("cpu", "meta"):
-        return True
-    if y.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {y.device}")
-    return False
 
 
 def bn_stats(y: torch.Tensor,
@@ -432,11 +391,11 @@ def bn_stats(y: torch.Tensor,
     """K8a. y (N, C, H, W) the conv output without its bias, bias (C) in
     acc or None -> ``[sum t (C), sum t^2 (C), n]`` in f64, t = cdt(y +
     cdt(bias))."""
-    if _is_plain("bn_stats", y):
+    if is_plain("bn_stats", y):
         return bn_stats_plain(y, bias)
     _cuda_args("bn_stats", y, bias)
     p = reduce_plan(y)
-    n, hw, c = _sizes(y)
+    n, hw, c = sizes(y)
     stats = y.new_empty(2 * c + 1, dtype=torch.float64)
     with device_guard(y.device):
         stream = stream_of(y)
@@ -455,7 +414,7 @@ def bn_apply_relu(y, bias, stats, gamma, beta, running_mean, running_var,
     ``p = cdt((t - mean) * a + beta)``, in y's layout, and the running
     statistics updated in place from ``stats`` (the unbiased factor from
     the count over ``rows_div``)."""
-    if _is_plain("bn_apply_relu", y):
+    if is_plain("bn_apply_relu", y):
         return bn_apply_relu_plain(y, bias, stats, gamma, beta, running_mean,
                                    running_var, eps, momentum, mode,
                                    residual, rows_div)
@@ -465,10 +424,10 @@ def bn_apply_relu(y, bias, stats, gamma, beta, running_mean, running_var,
                ("running_var", running_var),
                operands=(("residual", residual),) if mode == "residual"
                else ())
-    r = _like(residual, y) if mode == "residual" else None
+    r = like(residual, y) if mode == "residual" else None
     out = torch.empty_like(y)
     layout, vec, s = plan(y, out, *([r] if r is not None else []))
-    n, hw, c = _sizes(y)
+    n, hw, c = sizes(y)
     with device_guard(y.device):
         launch("bn_apply_relu", "insarseg_bn_apply_relu", y.data_ptr(),
                _ptr(bias), stats.data_ptr(), gamma.data_ptr(),
@@ -480,19 +439,13 @@ def bn_apply_relu(y, bias, stats, gamma, beta, running_mean, running_var,
     return out
 
 
-def _like(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The gradient in y's memory layout (a copy only when it differs)."""
-    fmt = torch.channels_last if layout_of(y) else torch.contiguous_format
-    return dy.contiguous(memory_format=fmt)
-
-
 def _backward_args(name, dy, y, bias, mode, out, *vectors):
     """The checks of K9a / K9b and their operands in y's layout: (mode
     code, dout, the saved output or None)."""
     m = _mode(mode)
     _cuda_args(name, y, bias, *vectors,
                operands=(("out", out),) if mode == "residual" else ())
-    return m, _like(dy, y), _like(out, y) if mode == "residual" else None
+    return m, like(dy, y), like(out, y) if mode == "residual" else None
 
 
 def bn_relu_grad_stats(dy, y, bias, stats, gamma, beta, eps: float,
@@ -500,14 +453,14 @@ def bn_relu_grad_stats(dy, y, bias, stats, gamma, beta, eps: float,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9a. ``[sum g (C), sum g * xhat (C)]`` in f64; ``out`` the site's
     saved output (the residual mode's mask)."""
-    if _is_plain("bn_relu_grad_stats", y):
+    if is_plain("bn_relu_grad_stats", y):
         return bn_relu_grad_stats_plain(dy, y, bias, stats, gamma, beta, eps,
                                         mode, out)
     m, dy, o = _backward_args("bn_relu_grad_stats", dy, y, bias, mode, out,
                               ("stats", stats), ("gamma", gamma),
                               ("beta", beta))
     p = reduce_plan(y, dy, *([o] if o is not None else []))
-    n, hw, c = _sizes(y)
+    n, hw, c = sizes(y)
     gstats = y.new_empty(2 * c, dtype=torch.float64)
     with device_guard(y.device):
         stream = stream_of(y)
@@ -527,7 +480,7 @@ def bn_relu_grad_apply(dy, y, bias, stats, gstats, gamma, beta, eps: float,
     """K9b. ``dt = cdt(a * ((g - acc(sum g / n)) - xhat * acc(sum g xhat /
     n)))``, the gradient of the conv output, in y's layout; in the
     residual mode ``(dt, dr)``, ``dr = g`` the residual's gradient."""
-    if _is_plain("bn_relu_grad_apply", y):
+    if is_plain("bn_relu_grad_apply", y):
         return bn_relu_grad_apply_plain(dy, y, bias, stats, gstats, gamma,
                                         beta, eps, mode, out)
     m, dy, o = _backward_args("bn_relu_grad_apply", dy, y, bias, mode, out,
@@ -536,7 +489,7 @@ def bn_relu_grad_apply(dy, y, bias, stats, gstats, gamma, beta, eps: float,
     dt = torch.empty_like(y)
     dr = torch.empty_like(y) if o is not None else None
     layout, vec, s = plan(y, dy, dt, *([o, dr] if o is not None else []))
-    n, hw, c = _sizes(y)
+    n, hw, c = sizes(y)
     with device_guard(y.device):
         launch("bn_relu_grad_apply", "insarseg_bn_relu_grad_apply",
                dy.data_ptr(), y.data_ptr(), _ptr(o), _ptr(bias),

@@ -22,10 +22,13 @@
 Every BatchNorm runs through ``ops/layers.py::bn_act`` with what
 follows it: the stem's, bn1's and bn2's with their ReLU, ``downsample.1``
 alone, bn3 with the residual add and its ReLU (``relu(bn3 +
-identity)``), or, with an SE block, bn3 alone and the SE, add and ReLU
-in torch ops. In train mode each is one ``bn_train`` call (K8a-K9b on
-the card, the JAX package's moment rule, the identity's gradient from
-K9b); in eval mode the BatchNorm module and the torch ops.
+identity)``), or, with an SE block, bn3 alone, then the SE, the add and
+the ReLU as one ``SEBlock(x, identity)`` call. In train mode each
+BatchNorm is one ``bn_train`` call (K8a-K9b on the card, the JAX
+package's moment rule, the identity's gradient from K9b) and the SE tail
+one ``kernels/se_train.py::se_train`` call in its residual mode (K10a-K11b
+on the card, the identity's gradient from K11b); in eval mode the
+modules and the torch ops.
 
 Under a spatial context (``parallel/spatial.py``: the H axis sharded,
 ``x`` one slab of it) every conv and the stem's max-pool run as windows
@@ -118,8 +121,8 @@ class Bottleneck(nn.Module):
                               "none")
         if self.se_block is None:
             return bn_act(self.conv3(y), self.bn3, "residual", identity)
-        y = self.se_block(bn_act(self.conv3(y), self.bn3, "none"))
-        return torch.relu(y + identity)
+        return self.se_block(bn_act(self.conv3(y), self.bn3, "none"),
+                             identity)
 
 
 class ResNet50(nn.Module):

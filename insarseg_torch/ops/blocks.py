@@ -10,7 +10,12 @@
   block's activations are recomputed in the backward pass
   (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
 - :class:`SEBlock` (FCN-CA bottlenecks): the same squeeze-excite with a
-  bias-free 1x1-conv MLP, ``fc.{0,2}``;
+  bias-free 1x1-conv MLP, ``fc.{0,2}``; given the block's identity, also
+  the residual add and its ReLU (``relu(se(x) + identity)``);
+- in train mode both squeeze-excites run as one
+  ``kernels/se_train.py::se_train`` call (K10a / K10b forward, K11a / K11b
+  backward on the card; the squeeze's sums over every slab under a
+  spatial context); eval mode runs the modules and torch ops;
 - :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
   max-pooled descriptors through one shared 1x1-conv MLP ``mlp.{0,2}``,
   summed, sigmoid;
@@ -24,10 +29,13 @@ Convs and linears are ``ops/layers.py``'s, in their input's dtype.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from insarseg_torch.kernels.se_train import se_train
 from insarseg_torch.ops.layers import (
     Conv2d,
     Linear,
@@ -40,10 +48,26 @@ from insarseg_torch.ops.layers import (
 from insarseg_torch.parallel import spatial
 
 
+def se_tail(x: torch.Tensor, fc: nn.Sequential,
+            identity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A train-mode squeeze-excite (the MLP ``fc``'s ``fc.0`` and ``fc.2``
+    weights) as one ``se_train`` call: ``x * gate``, or with ``identity``
+    ``relu(x * gate + identity)``. Under a spatial context the squeeze sums
+    over the slabs and divides by the whole map's H W."""
+    comm = spatial.current()
+    reduce = count = None
+    if comm is not None:
+        reduce = comm.sum
+        count = spatial.rows_of(x, comm).height * x.shape[3]
+    return se_train(x, fc[0].weight, fc[2].weight, identity,
+                    "scale" if identity is None else "residual", reduce,
+                    count)
+
+
 class SELayer(nn.Module):
     """GAP -> Linear(C, C/r) -> ReLU -> Linear(C/r, C) -> sigmoid ->
     channelwise rescale; the GAP over every slab under a spatial context
-    (``ops/layers.py::spatial_mean``)."""
+    (``ops/layers.py::spatial_mean``); in train mode :func:`se_tail`."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -55,6 +79,8 @@ class SELayer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return se_tail(x, self.fc)
         y = self.fc(spatial_mean(x))
         return x * y[:, :, None, None]
 
@@ -83,7 +109,8 @@ class DoubleConv(nn.Module):
     ``bn_train`` (kernels K8a / K8b forward, K9a / K9b backward on
     the card; the bias added there with no gradient, the JAX package's
     moment rule, the running statistics and ``num_batches_tracked``
-    updated; over the ranks when the BN is ``synced``). Eval mode runs the
+    updated; over the ranks when the BN is ``synced``), and the SE tail
+    (``seq[6]``) is :func:`se_tail` (K10a-K11b). Eval mode runs the
     Sequential as it is.
 
     With ``remat`` a train-mode forward under autograd runs in
@@ -154,7 +181,8 @@ class DoubleConv(nn.Module):
 
 class SEBlock(nn.Module):
     """GAP -> 1x1 conv (C -> C/r) -> ReLU -> 1x1 conv (C/r -> C) ->
-    sigmoid -> channelwise rescale."""
+    sigmoid -> channelwise rescale; given ``identity``, then the residual
+    add and its ReLU. In train mode :func:`se_tail`."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -165,8 +193,12 @@ class SEBlock(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.fc(global_avg_pool(x))
+    def forward(self, x: torch.Tensor,
+                identity: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            return se_tail(x, self.fc, identity)
+        y = x * self.fc(global_avg_pool(x))
+        return y if identity is None else torch.relu(y + identity)
 
 
 class ChannelAttentionModule(nn.Module):

@@ -253,9 +253,13 @@ def spatial_engine(predicts: Sequence[Callable], mesh: Mesh) -> Callable:
                 if len(r)]
         outs: Dict[Tuple[int, int], torch.Tensor] = {}
         errors: List[BaseException] = []
+        threads_here = torch.get_num_threads()
 
         def work(i, dev, part, shared, s):
             try:
+                # a new thread's ops would take every core: the caller's
+                # thread count
+                torch.set_num_threads(threads_here)
                 with _on(dev), spatial.active(
                         spatial.ThreadComm(shared, s, dev)):
                     outs[i, s] = predicts[i](part.to(dev))

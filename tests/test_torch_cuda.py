@@ -25,7 +25,13 @@ to itself on a second run; K8a and K9a at the U-Net's five levels
 (batch 2, bf16 channels-last and f32 NCHW) bit-equal over ten calls
 queued back to back, on a second stream and with dout in the other
 layout; a train-mode ``DoubleConv`` on the card
-launches all four and never a plain version.
+launches all four and never a plain version. The SE tail's K10a-K11b
+(``kernels/se_train.py``) in both modes, bf16 / f32 / f64, NCHW and
+channels-last, 1x1 and empty maps, channel counts that take no vectors
+and reductions of several slices: the f64 sums within 1e-12 of their
+largest value, K10b and K11b equal to their plain versions, K11a equal
+to itself on a second run; the train-mode ``DoubleConv(use_se=True)``
+launches each once and never a plain version.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -757,17 +763,67 @@ def test_train_double_conv_launches_the_kernels(dev, monkeypatch):
     from insarseg_torch.kernels import bn_act as B
     from insarseg_torch.ops.blocks import DoubleConv
 
+    from insarseg_torch.kernels import se_train as S
+
     for name in ("bn_stats_plain", "bn_apply_relu_plain",
                  "bn_relu_grad_stats_plain", "bn_relu_grad_apply_plain"):
         monkeypatch.setattr(B, name, pytest.fail)
+    for name in ("se_squeeze_plain", "se_excite_plain",
+                 "se_grad_stats_plain", "se_grad_apply_plain"):
+        monkeypatch.setattr(S, name, pytest.fail)
     m = DoubleConv(3, 32, use_se=True).to(dev).train()
     x = torch.randn(2, 3, 16, 16, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
     names = ("bn_stats", "bn_apply_relu", "bn_relu_grad_stats",
              "bn_relu_grad_apply")
-    before = {k: K.LAUNCHES[k] for k in names}
+    se_names = ("se_squeeze", "se_excite", "se_grad_stats", "se_grad_apply")
+    before = {k: K.LAUNCHES[k] for k in names + se_names}
     m(x).float().square().sum().backward()
     torch.cuda.synchronize()
-    assert {k: K.LAUNCHES[k] - before[k] for k in names} == \
-        dict.fromkeys(names, 2)
+    assert {k: K.LAUNCHES[k] - before[k] for k in names + se_names} == \
+        {**dict.fromkeys(names, 2), **dict.fromkeys(se_names, 1)}
     assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()
+
+
+# K10a-K11b (kernels/se_train.py): (B, C, H, W, channels-last)
+SE_CASES = [(2, 64, 16, 16, False), (2, 64, 16, 16, True),
+            (3, 48, 7, 5, False), (2, 20, 6, 6, True), (2, 32, 1, 1, False),
+            (2, 64, 0, 8, True), (2, 8, 128, 128, False),
+            (1, 64, 128, 128, True)]
+
+
+@pytest.mark.parametrize("b,c,h,w,cl", SE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("mode", ["scale", "residual"])
+def test_se_train_equals_plain(dev, b, c, h, w, cl, dtype, mode):
+    from insarseg_torch.kernels import se_train as S
+
+    g = torch.Generator(device=dev).manual_seed(b * c + h + w)
+    acc = torch.promote_types(dtype, torch.float32)
+
+    def image():
+        t = torch.randn((b, c, h, w), generator=g, device=dev).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if cl else t
+
+    x, idn, dout = image(), image(), image()
+    gate = torch.rand((b, c), generator=g, device=dev).to(dtype)
+    dtot = (torch.randn((b, c), generator=g, device=dev) * 1e-3).to(acc)
+    r = idn if mode == "residual" else None
+    sums = S.se_squeeze(x)
+    want = S.se_squeeze_plain(x)
+    assert torch.allclose(sums, want, rtol=0,
+                          atol=1e-12 * float(want.abs().max().clamp_min(1)))
+    out = S.se_excite(x, gate, r, mode)
+    assert torch.equal(out, S.se_excite_plain(x, gate, r, mode))
+    o = out if mode == "residual" else None
+    gs = S.se_grad_stats(dout, x, o, mode)
+    want = S.se_grad_stats_plain(dout, x, o, mode)
+    assert torch.allclose(gs, want, rtol=0,
+                          atol=1e-12 * float(want.abs().max().clamp_min(1)))
+    assert torch.equal(S.se_grad_stats(dout, x, o, mode), gs)
+    got = S.se_grad_apply(dout, gate, dtot, o, mode)
+    want = S.se_grad_apply_plain(dout, gate, dtot, o, mode)
+    for a, e in zip(got if mode == "residual" else (got,),
+                    want if mode == "residual" else (want,)):
+        assert torch.equal(a, e)

@@ -28,6 +28,17 @@ package's.
   of 8 rows) run: FCN-CA at 12-row slabs equals its unsharded forward,
   and a strided conv and pool on a 5-row slab equal the unsharded ops.
 
+Every slab thread runs torch ops with its caller's thread count (set in
+each thread: ``torch.set_num_threads`` holds for the thread that calls
+it), as the port's ``parallel/mesh.py::spatial_engine`` does for its rank
+threads. A slab's ops still sum in other orders than the unsharded ones
+(oneDNN picks a conv's kernel by the input's height and padding; with
+oneDNN off the order moves all the same): in f32 FCN-CA's logits at
+12-row slabs read 3.6e-7 to 1.15e-6 of their largest over 12 seeds of
+its weights, one of them past ``GRAD_BAR``. So that model runs in f64,
+where the orders move the logits by about 1e-15 and ``GRAD_BAR`` still
+tells a misplaced row or halo from rounding.
+
 The JAX trees are numpy draws read in with the JAX package's importer
 (``tests/test_torch_common.py::make_resnet_pair``), no eager JAX init."""
 
@@ -82,9 +93,12 @@ def _slabs(fn, x, gy, n_s, whole_out=False, module=None):
     shared = spatial.ThreadExchange(n_s)
     outs, grads, mods, errors = {}, {}, {}, []
     total = n_s * (n_s + 1) / 2
+    threads_here = torch.get_num_threads()
 
     def work(s):
         try:
+            # the caller's thread count (a new thread's ops take every core)
+            torch.set_num_threads(threads_here)
             mod = copy.deepcopy(module)
             xs = x[:, :, s * h:(s + 1) * h].clone().requires_grad_(True)
             with spatial.active(spatial.ThreadComm(shared, s, CPU)):
@@ -252,12 +266,21 @@ def test_global_max_with_ties_across_slabs():
 def test_slab_rule_names_item_21c():
     """What this test once saw refused naming the slab rule now runs: a
     ResNet family at slabs off a multiple of 8 rows, and a strided conv
-    and pool on an odd slab, each as unsharded."""
-    model = build("fcn", "channel").eval()
+    and pool on an odd slab, each as unsharded. FCN-CA runs in f64 (the
+    module docstring: in f32 the slabs' sums in other orders reach the
+    bar). The model's weights come from a seed of their own: from torch's
+    global generator they changed with the tests an xdist worker ran
+    before this one."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build("fcn", "channel").eval().double()
     mesh = make_mesh(data=1, spatial=2, devices=["cpu", "cpu"])
     x = torch.from_numpy(smooth(np.random.default_rng(3), (1, 24, 16, 1)))
-    want = make_predict_fn(model, device="cpu")(x)
-    _close(make_predict_fn(model, mesh=mesh)(x), want, "FCN-CA, 12-row slabs")
+    f64 = torch.float64
+    want = make_predict_fn(model, device="cpu", input_dtype=f64)(x)
+    assert want.dtype == f64
+    _close(make_predict_fn(model, mesh=mesh, input_dtype=f64)(x), want,
+           "FCN-CA, 12-row slabs")
     conv = Conv2d(1, 1, 3, stride=2, padding=1)
     x = _x((1, 1, 5, 4))
     with spatial.active(spatial.ThreadComm(spatial.ThreadExchange(1), 0,

@@ -17,7 +17,8 @@ through the port's wrappers. ``--plan`` times the current kernels once
 more for each SPEC, ``NAME=VALUE[,NAME=VALUE]`` of the plan's constants
 in ``kernels/bn_act.py`` (``STATS_BLOCKS``, ``RED_MIN_TRIPS``, ...) set
 while they run. Each ``--also`` DIR holds another version of the current
-``bn_act.cu`` (the current entry points), built the same way and called
+``bn_act.cu`` (the current entry points) beside the ``train_common.cuh``
+it includes, built the same way and called
 through the same wrappers, under its SPEC where one is given (the
 constants it was built with: ``GROUP_LANES``, ``RED_BYTES``).
 
