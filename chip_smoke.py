@@ -126,7 +126,17 @@ only (no JAX, nothing of ``insarseg``) and:
    window, each kernel timed on the U-Net-CA and FCN-CA calls against its
    bound (``se_kernel_rows``), and the whole tail of each of those steps,
    forward and backward, in turns with the torch-op route it replaced
-   (``se_route_turns``).
+   (``se_route_turns``); and K12a-K13b (the spatial-attention gate in
+   train mode, ``csrc/sa_train.cu``): their results against their plain
+   versions at fixed shapes (``SA_SHAPES``: bf16, f32 and f64, both
+   layouts, C 1 / 7 / 128 / 2048, 1x1 and odd maps, ties in the channel
+   max), then the four spatial-attention cells' bf16 512^2 steps
+   (``SA_TRAIN``: U-Net-SA b8, 4 launches of each kernel; DeepLabV3-SA,
+   FCN-SA and PSPNet-SA b2, 1 each), every call of every train kernel
+   checked, each kernel timed on the U-Net-SA and FCN-SA calls against
+   its bound (``train_sa``), U-Net-SA's kernel ms a step from a profiler
+   window, and the gates with their middles, forward and backward, in
+   turns with the torch-op route they replaced (``sa_route_turns``).
    ``python3 chip_smoke.py --only train`` builds the kernels and runs
    this phase alone;
 6. runs the commands users run (``insarseg_torch.cli``, on the card) on
@@ -241,7 +251,10 @@ only (no JAX, nothing of ``insarseg``) and:
    (480^2), FCN-ResNet50-CA, DeepLabV3-ResNet50 and PSPNet-ResNet50-CA
    (500^2), f32 within the bars above, bf16 counted; the fixed-shape
    K8a-K9b checks hold slabs of 0, 1, 7 and 15 rows (``BN_SLAB_SHAPES``),
-   K10a-K11b's slabs of 0, 1 and 7 rows (``SE_SLAB_SHAPES``);
+   K10a-K11b's and K12a-K13b's slabs of 0, 1 and 7 rows
+   (``SE_SLAB_SHAPES``, ``SA_SLAB_SHAPES``: K12a-K13b launch nothing on
+   a slab of no row), and every K12a-K13b call of the ranks' U-Net-SA
+   f32 steps is checked;
    with more cards U-Net-CA's NCCL bf16 step at 1 x 4 and 496^2 against
    one card and its peak a card at 992^2 against 1024^2.
    ``python3 chip_smoke.py --only spatial`` builds the kernels and runs
@@ -2478,19 +2491,23 @@ def check_bn_fixed_shapes(dev, shapes=None) -> None:
 @contextlib.contextmanager
 def checked_train_calls(checked, record=None):
     """While open, every call of K8a-K9b (through ``kernels/bn_act.py``, as
-    ``bn_relu_train`` makes them) and of K10a-K11b (through
-    ``kernels/se_train.py``, as ``se_train`` makes them) is held against
-    its plain version on the same inputs (``bn_check_call``,
-    ``se_check_call``), into ``checked`` as ``checked_calls`` gathers;
-    with ``record``, each call's arguments are kept there by kernel
-    name."""
+    ``bn_relu_train`` makes them), of K10a-K11b (through
+    ``kernels/se_train.py``, as ``se_train`` makes them) and of K12a-K13b
+    (through ``kernels/sa_train.py``, as ``sa_tail`` makes them) is held
+    against its plain version on the same inputs (``bn_check_call``,
+    ``se_check_call``, ``sa_check_call``), into ``checked`` as
+    ``checked_calls`` gathers; with ``record``, each call's arguments are
+    kept there by kernel name."""
     from insarseg_torch.kernels import bn_act as B
+    from insarseg_torch.kernels import sa_train as A
     from insarseg_torch.kernels import se_train as S
 
     def on_call(n, a, out):
         t0 = time.perf_counter()
         bn = n in BN_KERNELS
-        e, nd, ne = (bn_check_call if bn else se_check_call)(n, dict(a), out)
+        check = bn_check_call if bn else \
+            sa_check_call if n in SA_KERNELS else se_check_call
+        e, nd, ne = check(n, dict(a), out)
         c = checked.setdefault(n, {
             "calls": 0, "batches": set(), "max_abs_err": 0.0,
             "differing": 0, "elements": 0, "seconds": 0.0})
@@ -2506,7 +2523,8 @@ def checked_train_calls(checked, record=None):
             record.setdefault(n, []).append(a)
 
     with spying([B], BN_KERNELS, on_call, keep=IN_PLACE), \
-            spying([S], SE_KERNELS, on_call):
+            spying([S], SE_KERNELS, on_call), \
+            spying([A], SA_KERNELS, on_call):
         yield
 
 
@@ -3087,6 +3105,454 @@ def se_kernel_rows(se_calls, launches, checked, power_line) -> list:
     return rows
 
 
+# K12a-K13b (csrc/sa_train.cu, kernels/sa_train.py): the spatial-attention
+# gate in train mode, U-Net-SA's SpatialAttentionDC (4 gates a step, a
+# DoubleConv(2 -> 1) middle) and the -SA heads' SpatialAttentionConv (one a
+# step, a 7x7 conv middle). kernel name -> (wrapper, the JAX site it
+# replaces)
+SA_KERNELS = {
+    "sa_pool": ("sa_pool", "insarseg/ops/blocks.py:152"),
+    "sa_apply": ("sa_apply", "insarseg/ops/blocks.py:156"),
+    "sa_grad_stats": ("sa_grad_stats", "insarseg/ops/blocks.py:156"),
+    "sa_grad_apply": ("sa_grad_apply", "insarseg/ops/blocks.py:152"),
+}
+# every train kernel whose calls ``checked_train_calls`` holds
+CHECKED_TRAIN_KERNELS = TRAIN_KERNELS + tuple(SA_KERNELS)
+# The bars of K12a-K13b against their plain versions on the same inputs.
+# K12a's mean and K13a's sums come from f64 sums taken in another order
+# than torch's (in bf16 and f32 every term is exact there; in f64 the terms
+# round): K13a's (B, H, W) buffer within SA_SUM_BAR of its largest |value|,
+# K12a's mean within SA_SUM_BAR in f64 and, in f32 and bf16, within one
+# ulp of the element (a sum that moves by 1e-16 can cross a rounding
+# boundary; the differing elements are counted). K12a's max and count are
+# exact: equal. K12b and K13b compute each element as their plain versions
+# do, one rounding an op in the same order: equal.
+SA_SUM_BAR = 1e-12
+# the largest reading of the sums' bar in this run: name -> |delta| / max
+SA_WORST = {}
+# fixed shapes (B, C, H, W, dtype, channels-last): U-Net-SA's four gates
+# (bf16 512^2 b8) and the -SA heads' (bf16 512^2 b2: C 256 and 2048), f32
+# and f64 sites in both layouts, C 1 and 7 (no vectors along C), odd maps
+# (no vectors along H W), 1x1 maps; every input with ties in the channel
+# max (``sa_inputs``)
+SA_SHAPES = (
+    (8, 128, 512, 512, "bfloat16", False),
+    (8, 128, 512, 512, "bfloat16", True),
+    (8, 256, 256, 256, "bfloat16", False),
+    (8, 512, 128, 128, "bfloat16", True),
+    (8, 1024, 64, 64, "bfloat16", False),
+    (8, 1024, 64, 64, "bfloat16", True),
+    (2, 256, 64, 64, "bfloat16", False),
+    (2, 2048, 64, 64, "bfloat16", False),
+    (2, 2048, 64, 64, "bfloat16", True),
+    (4, 128, 128, 128, "float32", False),
+    (4, 128, 128, 128, "float32", True),
+    (2, 2048, 16, 16, "float32", True),
+    (3, 7, 17, 19, "bfloat16", True),
+    (3, 7, 17, 19, "float32", False),
+    (4, 1, 32, 32, "bfloat16", False),
+    (4, 1, 32, 32, "float64", True),
+    (4, 48, 1, 1, "bfloat16", False),
+    (4, 32, 1, 1, "float32", True),
+    (2, 64, 9, 9, "float64", False),
+    (2, 64, 9, 9, "float64", True),
+    (2, 2048, 16, 16, "float64", False),
+    (2, 2048, 16, 16, "float64", True),
+)
+# a spatial mesh's slabs of 0, 1 and 7 rows
+SA_SLAB_SHAPES = tuple(
+    (8, 128, rows, 124, dtype, cl) for rows in (0, 1, 7)
+    for dtype, cl in (("bfloat16", True), ("float32", False)))
+# passes over the (B, C, H, W) operand each kernel makes (reads and writes)
+SA_PASSES = {"sa_pool": 1, "sa_apply": 2, "sa_grad_stats": 2,
+             "sa_grad_apply": 3}
+# the kernels' device names (csrc/sa_train.cu): sa_reduce_* <..., false>
+# K12a, <..., true> K13a; sa_apply_* likewise K12b, K13b
+SA_DEVICE = {("reduce", "false"): "sa_pool", ("apply", "false"): "sa_apply",
+             ("reduce", "true"): "sa_grad_stats",
+             ("apply", "true"): "sa_grad_apply"}
+# the steps that train through the gates (bf16, 512^2): (label, model,
+# batch, gates a step)
+SA_TRAIN = (("U-Net-SA", "unet", BATCH, 4),
+            ("DeepLabV3-ResNet50-SA", "deeplabv3", 2, 1),
+            ("FCN-ResNet50-SA", "fcn", 2, 1),
+            ("PSPNet-ResNet50-SA", "pspnet", 2, 1))
+# the steps whose calls time the kernels and the tail in turns
+SA_TIMED = ("U-Net-SA", "FCN-ResNet50-SA")
+
+
+def sa_compare(name):
+    """The comparison of kernel ``name``'s result with its plain version's:
+    (max |delta|, differing elements, elements); raises past the bars."""
+    import torch
+
+    def check_like(got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+
+    def pool(got, want):
+        (gm, gc), (wm, wc) = got, want
+        check_like(gm, wm)
+        check_like(gc, wc)
+        if not torch.equal(gm[:, 1], wm[:, 1]) or not torch.equal(gc, wc):
+            raise AssertionError(f"{name}: the max or its count differs")
+        if not wm.numel():
+            return 0.0, 0, 0
+        d = (gm[:, 0].double() - wm[:, 0].double()).abs()
+        w = wm[:, 0].double().abs()
+        big = max(float(w.max()), 1e-300)
+        tol = torch.full_like(w, SA_SUM_BAR * big)
+        if wm.dtype != torch.float64:
+            ulp = torch.finfo(wm.dtype).eps * torch.exp2(torch.floor(
+                torch.log2(w.clamp_min(1e-300))))
+            tol = torch.maximum(tol, ulp)
+        e = float(d.max())
+        SA_WORST[name] = max(SA_WORST.get(name, 0.0), e / big)
+        if bool((d > tol).any()):
+            raise AssertionError(f"{name}: the mean {e:.3g} apart, past its "
+                                 "bar")
+        return e, int((d > 0).sum()), d.numel()
+
+    def sums(got, want):
+        check_like(got, want)
+        if not want.numel():
+            return 0.0, 0, 0
+        e = float((got - want).abs().max())
+        big = float(want.abs().max())
+        SA_WORST[name] = max(SA_WORST.get(name, 0.0), e / max(big, 1e-300))
+        if e > SA_SUM_BAR * big:
+            raise AssertionError(f"{name}: sums {e:.3g} apart, over "
+                                 f"{SA_SUM_BAR} x {big:.3g}")
+        return e, int((got != want).sum()), got.numel()
+
+    return {"sa_pool": pool, "sa_grad_stats": sums}.get(name, compare)
+
+
+def sa_check_call(name, args, out=None):
+    """Kernel ``name`` on ``args`` (run here unless ``out`` is given)
+    against its plain version on the same inputs. Returns (max |delta|,
+    differing, elements)."""
+    from insarseg_torch.kernels import sa_train as S
+
+    if out is None:
+        out = getattr(S, name)(**args)
+    return sa_compare(name)(out, getattr(S, name + "_plain")(**args))
+
+
+def sa_inputs(dev, b, c, h, w, dtype, channels_last, seed):
+    """Seeded x (B, C, H, W) with ties in its channel max (every 7th pixel
+    all zero, as after a ReLU; at every 5th the max copied into a second
+    channel; in bf16 also the rounding's own duplicates), dout, a gate (B,
+    H, W) in (0, 1) and the middle's input cotangent dm (B, 2, H, W), in
+    the compute dtype."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def image(shift=0.0):
+        return (torch.randn((b, c, h, w), generator=g, device=dev)
+                + shift).to(dt)
+
+    x = image(0.3)
+    pix = torch.arange(h * w, device=dev).view(1, 1, h, w)
+    ch = torch.arange(c, device=dev).view(1, c, 1, 1)
+    if x.numel():
+        x = torch.where((pix % 5 == 0) & (ch == (pix * 31) % c),
+                        x.amax(dim=1, keepdim=True), x)
+    x = torch.where(pix % 7 == 3, torch.zeros_like(x), x)
+    dout = image()
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+        dout = dout.contiguous(memory_format=torch.channels_last)
+    return {"x": x, "dout": dout,
+            "gate": torch.rand((b, h, w), generator=g, device=dev).to(dt),
+            "dm": (torch.randn((b, 2, h, w), generator=g, device=dev)
+                   * 0.1).to(dt)}
+
+
+def sa_steps(a):
+    """Argument sets of the four kernels on one site's inputs ``a``, K13b's
+    max and count from the plain K12a."""
+    from insarseg_torch.kernels import sa_train as S
+
+    m, count = S.sa_pool_plain(a["x"])
+    return {
+        "sa_pool": {"x": a["x"]},
+        "sa_apply": {"x": a["x"], "gate": a["gate"]},
+        "sa_grad_stats": {"dy": a["dout"], "x": a["x"]},
+        "sa_grad_apply": {"dy": a["dout"], "x": a["x"], "gate": a["gate"],
+                          "m": m, "count": count, "dm": a["dm"]},
+    }
+
+
+def check_sa_fixed_shapes(dev, shapes=None) -> None:
+    """K12a-K13b against their plain versions on the same inputs at fixed
+    shapes (``SA_SHAPES`` and ``SA_SLAB_SHAPES``: bf16, f32 and f64, NCHW
+    and channels-last, C 1 / 7 / 128 / 2048, 1x1 maps, odd maps, a
+    spatial mesh's slabs of 0, 1 and 7 rows, ties in the channel max),
+    each kernel run twice and bit-equal to itself; a slab of no row
+    launches nothing and returns empty results."""
+    import torch
+    from insarseg_torch import kernels as K
+    from insarseg_torch.kernels import sa_train as S
+
+    worst = {k: [0.0, 0, 0] for k in SA_KERNELS}
+    ties = 0
+    for i, shape in enumerate(shapes or SA_SHAPES):
+        b, c, h, w, dtype, cl = shape
+        a = sa_inputs(dev, b, c, h, w, dtype, cl, SEED + 290 + i)
+        K.reset_launches()
+        steps = sa_steps(a)
+        ties += int((steps["sa_grad_apply"]["count"] > 1).sum())
+        for name, args in steps.items():
+            e, nd, ne = sa_check_call(name, args)
+            wk = worst[name]
+            wk[0], wk[1], wk[2] = max(wk[0], e), wk[1] + nd, wk[2] + ne
+            first = getattr(S, name)(**args)
+            second = getattr(S, name)(**args)
+            if not _same_result(first, second):
+                raise AssertionError(f"{name} on {shape} differs between "
+                                     "two runs")
+        torch.cuda.synchronize()
+        launched = {k: K.LAUNCHES[k] for k in SA_KERNELS}
+        if h == 0 and any(launched.values()):
+            raise AssertionError(f"sa_train on a slab of no row ({shape}) "
+                                 f"launched {launched}")
+        if h and any(n != 3 for n in launched.values()):
+            raise AssertionError(f"sa_train on {shape}: launches {launched}")
+        p = S.plan(a["x"])
+        log(f"  sa_train {b}x{c}x{h}x{w} {dtype} "
+            f"{'channels-last' if cl else 'NCHW'}: vec {p.vec}, "
+            f"{'lanes a pixel' if p.layout else 'channel slices'} "
+            f"{p.split}; kernels == plain within the bars, two runs "
+            "bit-equal")
+        del a, steps
+    torch.cuda.synchronize()
+    log("K12a-K13b against their plain versions at fixed shapes (max "
+        "|delta|, differing, elements): " + json.dumps(worst)
+        + f"; pixels with a tied max {ties}; the sums' largest |delta| / "
+        "max|value| " + json.dumps(SA_WORST))
+
+
+def sa_cases(calls, path):
+    """Timing cases of K12a-K13b on the arguments one train step gave
+    them (``kernel_row``'s), with PyTorch's own call where one computes
+    the function: ``torch.mul`` by the gate for K12b (its value bit for
+    bit) and ``torch.linalg.vecdot`` over C for K13a (its sums in cdt);
+    none for K12a (a mean, a max and its ties) and K13b (three cotangents
+    in four roundings)."""
+    import torch
+    from insarseg_torch.kernels import sa_train as S
+
+    cases = {}
+    for name, args in calls.items():
+        cases[name] = []
+        for a in args:
+            a = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                 for k, v in a.items()}
+            x = a["x"]
+            b, c, h, w = x.shape
+            es, px = x.element_size(), b * h * w
+            maps = {"sa_pool": 2 * es + 4, "sa_apply": es,
+                    "sa_grad_stats": 8, "sa_grad_apply": 4 * es + 4}[name]
+            lib = None
+            if name == "sa_apply":
+                lib = lambda x=x, g=a["gate"]: torch.mul(  # noqa: E731
+                    x, g[:, None])
+            elif name == "sa_grad_stats":
+                lib = lambda x=x, d=a["dy"]: torch.linalg.vecdot(  # noqa
+                    d, x, dim=1)
+            layout = "channels-last" if S.layout_of(x) else "NCHW"
+            cases[name].append({
+                "shape": f"b{b} {c}x{h}x{w} {str(x.dtype)[6:]} {layout}",
+                "kernel": lambda n=name, a=a: getattr(S, n)(**a),
+                "plain": lambda n=name, a=a: getattr(S, n + "_plain")(**a),
+                "compare": sa_compare(name), "lib": lib, "path": path,
+                "ops": 3.0 * x.numel(), "peak": PEAK_F32,
+                "bytes": SA_PASSES[name] * x.numel() * es + maps * px})
+    return cases
+
+
+def sa_device_ms(prof, steps: int) -> dict:
+    """K12a-K13b's device ms a step in a profiler window of ``steps``
+    steps, by kernel."""
+    import re
+
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\bsa_(reduce|apply)_n(?:chw|hwc)<[^<>]*"
+                      r"\b(true|false)>", e.key)
+        if m is None:
+            continue
+        k = SA_DEVICE[m.group(1), m.group(2)]
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        out[k] = out.get(k, 0.0) + us / steps / 1e3
+    return out
+
+
+def sa_torch_route(x, middle):
+    """The gate as the port ran it before K12a-K13b, in torch ops under
+    autograd: the channel mean and max, the middle, the sigmoid, the
+    rescale."""
+    import torch
+    from insarseg_torch.ops.blocks import _mean_max
+
+    return x * torch.sigmoid(middle(_mean_max(x)))
+
+
+def sa_route_turns(sites, label, power_line, reps: int = 1) -> dict:
+    """The spatial-attention tails of one step, forward and backward at
+    their recorded sites ((x, dout, middle): the step's own tensors and
+    the model's own middles), through ``sa_tail`` (K12a-K13b) and through
+    the torch-op route it replaced (``sa_torch_route``), in turns
+    (kernels, torch, torch, kernels): device ms and the host's ms queueing
+    it, a step (``device_ms``), the best of each route's turns."""
+    import torch
+    from insarseg_torch.kernels.sa_train import sa_tail
+
+    params = [[p for p in mid.parameters()] for _, _, mid in sites]
+
+    def step(route):
+        def run():
+            for (x, dout, mid), ps in zip(sites, params):
+                xs = x.detach().requires_grad_(True)
+                torch.autograd.grad(route(xs, mid), [xs] + ps, dout,
+                                    allow_unused=True)
+        return run
+
+    routes = {"kernels": step(sa_tail), "torch": step(sa_torch_route)}
+    ms = {r: [] for r in routes}
+    host = {r: [] for r in routes}
+    for r in ("kernels", "torch", "torch", "kernels"):
+        dms, hus = device_ms(routes[r], reps=reps)
+        ms[r].append(dms)
+        host[r].append(hus / 1e3)
+    res = {"ms": {r: min(v) for r, v in ms.items()}, "turns": ms,
+           "host_ms": {r: min(v) for r, v in host.items()},
+           "sites": len(sites)}
+    log(f"  {label}: the spatial-attention tails of a step, forward and "
+        f"backward at its {len(sites)} sites with their middles, K12a-K13b "
+        "against the torch-op route in turns, device ms " + json.dumps(ms)
+        + ", host ms queueing them " + json.dumps(host)
+        + f"; on {power_line}")
+    return res
+
+
+def sa_train_step(dev, name, batch):
+    """(state, step, image, mask, the gates' middles in call order) of a
+    spatial-attention cell's bf16 train step at ``HW``^2 on the card."""
+    import torch
+    from insarseg_torch.data.synthetic import synthetic_batch
+    from insarseg_torch.models.unet import UNet
+    from insarseg_torch.train.engine import create_state, make_train_step
+
+    if name != "unet":
+        state, step, x, m = resnet_train_step(dev, name, "spatial", HW,
+                                              batch)
+        model = state.model
+        gate = getattr(model, "attention_module", None) or \
+            model.spatial_attention
+        return state, step, x, m, [gate.conv]
+    model = UNet(num_classes=2, base_features=BASE, use_sa=True)
+    state = create_state(model, seed=SEED, device=dev)
+    step = make_train_step(model, 2, compute_dtype=torch.bfloat16)
+    data = synthetic_batch(batch, HW, seed=SEED + 36)
+    return (state, step, torch.from_numpy(data["image"]).to(dev),
+            torch.from_numpy(data["mask"]).to(dev),
+            [getattr(model, f"sa{i}").compress_and_map for i in range(1, 5)])
+
+
+def train_sa(dev, power_line) -> list:
+    """The spatial-attention cells' bf16 train steps at 512^2
+    (``SA_TRAIN``: U-Net-SA b8, DeepLabV3-SA, FCN-SA and PSPNet-SA b2),
+    each with the launch counters set to 0 just before and read just
+    after (the main path of K12a-K13b), every K8a-K13b call held against
+    its plain version (``checked_train_calls``): each of K12a-K13b
+    launched once a gate (4 in U-Net-SA, 1 in a head), every launch of
+    every train kernel checked. For ``SA_TIMED`` each kernel timed on the
+    calls (``kernel_row``: device ms, host us, plain, library, bound) and
+    the tails in turns with the torch-op route (``sa_route_turns``); for
+    U-Net-SA K12a-K13b's device ms a step from a profiler window of two
+    steps and its idle share. Returns K12a-K13b's four rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insarseg_torch import kernels as K
+
+    sa_calls, launches, checked, turns, step_ms = {}, {}, {}, {}, {}
+    for label, name, batch, gates in SA_TRAIN:
+        state, step, x, m, middles = sa_train_step(dev, name, batch)
+        step(state, x, m)
+        torch.cuda.synchronize()
+        calls, ck = {}, {}
+        K.reset_launches()
+        with checked_train_calls(ck, calls):
+            step(state, x, m)
+        torch.cuda.synchronize()
+        n = {k: K.LAUNCHES[k] for k in CHECKED_TRAIN_KERNELS}
+        log(f"bf16 train step {label}, {HW}^2 b{batch}: K8a-K13b launches "
+            f"{n}; every call held against its plain version "
+            + json.dumps(ck, default=sorted) + "; the sums' largest readings "
+            + json.dumps(SA_WORST))
+        for k, c in n.items():
+            if k in SA_KERNELS and c != gates:
+                raise AssertionError(f"{label}: {k} launched {c} times, "
+                                     f"expected {gates}")
+            if ck.get(k, {}).get("calls", 0) != c:
+                raise AssertionError(f"{label}: {k}: {c} launches, "
+                                     f"{ck.get(k, {}).get('calls')} checked")
+        if any(n[k] == 0 for k in BN_KERNELS):
+            raise AssertionError(f"{label}: a BatchNorm kernel never ran")
+        launches[label] = {k: n[k] for k in SA_KERNELS}
+        checked[label] = {k: ck[k] for k in SA_KERNELS}
+        if label in SA_TIMED:
+            sa_calls[label] = {k: calls.pop(k) for k in SA_KERNELS}
+            ptr = {a["x"].data_ptr(): a["dy"]
+                   for a in sa_calls[label]["sa_grad_stats"]}
+            sites = [(a["x"], ptr[a["x"].data_ptr()], mid) for a, mid in
+                     zip(sa_calls[label]["sa_apply"], middles)]
+            turns[label] = sa_route_turns(sites, label, power_line)
+            del sites, ptr
+        if name == "unet":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(state, x, m)
+                torch.cuda.synchronize()
+            step_ms[label] = sa_device_ms(prof, 2)
+            idle = device_idle_share(prof)
+            log(f"  {label} bf16 step under the profiler (2 steps): "
+                f"K12a-K13b device ms a step {json.dumps(step_ms[label])}, "
+                f"{sum(step_ms[label].values()):.4f} in all; device idle "
+                f"{idle}; on {power_line}")
+        del state, step, x, m, middles, calls
+        torch.cuda.empty_cache()
+    log(f"each K12a-K13b call of the {' and '.join(SA_TIMED)} bf16 steps "
+        f"timed on its tensors, on {power_line}:")
+    rows = []
+    for kname, (wrapper, replaces) in SA_KERNELS.items():
+        cases = []
+        for cell, calls in sa_calls.items():
+            cases += sa_cases({wrapper: calls[wrapper]}, cell)[wrapper]
+        row = kernel_row(kname, "insarseg_torch/csrc/sa_train.cu", replaces,
+                         cases)
+        row["train_launches_by_step"] = {c: v[kname]
+                                         for c, v in launches.items()}
+        row["launches"] = row["train_launches"] = sum(
+            v[kname] for v in launches.values())
+        row["train_checked"] = sum(c[kname]["calls"]
+                                   for c in checked.values())
+        row["device_ms_a_step"] = {c: v.get(kname)
+                                   for c, v in step_ms.items()}
+        rows.append(row)
+    rows[0]["tail_turns"] = turns
+    del sa_calls
+    torch.cuda.empty_cache()
+    return rows
+
+
 # The ResNet families' train steps on K8a-K9b, one call a BatchNorm in the
 # mode of what follows it (kernels/bn_act.py::MODES): (label, model,
 # attention, batch) at 512^2, bf16, and each cell's calls by mode.
@@ -3372,7 +3838,7 @@ def bn_sass_counts(sass=None) -> dict:
 
 
 def train_path(dev, power_line: str, phase) -> list:
-    """Phase 5; returns the rows of K8a-K11b."""
+    """Phase 5; returns the rows of K8a-K13b."""
     import torch
 
     bn_kernel_info()
@@ -3395,6 +3861,12 @@ def train_path(dev, power_line: str, phase) -> list:
     torch.cuda.empty_cache()
     phase("training: K10a-K11b timed on the steps' calls, the SE tail in "
           "turns with the torch-op route")
+    check_sa_fixed_shapes(dev)
+    phase("training: K12a-K13b against their plain versions at fixed shapes")
+    sa_rows = train_sa(dev, power_line)
+    phase("training: K12a-K13b through the spatial-attention cells' bf16 "
+          "steps, checked and timed; the gate in turns with the torch-op "
+          "route")
     turns = resnet_step_turns(dev, power_line)
     for row in rows:
         k = row["name"]
@@ -3434,7 +3906,7 @@ def train_path(dev, power_line: str, phase) -> list:
     phase("training: bf16 steps and fit")
     remat_on_card(dev)
     phase("training: remat against no remat on the card")
-    return rows + se_rows
+    return rows + se_rows + sa_rows
 
 
 # The CLI phase: the commands users run, on files, through
@@ -4852,16 +5324,18 @@ def checked_steps(fn, *args, **kwargs):
         got = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return got, {k: [K.LAUNCHES[k], checked.get(k, {}).get("calls", 0)]
-                 for k in TRAIN_KERNELS}
+                 for k in CHECKED_TRAIN_KERNELS}
 
 
-def all_checked(label, counts, se: bool = False) -> None:
-    """Every K8a-K9b kernel launched (and with ``se``, every K10a-K11b
-    kernel: a cell with SE blocks) and each launch checked."""
-    log(f"  {label}: K8a-K11b [launches, checked calls] "
+def all_checked(label, counts, se: bool = False, sa: bool = False) -> None:
+    """Every K8a-K9b kernel launched (with ``se``, every K10a-K11b kernel:
+    a cell with SE blocks; with ``sa``, every K12a-K13b kernel: a cell
+    with spatial-attention gates) and each launch checked."""
+    log(f"  {label}: K8a-K13b [launches, checked calls] "
         + json.dumps(counts))
     for k, (n, c) in counts.items():
-        if n != c or (n == 0 and (se or k in BN_KERNELS)):
+        if n != c or (n == 0 and (k in BN_KERNELS or se and k in SE_KERNELS
+                                  or sa and k in SA_KERNELS)):
             raise AssertionError(f"{label}: {k} launched {n} times, "
                                  f"{c} calls checked")
 
@@ -4899,8 +5373,8 @@ def spatial_bf16_rank(batch, base, device, spatial: int):
 def spatial_gloo_rank(batches, fit_data, directory, base, device,
                       uneven=None):
     """The one-card spatial checks in one process a rank (world 2, 1 x 2):
-    U-Net-CA's and U-Net-SA's f32 SGD steps, the checked bf16 step and
-    ``fit`` with its resume; the ResNet cells' f32 SGD steps
+    U-Net-CA's and U-Net-SA's f32 SGD steps (U-Net-SA's checked), the
+    checked bf16 step and ``fit`` with its resume; the ResNet cells' f32 SGD steps
     (``SPATIAL_RESNETS``); on the ``uneven`` batches (``UNEVEN_TRAIN``^2)
     U-Net-CA's and ``UNEVEN_RESNETS``' f32 SGD steps and the checked bf16
     step."""
@@ -4917,8 +5391,8 @@ def spatial_gloo_rank(batches, fit_data, directory, base, device,
                 resnet=(name, attention))
         torch.cuda.empty_cache()
     out.update({"ca": mesh_sgd_rank(batches, base, device, spatial=2),
-                "sa": mesh_sgd_rank(batches, base, device, spatial=2,
-                                    attention="spatial"),
+                "sa": checked_steps(mesh_sgd_rank, batches, base, device,
+                                    spatial=2, attention="spatial"),
                 "bf16": spatial_bf16_rank(batches[0], base, device, 2),
                 "fit": mesh_fit_rank(*fit_data, directory, base, device,
                                      spatial=2)})
@@ -4935,9 +5409,10 @@ def spatial_training(dev) -> dict:
     ``SPATIAL_RESNETS`` (dropout off), ``SPATIAL_TRAIN``, f32, TF32 off,
     held to one process's SGD steps at ``MESH_BARS`` (``mesh_hold``;
     each count may move by at most the one process's near-tie pixels,
-    ``TIE_BAR``); the bf16 step's every K8a-K11b call held against its
-    plain version, its launches a rank equal to the one-card step's; a
-    2-epoch ``fit`` with a resume (finite, the ranks equal). At slabs of
+    ``TIE_BAR``), every K8a-K13b call of the ranks' U-Net-SA steps held
+    against its plain version; the bf16 step's every K8a-K11b call held
+    against its plain version, its launches a rank equal to the one-card
+    step's; a 2-epoch ``fit`` with a resume (finite, the ranks equal). At slabs of
     any height (``UNEVEN_TRAIN``^2: 250-row slabs) U-Net-CA's and
     ``UNEVEN_RESNETS``' f32 steps held likewise and the bf16 step checked
     likewise. Returns the two bf16 steps' launches a rank (512^2,
@@ -4968,6 +5443,10 @@ def spatial_training(dev) -> dict:
         log(f"  launch world 2 (gloo, data 1 x spatial 2 on one card): "
             f"{time.perf_counter() - t0:.1f} s")
         files = sorted(os.listdir(d))
+    for i, r in enumerate(ranks):
+        r["sa"], counts = r["sa"]
+        all_checked(f"spatial 2 rank {i} U-Net-SA f32 steps", counts,
+                    sa=True)
     for attention, key in (("channel", "ca"), ("spatial", "sa")):
         _same_state(ranks[0][key][1][-1], ranks[1][key][1][-1],
                     f"the ranks' {key} states")
@@ -5431,6 +5910,8 @@ def spatial_path(dev, power_line: str, phase) -> dict:
     phase("spatial: K8a-K9b on slabs of 0, 1, 7 and 15 rows")
     check_se_fixed_shapes(dev, SE_SLAB_SHAPES)
     phase("spatial: K10a-K11b on slabs of 0, 1 and 7 rows")
+    check_sa_fixed_shapes(dev, SA_SLAB_SHAPES)
+    phase("spatial: K12a-K13b on slabs of 0, 1 and 7 rows")
     launches, uneven = spatial_training(dev)
     phase("spatial: launch world 2 on one card (f32 steps, bf16 steps, fit; "
           "even and uneven slabs)")

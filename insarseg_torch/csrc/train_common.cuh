@@ -1,5 +1,6 @@
-// The pieces the train-mode kernels share: K8a-K9b (bn_act.cu) and
-// K10a-K11b (se_train.cu). The codes of the compute dtype, its acc type
+// The pieces the train-mode kernels share: K8a-K9b (bn_act.cu),
+// K10a-K11b (se_train.cu) and K12a-K13b (sa_train.cu). The codes of the
+// compute dtype, its acc type
 // (f32, f64 for f64 input), the arithmetic of one rounding an operation
 // (no contraction into an FMA), the conversions between the two, 16-byte
 // vector loads and stores, and the counter that finds the last block of a
@@ -46,6 +47,12 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
 }
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
 }
 
 template <typename T>

@@ -43,6 +43,15 @@ K10b  ``se_excite``                their rescale ``x * gate``, and for
 K11a  ``se_grad_stats``            their autodiff: the gate's cotangent
 K11b  ``se_grad_apply``            their autodiff: x's gradient (and the
                                    identity's)
+K12a  ``sa_pool``                  ``ops/blocks.py`` ``SpatialAttentionDC``
+                                   / ``SpatialAttentionConv`` train pool:
+                                   the channel mean and max (and the max's
+                                   ties)
+K12b  ``sa_apply``                 their rescale ``x * gate``
+K13a  ``sa_grad_stats``            their autodiff: the gate's cotangent
+K13b  ``sa_grad_apply``            their autodiff: x's gradient (the
+                                   rescale's, the max's and the mean's
+                                   cotangents in one pass)
 ====  ==========================  =========================================
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -53,7 +62,8 @@ tensor cores and is held to its plain version by a counted bar on its codes
 path's, with the autograd function ``bn_relu_train``) sum in another
 order than their plain versions; so do K10a-K11b (``kernels/se_train.py``,
 the train path's squeeze-excite tail, with the autograd function
-``se_train.se_train``).
+``se_train.se_train``) and K12a-K13b (``kernels/sa_train.py``, the train
+path's spatial-attention gate, through ``sa_train.sa_tail``).
 """
 
 from insarseg_torch.kernels._lib import (
@@ -93,6 +103,16 @@ from insarseg_torch.kernels.sa_i8 import (
     sa_gate_i8_plain,
     sa_stats_i8,
     sa_stats_i8_plain,
+)
+from insarseg_torch.kernels.sa_train import (
+    sa_apply,
+    sa_apply_plain,
+    sa_grad_apply,
+    sa_grad_apply_plain,
+    sa_grad_stats,
+    sa_grad_stats_plain,
+    sa_pool,
+    sa_pool_plain,
 )
 from insarseg_torch.kernels.se_i8 import (
     se_excite_i8,
@@ -138,4 +158,7 @@ __all__ = [
     "se_squeeze", "se_squeeze_plain", "se_excite", "se_excite_plain",
     "se_grad_stats", "se_grad_stats_plain", "se_grad_apply",
     "se_grad_apply_plain",
+    "sa_pool", "sa_pool_plain", "sa_apply", "sa_apply_plain",
+    "sa_grad_stats", "sa_grad_stats_plain", "sa_grad_apply",
+    "sa_grad_apply_plain",
 ]

@@ -33,7 +33,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("int8_conv3x3.cu", "se_i8.cu", "maxpool2x2_i8.cu", "conv_i8.cu",
            "block_i8.cu", "sa_i8.cu", "up_i8.cu", "stem_i8.cu",
-           "bn_act.cu", "se_train.cu")
+           "bn_act.cu", "se_train.cu", "sa_train.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libinsarseg_kernels.so"
@@ -58,6 +58,10 @@ LAUNCHES: Dict[str, int] = {
     "se_excite": 0,
     "se_grad_stats": 0,
     "se_grad_apply": 0,
+    "sa_pool": 0,
+    "sa_apply": 0,
+    "sa_grad_stats": 0,
+    "sa_grad_apply": 0,
 }
 
 _vp, _i, _ll, _f, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -93,6 +97,10 @@ _SIGNATURES = {
     + (_i,) * 4 + (_vp,),
     "insarseg_se_grad_apply": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll)
     + (_i,) * 4 + (_vp,),
+    "insarseg_sa_pool": (_vp,) * 3 + (_ll, _ll) + (_i,) * 5 + (_vp,),
+    "insarseg_sa_apply": (_vp,) * 3 + (_ll, _ll) + (_i,) * 5 + (_vp,),
+    "insarseg_sa_grad_stats": (_vp,) * 3 + (_ll, _ll) + (_i,) * 5 + (_vp,),
+    "insarseg_sa_grad_apply": (_vp,) * 7 + (_ll, _ll) + (_i,) * 5 + (_vp,),
     "insarseg_bn_kernel_info": (_i, _vp),
     "insarseg_bn_kernel_launches": (_vp,),
 }
@@ -212,8 +220,8 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 # the codes of a float tensor's dtype in the train kernels (csrc/bn_act.cu,
-# csrc/se_train.cu: F32 / BF16 / F64), and the dtype of their per-channel
-# vectors (acc) for each
+# csrc/se_train.cu, csrc/sa_train.cu: F32 / BF16 / F64), and the dtype of
+# their per-channel vectors (acc) for each
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 ACC = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
        torch.float64: torch.float64}

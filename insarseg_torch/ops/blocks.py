@@ -21,8 +21,15 @@
   summed, sigmoid;
 - :class:`SpatialAttentionDC` (U-Net-SA): channel mean and max ->
   ``compress_and_map`` = DoubleConv(2 -> 1) -> sigmoid -> per-pixel rescale;
-- :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA, CBAM spatial):
-  channel mean and max -> ``conv`` (2 -> 1, k x k, no bias) -> sigmoid.
+- :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA / PSPNet-SA, CBAM
+  spatial): channel mean and max -> ``conv`` (2 -> 1, k x k, no bias) ->
+  sigmoid -> per-pixel rescale;
+- in train mode both spatial gates run as one
+  ``kernels/sa_train.py::sa_tail`` call around their middle (K12a / K12b
+  forward, K13a / K13b backward on the card; the DoubleConv's BatchNorms
+  on K8a-K9b). Under a spatial context it needs no collective: the channel
+  reductions stay within a pixel and the middle's convs take their own
+  halo rows. Eval mode runs the pool and the rescale in torch ops.
 
 Convs and linears are ``ops/layers.py``'s, in their input's dtype.
 """
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from insarseg_torch.kernels.sa_train import sa_tail
 from insarseg_torch.kernels.se_train import se_train
 from insarseg_torch.ops.layers import (
     Conv2d,
@@ -224,18 +232,22 @@ def _mean_max(x: torch.Tensor) -> torch.Tensor:
 
 
 class SpatialAttentionDC(nn.Module):
-    """x * sigmoid(DoubleConv(2 -> 1)([mean_c(x), max_c(x)]))."""
+    """x * sigmoid(DoubleConv(2 -> 1)([mean_c(x), max_c(x)])); in train
+    mode :func:`sa_tail`."""
 
     def __init__(self):
         super().__init__()
         self.compress_and_map = DoubleConv(2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return sa_tail(x, self.compress_and_map)
         return x * torch.sigmoid(self.compress_and_map(_mean_max(x)))
 
 
 class SpatialAttentionConv(nn.Module):
-    """x * sigmoid(conv([mean_c(x), max_c(x)])), kernel 3 or 7."""
+    """x * sigmoid(conv([mean_c(x), max_c(x)])), kernel 3 or 7; in train
+    mode :func:`sa_tail`."""
 
     def __init__(self, kernel_size: int = 7):
         super().__init__()
@@ -245,4 +257,6 @@ class SpatialAttentionConv(nn.Module):
                            bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return sa_tail(x, self.conv)
         return x * torch.sigmoid(self.conv(_mean_max(x)))

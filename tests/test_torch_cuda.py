@@ -31,7 +31,14 @@ channels-last, 1x1 and empty maps, channel counts that take no vectors
 and reductions of several slices: the f64 sums within 1e-12 of their
 largest value, K10b and K11b equal to their plain versions, K11a equal
 to itself on a second run; the train-mode ``DoubleConv(use_se=True)``
-launches each once and never a plain version.
+launches each once and never a plain version. The spatial-attention
+gate's K12a-K13b (``kernels/sa_train.py``) in bf16 / f32 / f64, NCHW and
+channels-last, C 1 / 7 / 64 / 2048, 1x1 and empty maps, ties in the
+channel max, at ``chip_smoke.py``'s bars (the mean and K13a's sums from
+f64 sums, the max and its count equal, K12b and K13b equal to their plain
+versions, every kernel equal to itself on a second run, an empty map
+launching nothing); the train-mode ``SpatialAttentionConv`` and
+``SpatialAttentionDC`` launch each once and never a plain version.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports nothing of
 JAX, so it runs where only the port is installed:
@@ -827,3 +834,51 @@ def test_se_train_equals_plain(dev, b, c, h, w, cl, dtype, mode):
     for a, e in zip(got if mode == "residual" else (got,),
                     want if mode == "residual" else (want,)):
         assert torch.equal(a, e)
+
+
+# K12a-K13b (kernels/sa_train.py): (B, C, H, W, channels-last); the
+# inputs (ties in the channel max) and bars are chip_smoke.py's
+SA_CASES = [(2, 64, 16, 16, False), (2, 64, 16, 16, True),
+            (3, 7, 5, 3, False), (3, 7, 5, 3, True), (2, 1, 8, 8, False),
+            (2, 32, 1, 1, True), (2, 64, 0, 8, True), (2, 2048, 8, 8, False),
+            (1, 128, 64, 64, True)]
+
+
+@pytest.mark.parametrize("b,c,h,w,cl", SA_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_sa_train_equals_plain(dev, b, c, h, w, cl, dtype):
+    import chip_smoke as C
+    from insarseg_torch.kernels import sa_train as S
+
+    a = C.sa_inputs(dev, b, c, h, w, dtype, cl, b * c + h + w)
+    before = dict(K.LAUNCHES)
+    for name, args in C.sa_steps(a).items():
+        got = getattr(S, name)(**args)
+        C.sa_compare(name)(got, getattr(S, name + "_plain")(**args))
+        assert C._same_result(got, getattr(S, name)(**args))
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in C.SA_KERNELS} == \
+        dict.fromkeys(C.SA_KERNELS, 2 if h else 0)
+
+
+@pytest.mark.parametrize("gate", ["conv", "double_conv"])
+def test_train_spatial_gates_launch_the_kernels(dev, monkeypatch, gate):
+    from insarseg_torch.kernels import sa_train as S
+    from insarseg_torch.ops.blocks import (
+        SpatialAttentionConv,
+        SpatialAttentionDC,
+    )
+
+    names = ("sa_pool", "sa_apply", "sa_grad_stats", "sa_grad_apply")
+    for name in names:
+        monkeypatch.setattr(S, name + "_plain", pytest.fail)
+    m = (SpatialAttentionConv(7) if gate == "conv"
+         else SpatialAttentionDC()).to(dev).train()
+    x = torch.randn(2, 64, 16, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = {k: K.LAUNCHES[k] for k in names}
+    m(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in names} == \
+        dict.fromkeys(names, 1)
+    assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()

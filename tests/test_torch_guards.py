@@ -32,7 +32,8 @@ def _imports(path: Path):
 def test_no_jax_or_insarseg_imports_in_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
         + sorted((ROOT / "tools").glob("*.py"))
-    for module in ("cli.py", "data/serve.py", "data/stitch.py"):
+    for module in ("cli.py", "data/serve.py", "data/stitch.py",
+                   "kernels/sa_train.py"):
         assert PORT / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]

@@ -38,9 +38,10 @@ JAX package, on inputs made with numpy from a seed, torch on one thread:
   never a plain version, and K11b writes the identity's gradient only in
   the residual mode (the launcher, stream and device checks stubbed: the
   CPU tests run with no card);
-- K8a-K9b (``csrc/bn_act.cu``) and K10a-K11b (``csrc/se_train.cu``) take
-  their dtype codes, arithmetic, vector loads and last-block counter from
-  one header, ``csrc/train_common.cuh``, whose codes are ``_lib.DTYPES``;
+- K8a-K9b (``csrc/bn_act.cu``), K10a-K11b (``csrc/se_train.cu``) and
+  K12a-K13b (``csrc/sa_train.cu``) take their dtype codes, arithmetic,
+  vector loads and last-block counter from one header,
+  ``csrc/train_common.cuh``, whose codes are ``_lib.DTYPES``;
   the reductions' cached workspace (``_lib.workspace``) is one pair a
   (device, stream) for each kernel family, grown and never shrunk.
 """
@@ -377,7 +378,7 @@ def test_train_kernels_share_one_header():
     assert m and tuple(map(int, m.groups())) == (
         _lib.DTYPES[torch.float32], _lib.DTYPES[torch.bfloat16],
         _lib.DTYPES[torch.float64])
-    for name in ("bn_act.cu", "se_train.cu"):
+    for name in ("bn_act.cu", "se_train.cu", "sa_train.cu"):
         code = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
         assert '#include "train_common.cuh"' in code, name
         for own in ("struct AccOf", "round_to(Acc", "void load(",
