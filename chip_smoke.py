@@ -111,22 +111,27 @@ only (no JAX, nothing of ``insarseg``) and:
    line with dout's layout, whether ``_like`` copied it and the kernels
    the wrapper launched; the sums by level); the fixed shapes hold every
    mode (relu, none, residual) and f64 (``BN_MODE_SHAPES``); then the
-   ResNet families' bf16 steps at 512^2 (``RESNET_TRAIN``: DeepLabV3 b8,
-   FCN-CA and PSPNet-CA b2), each BatchNorm one launch of each kernel in
+   ResNet families' bf16 steps at 512^2 (``RESNET_TRAIN``: DeepLabV3 and
+   DeepLabV3-CA b8, FCN-CA and PSPNet-CA b2), each BatchNorm one launch of each kernel in
    its mode (``RESNET_MODES``), every call checked, DeepLabV3's kernel ms
    by mode from a profiler window beside their bounds, and its step in
    turns with the library route it replaced (``resnet_step_turns``:
    cuDNN's BatchNorm, ``tools/bn_ab.py::library_route``) at bf16 512^2 and
    f32 128^2 b8 (ms, peak, idle); and K10a-K11b (the SE tail of the CA
-   cells in train mode, ``csrc/se_train.cu``): their results against
-   their plain versions at fixed shapes (``SE_SHAPES``: both modes, bf16,
-   f32 and f64, both layouts, 1x1 and odd maps), every call of the
-   U-Net-CA step (9 launches each) and of FCN-CA's and PSPNet-CA's
-   steps (16 each) checked, their device ms a step from a profiler
-   window, each kernel timed on the U-Net-CA and FCN-CA calls against its
-   bound (``se_kernel_rows``), and the whole tail of each of those steps,
-   forward and backward, in turns with the torch-op route it replaced
-   (``se_route_turns``); and K12a-K13b (the spatial-attention gate in
+   cells in train mode, ``csrc/se_train.cu``, and in their cbam mode
+   DeepLabV3-CA's CBAM channel gate): their results against their plain
+   versions at fixed shapes (``SE_SHAPES``: the three modes, bf16, f32
+   and f64, both layouts, 1x1 and odd maps; in the cbam mode zero planes
+   and two- and three-way ties of the max, the max and its count equal
+   to the plain version's), every call of the U-Net-CA step (9 launches
+   each), of FCN-CA's and PSPNet-CA's steps (16 each) and of
+   DeepLabV3-CA's bf16 512^2 b8 step (1 each, in the cbam mode) checked,
+   their device ms a step (by mode) from a profiler window, each kernel
+   timed on the U-Net-CA, FCN-CA and DeepLabV3-CA calls against its bound
+   (``se_kernel_rows``: launches, checked calls and ms by mode), and the
+   whole tail of each of those steps, forward and backward, in turns with
+   the torch-op route it replaced (``se_route_turns``,
+   ``cbam_route_turns``); and K12a-K13b (the spatial-attention gate in
    train mode, ``csrc/sa_train.cu``): their results against their plain
    versions at fixed shapes (``SA_SHAPES``: bf16, f32 and f64, both
    layouts, C 1 / 7 / 128 / 2048, 1x1 and odd maps, ties in the channel
@@ -2512,6 +2517,9 @@ def checked_train_calls(checked, record=None):
             "calls": 0, "batches": set(), "max_abs_err": 0.0,
             "differing": 0, "elements": 0, "seconds": 0.0})
         c["calls"] += 1
+        if n in SE_KERNELS:  # K10a-K11b's calls by mode
+            modes = c.setdefault("modes", {})
+            modes[a["mode"]] = modes.get(a["mode"], 0) + 1
         c["batches"].add(a["y" if bn else "dy" if "dy" in a else "x"]
                          .shape[0])
         c["max_abs_err"] = max(c["max_abs_err"], e)
@@ -2798,6 +2806,29 @@ SE_SHAPES = (
     (2, 256, 16, 16, "float64", False, "residual"),
     (2, 256, 16, 16, "float64", True, "scale"),
     (2, 2048, 64, 64, "float64", True, "residual"),
+) + (
+    # the cbam mode: DeepLabV3-CA's site (bf16 512^2 b8, head_conv's 256
+    # channels at 64^2) in each dtype and layout, reductions of 64 and 8
+    # slices a group or plane, odd planes and channel counts that take no
+    # vectors, 1x1 maps, a spatial mesh's slabs of 0 and 1 rows; every
+    # shape's x holds a zero plane and two- and three-way ties of the max
+    # (``se_inputs``)
+    (8, 256, 64, 64, "bfloat16", True, "cbam"),
+    (8, 256, 64, 64, "bfloat16", False, "cbam"),
+    (8, 256, 64, 64, "float32", True, "cbam"),
+    (8, 256, 64, 64, "float32", False, "cbam"),
+    (2, 256, 64, 64, "float64", True, "cbam"),
+    (2, 256, 64, 64, "float64", False, "cbam"),
+    (1, 64, 256, 256, "bfloat16", True, "cbam"),
+    (2, 8, 256, 256, "float32", False, "cbam"),
+    (2, 8, 256, 256, "float64", True, "cbam"),
+    (3, 48, 17, 19, "bfloat16", True, "cbam"),
+    (3, 48, 17, 19, "bfloat16", False, "cbam"),
+    (3, 40, 7, 5, "float32", True, "cbam"),
+    (3, 40, 7, 5, "float64", False, "cbam"),
+    (4, 32, 1, 1, "float32", True, "cbam"),
+    (8, 64, 0, 124, "bfloat16", True, "cbam"),
+    (8, 64, 1, 124, "float32", False, "cbam"),
 )
 # a spatial mesh's slabs of 0, 1 and 7 rows
 SE_SLAB_SHAPES = tuple(
@@ -2806,10 +2837,10 @@ SE_SLAB_SHAPES = tuple(
                             ("float32", False, "residual")))
 # passes over the (B, C, H, W) operand each kernel makes by mode (reads
 # and writes)
-SE_PASSES = {"se_squeeze": {"scale": 1, "residual": 1},
-             "se_excite": {"scale": 2, "residual": 3},
-             "se_grad_stats": {"scale": 2, "residual": 3},
-             "se_grad_apply": {"scale": 2, "residual": 4}}
+SE_PASSES = {"se_squeeze": {"scale": 1, "residual": 1, "cbam": 1},
+             "se_excite": {"scale": 2, "residual": 3, "cbam": 2},
+             "se_grad_stats": {"scale": 2, "residual": 3, "cbam": 2},
+             "se_grad_apply": {"scale": 2, "residual": 4, "cbam": 3}}
 # the kernels' device names (csrc/se_train.cu): se_reduce_* <..., false>
 # K10a, <..., true> K11a; se_apply_* likewise K10b, K11b
 SE_DEVICE = {("reduce", "false"): "se_squeeze",
@@ -2824,6 +2855,13 @@ def se_compare(name):
     import torch
 
     def sums(got, want):
+        if isinstance(want, tuple):  # K10a's cbam mode: (sums, max, count)
+            for g, w, what in zip(got[1:], want[1:], ("max", "count")):
+                if g.shape != w.shape or g.dtype != w.dtype \
+                        or not torch.equal(g, w):
+                    raise AssertionError(f"{name}: the {what} differs from "
+                                         "the plain version's")
+            got, want = got[0], want[0]
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name}: {got.shape} {got.dtype} vs "
                                  f"{want.shape} {want.dtype}")
@@ -2859,60 +2897,93 @@ def se_check_call(name, args, out=None):
     return se_compare(name)(out, getattr(S, name + "_plain")(**args))
 
 
-def se_inputs(dev, b, c, h, w, dtype, channels_last, seed):
+def plant_ties(x):
+    """Ties of the max over H and W in (B, C, H, W) ``x``, in place, as a
+    ReLU before a CBAM gate leaves them: plane (0, 0) all zero, every
+    fourth channel ReLU'd, plane (0, 1)'s max at two positions (the first
+    row and the last), plane (B - 1, 2)'s at three."""
+    b, c, h, w = x.shape
+    if h * w == 0:
+        return x
+    x[0, 0] = 0
+    x[:, 3::4].clamp_(min=0)
+    if c > 2 and h * w >= 3:
+        x[0, 1, 0, 0] = x[0, 1, h - 1, w - 1] = x[0, 1].max() + 0.5
+        top = x[b - 1, 2].max() + 0.25
+        x[b - 1, 2, 0, w - 1] = x[b - 1, 2, h // 2, 0] = top
+        x[b - 1, 2, h - 1, w // 2] = top
+    return x
+
+
+def se_inputs(dev, b, c, h, w, dtype, channels_last, seed, mode="scale"):
     """Seeded x, identity, dout (B, C, H, W), a gate (B, C) in the compute
-    dtype and a mean's cotangent dtot (B, C) in acc."""
+    dtype and a mean's cotangent dtot (B, C) in acc; in the cbam mode x
+    with ties planted (``plant_ties``) and a max's cotangent dmax (B, C)
+    in the compute dtype."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
     acc = torch.promote_types(dt, torch.float32)
 
-    def image(shift=0.0):
+    def image(shift=0.0, ties=False):
         t = (torch.randn((b, c, h, w), generator=g, device=dev)
              + shift).to(dt)
+        if ties:
+            plant_ties(t)
         return t.contiguous(memory_format=torch.channels_last) \
             if channels_last else t
 
-    return {"x": image(0.3), "identity": image(), "dout": image(),
+    return {"x": image(0.3, mode == "cbam"), "identity": image(),
+            "dout": image(),
             "gate": torch.rand((b, c), generator=g, device=dev).to(dt),
             "dtot": (torch.randn((b, c), generator=g, device=dev)
-                     * 1e-3).to(acc)}
+                     * 1e-3).to(acc),
+            "dmax": (torch.randn((b, c), generator=g, device=dev)
+                     * 1e-2).to(dt)}
 
 
 def se_steps(a, mode):
     """Argument sets of the four kernels on one site's inputs ``a`` in
-    ``mode``, the backward's saved output K10b's own."""
+    ``mode``, the backward's saved output K10b's own; in the cbam mode
+    K11b's max and count the plain K10a's."""
     from insarseg_torch.kernels import se_train as S
 
     r = a["identity"] if mode == "residual" else None
     out = S.se_excite(a["x"], a["gate"], r, mode) if r is not None else None
+    apply = {"dy": a["dout"], "gate": a["gate"], "dtot": a["dtot"],
+             "out": out, "mode": mode}
+    if mode == "cbam":
+        _, mx, count = S.se_squeeze_plain(a["x"], mode)
+        apply.update(x=a["x"], mx=mx, count=count, dmax=a["dmax"])
     return {
-        "se_squeeze": {"x": a["x"]},
+        "se_squeeze": {"x": a["x"], "mode": mode},
         "se_excite": {"x": a["x"], "gate": a["gate"], "identity": r,
                       "mode": mode},
         "se_grad_stats": {"dy": a["dout"], "x": a["x"], "out": out,
                           "mode": mode},
-        "se_grad_apply": {"dy": a["dout"], "gate": a["gate"],
-                          "dtot": a["dtot"], "out": out, "mode": mode},
+        "se_grad_apply": apply,
     }
 
 
 def check_se_fixed_shapes(dev, shapes=None) -> None:
     """K10a-K11b against their plain versions on the same inputs at fixed
-    shapes (``SE_SHAPES`` and ``SE_SLAB_SHAPES``: both modes, bf16, f32
-    and f64, NCHW and channels-last, 1x1 maps, odd maps, a spatial mesh's
-    slabs of 0, 1 and 7 rows), each kernel run twice and bit-equal to
-    itself; on a slab of no row each kernel launches once and returns
-    zero sums and empty outputs."""
+    shapes (``SE_SHAPES`` and ``SE_SLAB_SHAPES``: the three modes, bf16,
+    f32 and f64, NCHW and channels-last, 1x1 maps, odd maps, a spatial
+    mesh's slabs of 0, 1 and 7 rows; in the cbam mode K10a's max and
+    count equal to the plain version's, on planted ties), each kernel run
+    twice and bit-equal to itself; on a slab of no row each kernel
+    launches once and returns zero sums (cbam: max -inf, count 0) and
+    empty outputs. Logs the tied positions the cbam shapes held."""
     import torch
     from insarseg_torch import kernels as K
     from insarseg_torch.kernels import se_train as S
 
     worst = {k: [0.0, 0, 0] for k in SE_KERNELS}
+    ties = 0
     for i, shape in enumerate(shapes or SE_SHAPES):
         b, c, h, w, dtype, cl, mode = shape
-        a = se_inputs(dev, b, c, h, w, dtype, cl, SEED + 270 + i)
+        a = se_inputs(dev, b, c, h, w, dtype, cl, SEED + 270 + i, mode)
         K.reset_launches()
         steps = se_steps(a, mode)
         for name, args in steps.items():
@@ -2925,6 +2996,13 @@ def check_se_fixed_shapes(dev, shapes=None) -> None:
                 raise AssertionError(f"{name} on {shape} differs between "
                                      "two runs")
         torch.cuda.synchronize()
+        if mode == "cbam":
+            _, mx, count = S.se_squeeze(a["x"], mode)
+            ties += int(count[count > 1].sum())
+            if h == 0 and (bool((mx != -float("inf")).any())
+                           or bool(count.any())):
+                raise AssertionError(f"se_squeeze on a slab of no row "
+                                     f"({shape}): a max or a count")
         if h == 0:
             sums = [S.se_squeeze(a["x"]),
                     S.se_grad_stats(**steps["se_grad_stats"])]
@@ -2948,7 +3026,8 @@ def check_se_fixed_shapes(dev, shapes=None) -> None:
     torch.cuda.synchronize()
     log("K10a-K11b against their plain versions at fixed shapes (max "
         "|delta|, differing, elements): " + json.dumps(worst)
-        + "; the sums' largest |delta| / max|value| " + json.dumps(SE_WORST))
+        + "; the sums' largest |delta| / max|value| " + json.dumps(SE_WORST)
+        + f"; the cbam shapes' positions tied at a plane's max: {ties}")
 
 
 def se_cases(calls, path):
@@ -2967,16 +3046,20 @@ def se_cases(calls, path):
         for a in args:
             a = {k: v.detach() if isinstance(v, torch.Tensor) else v
                  for k, v in a.items()}
-            t = a.get("x", a.get("dy"))
+            t = a["x"] if a.get("x") is not None else a["dy"]
             b, c, h, w = t.shape
             mode = a.get("mode", "scale")
             vec = 8 * b * c if name in SE_SUMS else \
                 t.element_size() * b * c + (8 * b * c if "dtot" in a else 0)
+            if mode == "cbam" and name in ("se_squeeze", "se_grad_apply"):
+                # the max and the count (and K11b's dmax)
+                vec += (t.element_size() + 4) * b * c \
+                    + (t.element_size() * b * c if "dmax" in a else 0)
             lib = None
-            if name == "se_squeeze":
+            if name == "se_squeeze" and mode != "cbam":
                 lib = lambda t=t: torch.sum(t, dim=(2, 3),  # noqa: E731
                                             dtype=torch.float64)
-            elif name == "se_excite" and mode == "scale":
+            elif name == "se_excite" and mode in ("scale", "cbam"):
                 lib = lambda t=t, g=a["gate"]: torch.mul(  # noqa: E731
                     t, g[:, :, None, None])
             layout = "channels-last" if S.layout_of(t) else "NCHW"
@@ -2994,7 +3077,10 @@ def se_cases(calls, path):
 
 def se_device_ms(prof, steps: int) -> dict:
     """K10a-K11b's device ms a step in a profiler window of ``steps``
-    steps, by kernel."""
+    steps, by kernel (a step whose SE calls all run in one mode gives that
+    mode's: K10b and K11a run the scale code in the cbam mode, and K10a
+    the same code in the scale and residual modes, so the device names
+    do not tell the modes apart)."""
     import re
 
     out = {}
@@ -3031,15 +3117,43 @@ def se_torch_route(x, w1, w2, identity, mode):
     return torch.relu(out + identity) if mode == "residual" else out
 
 
+def cbam_torch_route(x, w1, w2):
+    """CBAM's channel gate as the port ran it in train mode before the
+    cbam mode of K10a-K11b, in torch ops under autograd: the mean and the
+    max over H and W, the shared MLP on each (the module's 1x1 convs on
+    (B, C, 1, 1) vectors, as linears), their sum's sigmoid, the
+    rescale."""
+    import torch
+    import torch.nn.functional as F
+
+    def mlp(v):
+        return F.linear(torch.relu(F.linear(v, w1.to(x.dtype))),
+                        w2.to(x.dtype))
+
+    y = torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))
+    return x * y[:, :, None, None]
+
+
 def se_route_turns(dev, sites, label, power_line, reps: int = 1) -> dict:
-    """The whole SE tail of one step, forward and backward at its recorded
-    sites (seeded MLP weights, the step's own x, identity and dout),
-    through ``se_train`` (K10a-K11b) and through the torch-op route it
-    replaced (``se_torch_route``), in turns (kernels, torch, torch,
-    kernels): device ms and the host's ms queueing it, a step
+    """The whole SE tail (or CBAM gate) of one step, forward and backward
+    at its recorded sites (seeded MLP weights, the step's own x, identity
+    and dout), through ``se_train`` (K10a-K11b; ``cbam_train`` for a site
+    in the cbam mode) and through the torch-op route it replaced
+    (``se_torch_route``, ``cbam_torch_route``), in turns (kernels, torch,
+    torch, kernels): device ms and the host's ms queueing it, a step
     (``device_ms``), the best of each route's turns."""
     import torch
-    from insarseg_torch.kernels.se_train import se_train
+    from insarseg_torch.kernels.se_train import cbam_train, se_train
+
+    def kernel_route(x, w1, w2, identity, mode):
+        if mode == "cbam":
+            return cbam_train(x, w1, w2)
+        return se_train(x, w1, w2, identity, mode)
+
+    def torch_route(x, w1, w2, identity, mode):
+        if mode == "cbam":
+            return cbam_torch_route(x, w1, w2)
+        return se_torch_route(x, w1, w2, identity, mode)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 60)
     ws = []
@@ -3059,7 +3173,7 @@ def se_route_turns(dev, sites, label, power_line, reps: int = 1) -> dict:
                                                          else []), dout)
         return run
 
-    routes = {"kernels": step(se_train), "torch": step(se_torch_route)}
+    routes = {"kernels": step(kernel_route), "torch": step(torch_route)}
     ms = {r: [] for r in routes}
     host = {r: [] for r in routes}
     for r in ("kernels", "torch", "torch", "kernels"):
@@ -3069,7 +3183,8 @@ def se_route_turns(dev, sites, label, power_line, reps: int = 1) -> dict:
     res = {"ms": {r: min(v) for r, v in ms.items()}, "turns": ms,
            "host_ms": {r: min(v) for r, v in host.items()},
            "sites": len(sites)}
-    log(f"  {label}: the SE tail of a step, forward and backward at its "
+    what = "CBAM gate" if sites[0][3] == "cbam" else "SE tail"
+    log(f"  {label}: the {what} of a step, forward and backward at its "
         f"{len(sites)} sites, K10a-K11b against the torch-op route in "
         "turns, device ms " + json.dumps(ms) + ", host ms queueing them "
         + json.dumps(host) + f"; on {power_line}")
@@ -3078,12 +3193,14 @@ def se_route_turns(dev, sites, label, power_line, reps: int = 1) -> dict:
 
 def se_kernel_rows(se_calls, launches, checked, power_line) -> list:
     """The rows of K10a-K11b: each kernel timed on the calls of U-Net-CA's
-    bf16 512^2 b8 step and FCN-CA's bf16 512^2 b2 step (``kernel_row``),
-    its launches and checked calls those of the steps' (U-Net-CA,
-    FCN-CA, PSPNet-CA), and the tail in turns with the torch-op route on
-    each of the two steps."""
-    log(f"each K10a-K11b call of the U-Net-CA and FCN-CA bf16 steps timed "
-        f"on its tensors, on {power_line}:")
+    bf16 512^2 b8 step, FCN-CA's bf16 512^2 b2 step and DeepLabV3-CA's
+    bf16 512^2 b8 step (``kernel_row``), its launches and checked calls
+    those of the steps' (U-Net-CA, FCN-CA, PSPNet-CA, DeepLabV3-CA), all
+    of these also by mode (a step's calls run in one mode, the one its
+    checked calls name), and the tail in turns with the torch-op route on
+    each of the timed steps."""
+    log(f"each K10a-K11b call of the U-Net-CA, FCN-CA and DeepLabV3-CA "
+        f"bf16 steps timed on its tensors, on {power_line}:")
     rows = []
     for kname, (wrapper, replaces) in SE_KERNELS.items():
         cases = []
@@ -3097,6 +3214,31 @@ def se_kernel_rows(se_calls, launches, checked, power_line) -> list:
             n[kname] for n in launches.values())
         row["train_checked"] = sum(c.get(kname, {}).get("calls", 0)
                                    for c in checked.values())
+        modes = {cell: list(c[kname]["modes"]) for cell, c in checked.items()}
+        if any(len(m) != 1 for m in modes.values()):
+            raise AssertionError(f"{kname}: a step's calls in several "
+                                 f"modes: {modes}")
+        by_mode = {k: {} for k in ("launches_by_mode", "checked_by_mode",
+                                   "ms_by_mode", "bound_ms_by_mode",
+                                   "library_ms_by_mode")}
+        for cell, n in launches.items():
+            mode = modes[cell][0]
+            for key, v in (("launches_by_mode", n[kname]),
+                           ("checked_by_mode",
+                            checked[cell][kname]["modes"][mode])):
+                by_mode[key][mode] = by_mode[key].get(mode, 0) + v
+        for cell in row["ms_by_path"]:
+            mode = modes[cell][0]
+            for key, src in (("ms_by_mode", row["ms_by_path"]),
+                             ("bound_ms_by_mode", row["bound_ms_by_path"]),
+                             ("library_ms_by_mode",
+                              row["library_ms_by_path"])):
+                d = by_mode[key]
+                d.setdefault(mode, None)
+                if src[cell] is not None:
+                    d[mode] = (d[mode] or 0.0) + src[cell]
+        row.update(by_mode)
+        log(f"  {kname} by mode: " + json.dumps(by_mode))
         rows.append(row)
     rows[0]["tail_turns"] = {
         cell: se_route_turns(calls["se_excite"][0]["x"].device,
@@ -3562,8 +3704,16 @@ def train_sa(dev, power_line) -> list:
 # mode) and FCN-CA's head has one BN, PSPNet-CA's five (the 1x1 bin among
 # them)
 RESNET_TRAIN = (("DeepLabV3-ResNet50", "deeplabv3", "none", BATCH),
+                ("DeepLabV3-ResNet50-CA", "deeplabv3", "channel", BATCH),
                 ("FCN-ResNet50-CA", "fcn", "channel", 2),
                 ("PSPNet-ResNet50-CA", "pspnet", "channel", 2))
+# K10a-K11b's launches of each kernel a step and their mode, by (family,
+# attention): FCN-CA's and PSPNet-CA's backbones have an SE block in each
+# of their 16 bottlenecks; DeepLabV3-CA's backbone has none, and its head
+# one CBAM channel gate (256 channels at 64^2 for a 512^2 tile)
+RESNET_SE = {("deeplabv3", "channel"): (1, "cbam"),
+             ("fcn", "channel"): (16, "residual"),
+             ("pspnet", "channel"): (16, "residual")}
 RESNET_MODES = {"deeplabv3": {"relu": 40, "none": 4, "residual": 16},
                 "fcn": {"relu": 34, "none": 20},
                 "pspnet": {"relu": 38, "none": 20}}
@@ -3626,14 +3776,16 @@ def train_resnet_bn(dev, power_line, se_calls, se_launches,
     each with the launch counters set to 0 just before and read just
     after, every K8a-K11b call held against its plain version
     (``checked_train_calls``): each of K8a-K9b launched once a BatchNorm,
-    the calls by mode ``RESNET_MODES``'; each of K10a-K11b once an SE
-    bottleneck (16 in the CA cells, none in DeepLabV3); every call
-    checked. For each, the bound of each of K8a-K9b by mode from the
-    calls' shapes; for DeepLabV3 those kernels' device ms by mode from a
-    profiler window of the step, for FCN-CA K10a-K11b's. Returns per cell
+    the calls by mode ``RESNET_MODES``'; each of K10a-K11b as
+    ``RESNET_SE`` says by family (16 a step in the residual mode in
+    FCN-CA and PSPNet-CA, once in the cbam mode in DeepLabV3-CA, none in
+    DeepLabV3), every call in that mode; every call checked. For each,
+    the bound of each of K8a-K9b by mode from the calls' shapes; for
+    DeepLabV3 those kernels' device ms by mode from a profiler window of
+    the step, for FCN-CA and DeepLabV3-CA K10a-K11b's. Returns per cell
     its launches, calls by mode, bounds and (DeepLabV3) ms; the CA cells'
     SE launches and checks go into ``se_launches`` and ``se_checked``,
-    FCN-CA's SE calls into ``se_calls``."""
+    FCN-CA's and DeepLabV3-CA's SE calls into ``se_calls``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from insarseg_torch import kernels as K
@@ -3654,7 +3806,7 @@ def train_resnet_bn(dev, power_line, se_calls, se_launches,
         for a in calls["bn_apply_relu"]:
             modes[a["mode"]] = modes.get(a["mode"], 0) + 1
         want = RESNET_MODES[name]
-        se_want = 16 if attention == "channel" else 0
+        se_want, se_mode = RESNET_SE.get((name, attention), (0, None))
         log(f"bf16 train step {label}, {HW}^2 b{batch}: K8a-K11b launches "
             f"{launches}, K8b's calls by mode {modes} (expected {want}); "
             "every call held against its plain version "
@@ -3671,11 +3823,16 @@ def train_resnet_bn(dev, power_line, se_calls, se_launches,
                 raise AssertionError(f"{label}: {k}: {n} launches, "
                                      f"{checked.get(k, {}).get('calls')} "
                                      "checked")
+            if k in SE_KERNELS and n and \
+                    checked[k]["modes"] != {se_mode: n}:
+                raise AssertionError(f"{label}: {k}'s calls by mode "
+                                     f"{checked[k]['modes']}, expected "
+                                     f"{ {se_mode: n} }")
         if se_want:
             se_launches[label] = {k: launches[k] for k in SE_KERNELS}
             se_checked[label] = {k: checked[k] for k in SE_KERNELS}
             se_recorded = {k: calls.pop(k) for k in SE_KERNELS}
-            if name == "fcn":
+            if name in ("fcn", "deeplabv3"):
                 se_calls[label] = se_recorded
             del se_recorded
         launches = {k: launches[k] for k in BN_KERNELS}
@@ -3696,18 +3853,21 @@ def train_resnet_bn(dev, power_line, se_calls, se_launches,
                 "checked": {k: c["calls"] for k, c in checked.items()},
                 "max_abs_err": {k: c["max_abs_err"]
                                 for k, c in checked.items()}}
-        if name == "fcn":
+        if se_want and name in ("fcn", "deeplabv3"):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(2):
                     step(state, x, m)
                 torch.cuda.synchronize()
-            se_ms = se_device_ms(prof, 2)
+            se_ms = se_device_ms(prof, 2)  # the cell's one mode
             se_checked[label]["device_ms"] = se_ms
-            log(f"  {label} bf16 step's SE tails under the profiler (2 "
-                f"steps): K10a-K11b device ms a step {json.dumps(se_ms)}, "
-                f"{sum(se_ms.values()):.4f} in all; on {power_line}")
-        if name == "deeplabv3":
+            se_checked[label]["mode"] = se_mode
+            cell["idle"] = device_idle_share(prof)
+            log(f"  {label} bf16 step's {se_mode}-mode K10a-K11b under the "
+                f"profiler (2 steps): device ms a step {json.dumps(se_ms)}, "
+                f"{sum(se_ms.values()):.4f} in all; device idle "
+                f"{cell['idle']}; on {power_line}")
+        if name == "deeplabv3" and attention == "none":
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(2):

@@ -89,13 +89,13 @@ _SIGNATURES = {
                                                   _d) + (_i,) * 4 + (_vp,),
     "insarseg_bn_relu_grad_apply": (_vp,) * 10 + (_ll, _ll, _i, _i, _d)
     + (_i,) * 4 + (_vp,),
-    "insarseg_se_squeeze": (_vp,) * 4 + (_ll, _ll, _i, _i, _ll) + (_i,) * 3
+    "insarseg_se_squeeze": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll) + (_i,) * 4
     + (_vp,),
     "insarseg_se_excite": (_vp,) * 4 + (_ll, _ll, _i, _i, _ll) + (_i,) * 4
     + (_vp,),
     "insarseg_se_grad_stats": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll)
     + (_i,) * 4 + (_vp,),
-    "insarseg_se_grad_apply": (_vp,) * 6 + (_ll, _ll, _i, _i, _ll)
+    "insarseg_se_grad_apply": (_vp,) * 9 + (_ll, _ll, _i, _i, _ll)
     + (_i,) * 4 + (_vp,),
     "insarseg_sa_pool": (_vp,) * 3 + (_ll, _ll) + (_i,) * 5 + (_vp,),
     "insarseg_sa_apply": (_vp,) * 3 + (_ll, _ll) + (_i,) * 5 + (_vp,),

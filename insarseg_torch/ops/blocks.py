@@ -18,7 +18,11 @@
   spatial context); eval mode runs the modules and torch ops;
 - :class:`ChannelAttentionModule` (DeepLab-CA, CBAM channel): avg- and
   max-pooled descriptors through one shared 1x1-conv MLP ``mlp.{0,2}``,
-  summed, sigmoid;
+  summed, sigmoid; in train mode one
+  ``kernels/se_train.py::cbam_train`` call (:func:`cbam_tail`: K10a-K11b
+  in their cbam mode on the card, the squeeze's sums, max and ties over
+  every slab under a spatial context); eval mode runs the pools, the MLP
+  and the rescale in torch ops;
 - :class:`SpatialAttentionDC` (U-Net-SA): channel mean and max ->
   ``compress_and_map`` = DoubleConv(2 -> 1) -> sigmoid -> per-pixel rescale;
 - :class:`SpatialAttentionConv` (DeepLab-SA / FCN-SA / PSPNet-SA, CBAM
@@ -43,7 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from insarseg_torch.kernels.sa_train import sa_tail
-from insarseg_torch.kernels.se_train import se_train
+from insarseg_torch.kernels.se_train import cbam_train, se_train
 from insarseg_torch.ops.layers import (
     Conv2d,
     Linear,
@@ -70,6 +74,18 @@ def se_tail(x: torch.Tensor, fc: nn.Sequential,
     return se_train(x, fc[0].weight, fc[2].weight, identity,
                     "scale" if identity is None else "residual", reduce,
                     count)
+
+
+def cbam_tail(x: torch.Tensor, mlp: nn.Sequential) -> torch.Tensor:
+    """A train-mode CBAM channel gate (the shared MLP ``mlp``'s ``mlp.0``
+    and ``mlp.2`` weights) as one ``cbam_train`` call. Under a spatial
+    context the squeeze's mean, max and ties run over the slabs and the
+    mean divides by the whole map's H W."""
+    comm = spatial.current()
+    count = None
+    if comm is not None:
+        count = spatial.rows_of(x, comm).height * x.shape[3]
+    return cbam_train(x, mlp[0].weight, mlp[2].weight, comm, count)
 
 
 class SELayer(nn.Module):
@@ -210,7 +226,8 @@ class SEBlock(nn.Module):
 
 
 class ChannelAttentionModule(nn.Module):
-    """sigmoid(MLP(avgpool(x)) + MLP(maxpool(x))) * x, one shared MLP."""
+    """sigmoid(MLP(avgpool(x)) + MLP(maxpool(x))) * x, one shared MLP; in
+    train mode :func:`cbam_tail`."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -221,6 +238,8 @@ class ChannelAttentionModule(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return cbam_tail(x, self.mlp)
         att = self.mlp(global_avg_pool(x)) + self.mlp(global_max_pool(x))
         return x * torch.sigmoid(att)
 

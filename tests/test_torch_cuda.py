@@ -31,6 +31,11 @@ channels-last, 1x1 and empty maps, channel counts that take no vectors
 and reductions of several slices: the f64 sums within 1e-12 of their
 largest value, K10b and K11b equal to their plain versions, K11a equal
 to itself on a second run; the train-mode ``DoubleConv(use_se=True)``
+launches each once and never a plain version; in the cbam mode, on
+the same shapes with ties planted in the max over H and W
+(``chip_smoke.py::se_inputs``), K10a's max and count equal to the plain
+version's and the sums within 1e-12, the other three at
+``chip_smoke.py``'s bars, and the train-mode ``ChannelAttentionModule``
 launches each once and never a plain version. The spatial-attention
 gate's K12a-K13b (``kernels/sa_train.py``) in bf16 / f32 / f64, NCHW and
 channels-last, C 1 / 7 / 64 / 2048, 1x1 and empty maps, ties in the
@@ -834,6 +839,42 @@ def test_se_train_equals_plain(dev, b, c, h, w, cl, dtype, mode):
     for a, e in zip(got if mode == "residual" else (got,),
                     want if mode == "residual" else (want,)):
         assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("b,c,h,w,cl", SE_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_cbam_train_equals_plain(dev, b, c, h, w, cl, dtype):
+    import chip_smoke as C
+    from insarseg_torch.kernels import se_train as S
+
+    a = C.se_inputs(dev, b, c, h, w, dtype, cl, b * c + h + w, "cbam")
+    before = dict(K.LAUNCHES)
+    for name, args in C.se_steps(a, "cbam").items():
+        got = getattr(S, name)(**args)
+        C.se_compare(name)(got, getattr(S, name + "_plain")(**args))
+        assert C._same_result(got, getattr(S, name)(**args))
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in C.SE_KERNELS} == \
+        dict.fromkeys(C.SE_KERNELS, 2)
+
+
+def test_train_cbam_gate_launches_the_kernels(dev, monkeypatch):
+    from insarseg_torch.kernels import se_train as S
+    from insarseg_torch.ops.blocks import ChannelAttentionModule
+
+    names = ("se_squeeze", "se_excite", "se_grad_stats", "se_grad_apply")
+    for name in names:
+        monkeypatch.setattr(S, name + "_plain", pytest.fail)
+    m = ChannelAttentionModule(64).to(dev).train()
+    x = torch.relu(torch.randn(2, 64, 16, 16, device=dev,
+                               dtype=torch.bfloat16)).requires_grad_(True)
+    before = {k: K.LAUNCHES[k] for k in names}
+    m(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in names} == \
+        dict.fromkeys(names, 1)
+    assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()
+    assert m.mlp[0].weight.grad is not None
 
 
 # K12a-K13b (kernels/sa_train.py): (B, C, H, W, channels-last); the

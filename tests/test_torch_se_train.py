@@ -347,15 +347,19 @@ def test_each_mode_reaches_the_launchers(monkeypatch, mode, dtype):
         "insarseg_se_grad_stats", "insarseg_se_grad_apply"]
     code, m = S.DTYPES[tdt], S.MODES[mode]
     red, app = S.reduce_plan(x), S.apply_plan(x)
-    assert launched[0][2][-4:-1] == (code, red.layout, red.vec)
-    for _, _, args in launched[1:]:  # the dtype, layout, vec and mode codes
+    assert launched[0][2][-5:-2] == (code, red.layout, red.vec)
+    for _, _, args in launched:  # the dtype, layout, vec and mode codes
         assert args[-5] == code and args[-2] == m
     assert launched[1][2][-4:-2] == (app.layout, app.vec)
+    # K10a's max and count, and K11b's, and the max's cotangent, only in
+    # the cbam mode
+    assert launched[0][2][4:6] == (None, None)
+    assert launched[3][2][4:7] == (None, None, None)
     # K11b's second output (the identity's gradient) and K10b / K11a /
     # K11b's third operand only in the residual mode
     apply_args = launched[3][2]
     assert (apply_args[1] is not None) == (mode == "residual")
-    assert (apply_args[5] is not None) == (mode == "residual")
+    assert (apply_args[8] is not None) == (mode == "residual")
     assert (launched[1][2][2] is not None) == (mode == "residual")
     assert (launched[2][2][2] is not None) == (mode == "residual")
     if mode == "residual":

@@ -43,7 +43,8 @@ from torch import nn
 CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
-# family -> (model, attention, batch, steps), all at 32^2
+# family -> (model, attention, batch, steps[, the Adam eps of both
+# packages, default 1e-8]), all at 32^2
 FAMILIES = {
     "deeplabv3": ("deeplabv3", "none", 2, 3),
     "fcn-ca": ("fcn", "channel", 2, 3),
@@ -178,37 +179,24 @@ def test_train_step_at_batch_1_is_finite(name):
 # float64 train steps against the JAX package's (one subprocess)
 # ---------------------------------------------------------------------------
 
-def _run_families(families):
-    """Runs in its own process with JAX_ENABLE_X64=1: per family, the JAX
-    step and the port's step from the same weights on the same batches;
-    prints one JSON line."""
+def _f64_pools():
+    """Both packages' pyramid pools from an f64 integral image, and the
+    JAX PSPNet's dropout off (in a process of its own: patches modules)."""
     import types
 
     import flax.linen as fnn
     import jax
     import jax.numpy as jnp
-    import optax
 
     jax.config.update("jax_default_matmul_precision", "highest")
     import insarseg.models.pspnet as JP
-    from insarseg.models.deeplab import DeepLabV3
-    from insarseg.models.fcn import FCN
-    from insarseg.train import engine as JE
-    from insarseg_torch.compat import (
-        pspnet_variables_to_torch,
-        segmentation_variables_to_torch,
-        state_dict_to_torch,
-    )
-    from insarseg_torch.models.registry import build
     from insarseg_torch.ops import layers as TL
-    from insarseg_torch.train import engine as TE
 
     # the JAX PSPNet's Dropout(0.1) has no rate field: dropout off through
     # the names its module reads
     names = {k: getattr(fnn, k) for k in dir(fnn) if not k.startswith("__")}
     names["Dropout"] = lambda rate, deterministic=True: (lambda y: y)
     JP.nn = types.SimpleNamespace(**names)
-    # both packages' pyramid pools from an f64 integral image
     jax_pool = JP.adaptive_avg_pool_2d
 
     def jax_pool_f64(x, output_size):
@@ -229,91 +217,147 @@ def _run_families(families):
 
     JP.adaptive_avg_pool_2d = jax_pool_f64
     TL.integral_image = integral_image_f64
+
+
+def family_cell(fam):
+    """One family's float64 cell (after :func:`_f64_pools`, under
+    JAX_ENABLE_X64): the JAX state and step, the port's model, state and
+    step from the same weights, the two batches, ``to_torch`` (a JAX
+    variables tree as the port's state_dict of numpy arrays) and
+    ``stat_diff`` (the largest running-statistic distance now). A
+    family's fifth field, where it has one, is the Adam eps of both
+    packages (the JAX ``TrainState``'s ``tx``, the port's optimizer's
+    ``param_groups``; else both packages' default, 1e-8)."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import insarseg.models.pspnet as JP
+    from insarseg.models.deeplab import DeepLabV3
+    from insarseg.models.fcn import FCN
+    from insarseg.train import engine as JE
+    from insarseg_torch.compat import (
+        pspnet_variables_to_torch,
+        segmentation_variables_to_torch,
+        state_dict_to_torch,
+    )
+    from insarseg_torch.models.registry import build
+    from insarseg_torch.train import engine as TE
+
+    name, attention, batch, steps = FAMILIES[fam][:4]
+    eps = FAMILIES[fam][4] if len(FAMILIES[fam]) > 4 else 1e-8
+    if name == "deeplabv3":
+        jmodel = DeepLabV3(2, attention, dropout_rate=0.0)
+    elif name == "fcn":
+        jmodel = FCN(2, attention, dropout_rate=0.0)
+    else:
+        jmodel = JP.PSPNet(2, attention)
+    rng = np.random.default_rng(0)
+    batches = [(rng.standard_normal((batch, SIZE, SIZE, 1)),
+                rng.integers(0, 2, (batch, SIZE, SIZE)).astype(np.int32))
+               for _ in range(2)]
+    # the JAX tree's shapes, filled with numpy draws (an eager JAX init
+    # of a ResNet-50 takes ~26 s here): LeCun-normal kernels, conv
+    # biases and BN betas N(0, 0.1), BN gamma 1, statistics 0 and 1.
+    # Not beta 0: at batch 1 an SE block's squeeze of its train-mode
+    # BN's output is that BN's batch mean, beta, so at beta 0 its MLP's
+    # ReLU sits at its kink with inputs of ~1e-17, whose signs each
+    # package's summation order decides (the SE weights' gradients are
+    # ~1e-17 in both; the bn3 betas' gradients then differ by up to
+    # 60%, which Adam's first step turns into +-lr)
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                            jnp.zeros((1, SIZE, SIZE, 1)))
+
+    def fill(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = fill(v)
+                continue
+            if k == "kernel":
+                a = rng.normal(0, np.sqrt(1.0 / np.prod(v.shape[:-1])),
+                               v.shape)
+            elif k in ("scale", "var"):
+                a = np.ones(v.shape)
+            elif k == "bias":  # a conv bias, a BN beta
+                a = rng.normal(0, 0.1, v.shape)
+            else:  # a running mean
+                a = np.zeros(v.shape)
+            out[k] = jnp.asarray(a, jnp.float64)
+        return out
+
+    params, stats = fill(shapes["params"]), fill(shapes["batch_stats"])
+    tx = optax.adam(LR, b1=0.9, b2=0.999, eps=eps)
+    jstate = JE.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=stats, opt_state=tx.init(params),
+                           tx=tx)
+    jstep = JE.make_train_step(jmodel, 2)
+
+    def to_torch(variables):
+        if name == "pspnet":
+            return pspnet_variables_to_torch(variables, attention)
+        return segmentation_variables_to_torch(variables, name, attention)
+
+    tmodel = build(name, attention).double()
+    tmodel.load_state_dict(state_dict_to_torch(to_torch(
+        {"params": params, "batch_stats": stats})), strict=True)
+    for m in tmodel.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    tstate = TE.create_state(tmodel, LR, device=CPU)
+    for group in tstate.optimizer.param_groups:
+        group["eps"] = eps
+    tstep = TE.make_train_step(tmodel, 2)
+    cell = types.SimpleNamespace(jstate=jstate, jstep=jstep, tmodel=tmodel,
+                                 tstate=tstate, tstep=tstep,
+                                 batches=batches, steps=steps,
+                                 to_torch=to_torch)
+
+    def stat_diff():
+        want = to_torch({"params": cell.jstate.params,
+                         "batch_stats": cell.jstate.batch_stats})
+        got = tmodel.state_dict()
+        return max(float(np.abs(want[k] - got[k].numpy()).max())
+                   for k in want if k.endswith(("running_mean",
+                                                "running_var")))
+
+    cell.stat_diff = stat_diff
+    return cell
+
+
+def step_both(cell, s):
+    """Step ``s`` (from 0) of both packages on the cell's batches: (the
+    JAX loss, the port's)."""
+    import jax
+    import jax.numpy as jnp
+
+    x, m = cell.batches[s % 2]
+    cell.jstate, jo = cell.jstep(cell.jstate, jnp.asarray(x),
+                                 jnp.asarray(m), jax.random.key(100 + s))
+    return float(jo["loss"]), float(cell.tstep(
+        cell.tstate, torch.from_numpy(x), torch.from_numpy(m))["loss"])
+
+
+def _run_families(families):
+    """Runs in its own process with JAX_ENABLE_X64=1: per family, the JAX
+    step and the port's step from the same weights on the same batches;
+    prints one JSON line."""
+    _f64_pools()
     torch.set_num_threads(1)
     out = {}
     for fam in families:
-        name, attention, batch, steps = FAMILIES[fam]
-        if name == "deeplabv3":
-            jmodel = DeepLabV3(2, attention, dropout_rate=0.0)
-        elif name == "fcn":
-            jmodel = FCN(2, attention, dropout_rate=0.0)
-        else:
-            jmodel = JP.PSPNet(2, attention)
-        rng = np.random.default_rng(0)
-        batches = [(rng.standard_normal((batch, SIZE, SIZE, 1)),
-                    rng.integers(0, 2, (batch, SIZE, SIZE)).astype(np.int32))
-                   for _ in range(2)]
-        # the JAX tree's shapes, filled with numpy draws (an eager JAX init
-        # of a ResNet-50 takes ~26 s here): LeCun-normal kernels, conv
-        # biases and BN betas N(0, 0.1), BN gamma 1, statistics 0 and 1.
-        # Not beta 0: at batch 1 an SE block's squeeze of its train-mode
-        # BN's output is that BN's batch mean, beta, so at beta 0 its MLP's
-        # ReLU sits at its kink with inputs of ~1e-17, whose signs each
-        # package's summation order decides (the SE weights' gradients are
-        # ~1e-17 in both; the bn3 betas' gradients then differ by up to
-        # 60%, which Adam's first step turns into +-lr)
-        shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
-                                jnp.zeros((1, SIZE, SIZE, 1)))
-
-        def fill(node):
-            out = {}
-            for k, v in node.items():
-                if isinstance(v, dict):
-                    out[k] = fill(v)
-                    continue
-                if k == "kernel":
-                    a = rng.normal(0, np.sqrt(1.0 / np.prod(v.shape[:-1])),
-                                   v.shape)
-                elif k in ("scale", "var"):
-                    a = np.ones(v.shape)
-                elif k == "bias":  # a conv bias, a BN beta
-                    a = rng.normal(0, 0.1, v.shape)
-                else:  # a running mean
-                    a = np.zeros(v.shape)
-                out[k] = jnp.asarray(a, jnp.float64)
-            return out
-
-        params, stats = fill(shapes["params"]), fill(shapes["batch_stats"])
-        tx = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
-        jstate = JE.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                               batch_stats=stats, opt_state=tx.init(params),
-                               tx=tx)
-        jstep = JE.make_train_step(jmodel, 2)
-
-        def to_torch(variables):
-            if name == "pspnet":
-                return pspnet_variables_to_torch(variables, attention)
-            return segmentation_variables_to_torch(variables, name,
-                                                   attention)
-
-        tmodel = build(name, attention).double()
-        tmodel.load_state_dict(state_dict_to_torch(to_torch(
-            {"params": params, "batch_stats": stats})), strict=True)
-        for m in tmodel.modules():
-            if isinstance(m, nn.Dropout):
-                m.p = 0.0
-        tstate = TE.create_state(tmodel, LR, device=CPU)
-        tstep = TE.make_train_step(tmodel, 2)
-        def stat_diff():
-            want = to_torch({"params": jstate.params,
-                             "batch_stats": jstate.batch_stats})
-            got = tmodel.state_dict()
-            return max(float(np.abs(want[k] - got[k].numpy()).max())
-                       for k in want if k.endswith(("running_mean",
-                                                    "running_var")))
-
+        cell = family_cell(fam)
         jl, tl, first = [], [], None
-        for s in range(steps):
-            x, m = batches[s % 2]
-            jstate, jo = jstep(jstate, jnp.asarray(x), jnp.asarray(m),
-                               jax.random.key(100 + s))
-            jl.append(float(jo["loss"]))
-            tl.append(float(tstep(tstate, torch.from_numpy(x),
-                                  torch.from_numpy(m))["loss"]))
+        for s in range(cell.steps):
+            j, t = step_both(cell, s)
+            jl.append(j)
+            tl.append(t)
             if s == 0:
-                first = stat_diff()
+                first = cell.stat_diff()
         out[fam] = {"jax": jl, "torch": tl, "stat_diff_1": first,
-                    "stat_diff": stat_diff()}
+                    "stat_diff": cell.stat_diff()}
     print("RESULT " + json.dumps(out))
 
 
